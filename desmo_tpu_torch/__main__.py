@@ -1,0 +1,102 @@
+"""Command-line interface: ``python -m desmo_tpu_torch <command>``.
+
+    python -m desmo_tpu_torch presets
+    python -m desmo_tpu_torch run --preset cylinder --synthetic --epochs 2000
+    python -m desmo_tpu_torch run --preset cylinder --npz snapshots.npz --device cpu
+
+``run`` trains on the GPU by default and raises when there is none; the plain
+PyTorch path runs only with ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+
+
+def cmd_presets(_args) -> int:
+    from desmo_tpu_torch import configs
+
+    for name in configs.names():
+        cfg = configs.get(name)
+        print(
+            f"{name:18s} variant={cfg.variant:8s} n={cfg.n:6d} m={cfg.m:5d} "
+            f"r={cfg.r} P={cfg.poly_order} epochs={cfg.num_epochs}"
+        )
+    return 0
+
+
+def cmd_run(args) -> int:
+    from desmo_tpu_torch import configs, runner
+
+    if args.mesh:
+        raise NotImplementedError(
+            "desmo_tpu_torch does not run a device mesh (--mesh) yet (ROADMAP queue 1, item 8)"
+        )
+    cfg = configs.get(args.preset)
+    if args.epochs is not None:
+        cfg = dataclasses.replace(cfg, num_epochs=args.epochs)
+    x, _mesh = runner.load_data(
+        cfg,
+        data_dir=args.data_dir,
+        filename=args.filename,
+        extension=args.extension,
+        array=args.array,
+        location=args.location,
+        t_start=args.t_start,
+        t_end=args.t_end,
+        npz_path=args.npz,
+        synthetic=args.synthetic,
+        dim=args.dim,
+    )
+    artifacts = runner.run(cfg, x, out_dir=args.out_dir, device=args.device)
+    summary = {
+        "preset": cfg.name,
+        "device": args.device,
+        "relative_error": artifacts.relative_error,
+        "pod_error_r": artifacts.pod_error_r,
+        "pod_error_2r": artifacts.pod_error_2r,
+        # null when the run fits in its first (untimed) chunk
+        "steps_per_sec": None if math.isnan(artifacts.steps_per_sec) else artifacts.steps_per_sec,
+        "out_dir": artifacts.out_dir,
+    }
+    print(json.dumps(summary))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="desmo_tpu_torch", description=__doc__)
+    sub = parser.add_subparsers(dest="command", required=True)
+    sub.add_parser("presets", help="list named experiment presets")
+
+    p_run = sub.add_parser("run", help="train a preset end to end")
+    p_run.add_argument("--preset", required=True)
+    p_run.add_argument("--data-dir", default=None, help="directory of VTK snapshots")
+    p_run.add_argument("--filename", default="velocity_", help="snapshot basename")
+    p_run.add_argument("--extension", default=".vtu")
+    p_run.add_argument("--array", default="velocity", help="VTK array name")
+    p_run.add_argument("--location", default="point", choices=["point", "cell"])
+    p_run.add_argument("--t-start", type=int, default=0)
+    p_run.add_argument("--t-end", type=int, default=None)
+    p_run.add_argument("--npz", default=None, help="npz file with key 'X' instead of VTK")
+    p_run.add_argument("--synthetic", action="store_true", help="generate synthetic data")
+    p_run.add_argument("--dim", type=int, default=None, choices=[2, 3])
+    p_run.add_argument("--epochs", type=int, default=None, help="override preset epochs")
+    p_run.add_argument("--out-dir", default="./runs")
+    p_run.add_argument(
+        "--mesh", default=None, metavar="SPEC",
+        help="multi-device sharding, as in desmo_tpu: not ported yet (raises)",
+    )
+    p_run.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="cuda (default; raises without a GPU) or cpu (plain PyTorch twins)",
+    )
+
+    args = parser.parse_args(argv)
+    return {"presets": cmd_presets, "run": cmd_run}[args.command](args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

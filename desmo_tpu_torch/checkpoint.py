@@ -1,0 +1,105 @@
+"""Checkpoints: ``.npz`` run state, ``.pt`` export in the reference's key
+scheme, and weights carried over from the JAX package.
+
+Port of ``save_state``, ``state_dict_from_params`` and
+``params_from_state_dict`` from ``desmo_tpu/checkpoint.py`` (desmo variant).
+``save_state`` writes the same flat keys as the JAX package
+(``params/<key>``, ``opt/count``, ``opt/mu/<key>``, ``opt/nu/<key>``,
+``sched/lrs``, ``sched/best``, ``sched/num_bad``, ``epoch``), so
+``desmo_tpu.checkpoint.load_state`` reads the port's files; the ``.pt`` files
+read back through ``desmo_tpu.checkpoint.load_pt`` and ``torch.load``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from desmo_tpu_torch.train import TrainState
+
+_TRIG = ("sin", "cos", "tanh")
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def state_dict_from_params(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The reference's ``ParameterList`` key scheme (``phi_list.0``,
+    ``c_coef``, ``z_list.*``, ``zsin_list.*``, ``sin_coef_list.*``,
+    ``omega_list.{3i+k}``, ...), as contiguous CPU tensors."""
+    p = {k: v.detach().cpu() for k, v in params.items()}
+    r = p["phi"].shape[0]
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(r):
+        sd[f"phi_list.{i}"] = p["phi"][i]
+    sd["c_coef"] = p["c"]
+    for t in range(p["z"].shape[0]):
+        sd[f"z_list.{t}"] = p["z"][t]
+    for kind_idx, kind in enumerate(_TRIG):
+        for i in range(r):
+            sd[f"z{kind}_list.{i}"] = p["z_trig"][kind_idx, i]
+    for kind_idx, kind in enumerate(_TRIG):
+        for i in range(r):
+            sd[f"{kind}_coef_list.{i}"] = p["c_trig"][kind_idx, i]
+    for i in range(r):
+        for k in range(3):
+            sd[f"omega_list.{3 * i + k}"] = p["omega"][k, i]
+    return {k: v.contiguous().clone() for k, v in sd.items()}
+
+
+def params_from_state_dict(sd: Mapping, device: torch.device | str) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`state_dict_from_params`; values may be tensors or arrays."""
+
+    def collect(prefix: str) -> np.ndarray:
+        items = []
+        while f"{prefix}.{len(items)}" in sd:
+            items.append(_host(sd[f"{prefix}.{len(items)}"]))
+        if not items:
+            raise KeyError(f"no entries for {prefix!r}")
+        return np.stack(items)
+
+    def scalar(key: str) -> float:
+        return float(_host(sd[key]).reshape(()))
+
+    phi = collect("phi_list")
+    r = phi.shape[0]
+    params = {
+        "phi": phi,
+        "c": _host(sd["c_coef"]),
+        "z": collect("z_list"),
+        "z_trig": np.stack([collect(f"z{k}_list") for k in _TRIG]),
+        "c_trig": np.array([[scalar(f"{k}_coef_list.{i}") for i in range(r)] for k in _TRIG]),
+        # omega_list[3i+k] -> omega[k, i]
+        "omega": np.array([scalar(f"omega_list.{j}") for j in range(3 * r)]).reshape(r, 3).T,
+    }
+    return params_from_jax(params, device)
+
+
+def params_from_jax(np_params: Mapping[str, np.ndarray], device: torch.device | str) -> dict[str, torch.Tensor]:
+    """The JAX package's parameters (as numpy arrays, same keys and shapes)
+    as the port's float32 tensors on ``device``."""
+    return {
+        k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32), device=device)
+        for k, v in np_params.items()
+    }
+
+
+def save_pt(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """``torch.save`` of a state dict of CPU tensors."""
+    torch.save(dict(state_dict), path)
+
+
+def save_state(path: str, state: TrainState) -> None:
+    """Write the full training state to a flat ``.npz`` (JAX package keys)."""
+    flat = {f"params/{k}": _host(v) for k, v in state.params.items()}
+    flat["opt/count"] = np.asarray(state.count, np.int32)
+    flat.update({f"opt/mu/{k}": _host(v) for k, v in state.mu.items()})
+    flat.update({f"opt/nu/{k}": _host(v) for k, v in state.nu.items()})
+    flat["sched/lrs"] = _host(state.sched.lrs)
+    flat["sched/best"] = _host(state.sched.best)
+    flat["sched/num_bad"] = _host(state.sched.num_bad)
+    flat["epoch"] = np.asarray(state.epoch, np.int32)
+    np.savez(path, **flat)

@@ -1,0 +1,148 @@
+"""Fused dual contraction ``(ax, xb) = (Aᵀ X, X Bᵀ)`` and the factored MSE
+built on it. Port of ``desmo_tpu/pallas/dual_gemm.py``.
+
+The factored loss' gradients are
+
+    dL/dA = (2/nm) (A (B Bᵀ) - X Bᵀ)      dL/dB = (2/nm) ((AᵀA) B - Aᵀ X)
+
+so both X-dependent products are known at forward time: the CUDA kernel
+(``csrc/dual_gemm.cu``) reads X once per call and returns both, and
+``FactoredMSEFused`` keeps X out of the backward pass, so X is read once per
+optimizer step. X stays fp32: the bf16 hi/lo split of the TPU kernel does not
+carry over (see the note in the CUDA source).
+
+``dual_contractions`` takes its plain twin (``dual_contractions_plain``) for
+CPU tensors only. On a CUDA tensor it launches the kernel or raises; every
+launch adds one to ``dual_contractions.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from desmo_tpu_torch import device as device_mod
+from desmo_tpu_torch.kernels import _build
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("dual_gemm")
+    lib.desmo_dual_tile_rows.argtypes = []
+    lib.desmo_dual_tile_rows.restype = ctypes.c_int
+    lib.desmo_dual_max_k.argtypes = []
+    lib.desmo_dual_max_k.restype = ctypes.c_int
+    lib.desmo_dual_splits.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.desmo_dual_splits.restype = ctypes.c_int
+    lib.desmo_dual_contractions.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p
+    ]
+    lib.desmo_dual_contractions.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _plan(device_index: int, n: int, m: int) -> tuple[int, int]:
+    """``(n_tiles, n_splits)``: how many (K, m) partials of ax and (n, K)
+    partials of xb the kernel writes for an (n, m) X on this device."""
+    lib = _lib()
+    with torch.cuda.device(device_index):
+        n_splits = lib.desmo_dual_splits(n, m)
+    if n_splits <= 0:
+        raise RuntimeError(f"dual_contractions: device query failed with CUDA error {-n_splits}")
+    return -(-n // lib.desmo_dual_tile_rows()), n_splits
+
+
+def dual_contractions_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
+    """``(a.T @ x, x @ b.T)`` with ``torch.matmul`` in full fp32."""
+    device_mod.fp32_matmul()
+    return a.T @ x, x @ b.T
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> None:
+    for name, t in (("a", a), ("b", b), ("x", x)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(
+                f"dual_contractions: {name} must be a contiguous 2-D float32 tensor, "
+                f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+            )
+    n, k = a.shape
+    if b.shape[0] != k or x.shape != (n, b.shape[1]):
+        raise ValueError(
+            f"dual_contractions: shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
+            f"x {tuple(x.shape)} do not form a (n, K), b (K, m), x (n, m)"
+        )
+    if not a.device == b.device == x.device:
+        raise ValueError(
+            f"dual_contractions: tensors on {a.device}, {b.device}, {x.device}"
+        )
+
+
+def dual_contractions(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
+    """``(ax, xb) = (a.T @ x, x @ b.T)`` reading x once.
+
+    a: (n, K), b: (K, m), x: (n, m), contiguous float32 on one device;
+    returns (K, m) and (n, K)."""
+    _check(a, b, x)
+    if x.device.type == "cpu":
+        return dual_contractions_plain(a, b, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"dual_contractions: unsupported device {x.device}")
+    lib = _lib()
+    n, k = a.shape
+    m = b.shape[1]
+    if k > lib.desmo_dual_max_k():
+        raise ValueError(f"dual_contractions: K={k} exceeds the kernel's {lib.desmo_dual_max_k()}")
+    n_tiles, n_splits = _plan(x.device.index, n, m)
+    with torch.cuda.device(x.device):
+        f32 = dict(dtype=torch.float32, device=x.device)
+        ax, xb = torch.empty((k, m), **f32), torch.empty((n, k), **f32)
+        ax_part = torch.empty((n_tiles, k, m), **f32)
+        xb_part = torch.empty((n_splits, n, k), **f32)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.desmo_dual_contractions(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), ax_part.data_ptr(), xb_part.data_ptr(),
+            ax.data_ptr(), xb.data_ptr(), n, m, k, n_splits, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"dual_contractions: kernel launch failed with CUDA error {rc}")
+    dual_contractions.launches += 1
+    return ax, xb
+
+
+dual_contractions.launches = 0
+
+
+class FactoredMSEFused(torch.autograd.Function):
+    """``mean((a @ b - x)^2)`` with one fused read of x and an x-free backward.
+
+    Port of ``factored_mse_fused``'s custom VJP. Saves only the (n, K),
+    (K, m) and (K, K) residuals; x gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, x, x_sq):
+        device_mod.fp32_matmul()
+        ax, xb = dual_contractions(a, b, x)
+        ga = a.T @ a
+        gb = b @ b.T
+        nm = a.shape[0] * b.shape[1]
+        val = (torch.sum(ga * gb) - 2.0 * torch.sum(ax * b) + x_sq) / nm
+        ctx.save_for_backward(a, b, ax, xb, ga, gb)
+        ctx.nm = nm
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, ax, xb, ga, gb = ctx.saved_tensors
+        scale = 2.0 * g / ctx.nm
+        da = scale * (a @ gb - xb) if ctx.needs_input_grad[0] else None
+        db = scale * (ga @ b - ax) if ctx.needs_input_grad[1] else None
+        dx_sq = g / ctx.nm if ctx.needs_input_grad[3] else None
+        return da, db, None, dx_sq
+
+
+def factored_mse_fused(a, b, x, x_sq):
+    """Functional form of :class:`FactoredMSEFused`."""
+    return FactoredMSEFused.apply(a, b, x, x_sq)
