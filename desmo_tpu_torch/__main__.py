@@ -3,9 +3,12 @@
     python -m desmo_tpu_torch presets
     python -m desmo_tpu_torch run --preset cylinder --synthetic --epochs 2000
     python -m desmo_tpu_torch run --preset cylinder --npz snapshots.npz --device cpu
+    python -m desmo_tpu_torch run --preset cylinder --synthetic --chunk-method scan
 
 ``run`` trains on the GPU by default and raises when there is none; the plain
-PyTorch path runs only with ``--device cpu``.
+PyTorch path runs only with ``--device cpu``. ``--chunk-method`` sets the
+preset's ``chunk_method``: ``auto`` runs the mega-kernel on a GPU and the
+eager loop on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ def cmd_run(args) -> int:
     cfg = configs.get(args.preset)
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, num_epochs=args.epochs)
+    if args.chunk_method is not None:
+        cfg = dataclasses.replace(cfg, chunk_method=args.chunk_method)
     x, _mesh = runner.load_data(
         cfg,
         data_dir=args.data_dir,
@@ -55,6 +60,7 @@ def cmd_run(args) -> int:
     summary = {
         "preset": cfg.name,
         "device": args.device,
+        "chunk_method": cfg.chunk_method,
         "relative_error": artifacts.relative_error,
         "pod_error_r": artifacts.pod_error_r,
         "pod_error_2r": artifacts.pod_error_2r,
@@ -91,7 +97,12 @@ def main(argv=None) -> int:
     )
     p_run.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
-        help="cuda (default; raises without a GPU) or cpu (plain PyTorch twins)",
+        help="cuda (default; raises without a GPU) or cpu (plain PyTorch versions of the kernels)",
+    )
+    p_run.add_argument(
+        "--chunk-method", default=None, choices=["auto", "scan", "megakernel"],
+        help="override the preset's RunConfig.chunk_method: auto (the mega-kernel on a GPU), "
+        "scan (the eager loop) or megakernel",
     )
 
     args = parser.parse_args(argv)

@@ -17,6 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from desmo_tpu_torch import optim
 from desmo_tpu_torch.train import TrainState
 
 _TRIG = ("sin", "cos", "tanh")
@@ -82,9 +83,33 @@ def params_from_jax(np_params: Mapping[str, np.ndarray], device: torch.device | 
     """The JAX package's parameters (as numpy arrays, same keys and shapes)
     as the port's float32 tensors on ``device``."""
     return {
-        k: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float32), device=device)
+        k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
         for k, v in np_params.items()
     }
+
+
+def state_from_jax(np_state, device: torch.device | str) -> TrainState:
+    """The JAX package's ``train.TrainState`` (``params``, ``opt.count``,
+    ``opt.mu``, ``opt.nu``, ``sched.lrs``, ``sched.best``, ``sched.num_bad``,
+    ``epoch``; leaves as numpy arrays) as the port's :class:`TrainState` on
+    ``device``, so both packages can start from the same mid-run state."""
+    opt, sched = np_state.opt, np_state.sched
+
+    def f32(v):
+        return torch.as_tensor(np.array(v, dtype=np.float32), device=device)
+
+    return TrainState(
+        params=params_from_jax(np_state.params, device),
+        mu=params_from_jax(opt.mu, device),
+        nu=params_from_jax(opt.nu, device),
+        count=int(np.asarray(opt.count)),
+        sched=optim.PlateauState(
+            lrs=f32(sched.lrs),
+            best=f32(sched.best).reshape(()),
+            num_bad=torch.as_tensor(np.array(sched.num_bad, dtype=np.int32), device=device).reshape(()),
+        ),
+        epoch=int(np.asarray(np_state.epoch)),
+    )
 
 
 def save_pt(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:

@@ -10,6 +10,7 @@ CUDA tensor builds. A failed build raises with the compiler's output.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -75,6 +76,13 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(names: list[str]) -> dict[str, Path]:
+    """Build several sources at once, one ``nvcc`` process each; returns each
+    library's path by name."""
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

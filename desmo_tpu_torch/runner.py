@@ -15,10 +15,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from desmo_tpu import data as data_mod
-from desmo_tpu.logging_utils import MetricsLogger
 from desmo_tpu_torch import checkpoint, configs, losses, pod, sparsify, train
+from desmo_tpu_torch import data as data_mod
 from desmo_tpu_torch import device as device_mod
+from desmo_tpu_torch.kernels import train_chunk
+from desmo_tpu_torch.logging_utils import MetricsLogger
 from desmo_tpu_torch.models import desmo as desmo_model
 
 
@@ -53,7 +54,7 @@ def load_data(
     if dim is None:
         dim = cfg.dim
     if synthetic:
-        from desmo_tpu.io import synthetic as synth
+        from desmo_tpu_torch.io import synthetic as synth
 
         return synth.cylinder_wake(cfg.n, cfg.m, seed=cfg.seed), None
     mesh = None
@@ -61,7 +62,7 @@ def load_data(
         with np.load(npz_path) as d:
             x = d["X"].astype(np.float32)
     elif data_dir is not None:
-        from desmo_tpu.io import native, vtk as vio
+        from desmo_tpu_torch.io import native, vtk as vio
 
         stop = t_end if t_end is not None else t_start + cfg.m * cfg.time_stride
         x = None
@@ -107,8 +108,6 @@ def check_supported(cfg: configs.RunConfig) -> None:
     todo = []
     if cfg.variant != "desmo":
         todo.append(f"variant {cfg.variant!r} (ROADMAP queue 1, items 5 and 7)")
-    if cfg.chunk_method == "megakernel":
-        todo.append("chunk_method='megakernel' (ROADMAP queue 2, item 3)")
     if cfg.n_seeds > 1 or cfg.sweep_beta or cfg.sweep_lam or cfg.sweep_lr_scale:
         todo.append("multi-seed and hyperparameter multi-start (ROADMAP queue 1, item 6)")
     if cfg.pod_method != "host":
@@ -158,9 +157,11 @@ def run(
 
     Writes ``<out_dir>/<name>/``: the CSV/JSONL metrics, ``state_final.npz``,
     ``<name>_r<r>_final.pt`` and, every ``checkpoint_every`` epochs,
-    ``state_epoch<N>.npz`` and ``<name>_r<r>_epoch<N>.pt``. ``ga_single_pass``
-    is a setting of the TPU mega-kernel and is ignored here, as the JAX
-    package's scanned path ignores it."""
+    ``state_epoch<N>.npz`` and ``<name>_r<r>_epoch<N>.pt``. The chunks run
+    through the mega-kernel or the eager loop as
+    ``kernels.train_chunk.select_chunk`` decides. ``ga_single_pass`` is a
+    TPU shortcut of the mega-kernel's Gram and is ignored: the port's kernel
+    computes the exact Gram."""
     dev = device_mod.resolve(device)
     cfg = dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1])
     check_supported(cfg)
@@ -185,6 +186,7 @@ def run(
         num_epochs=n_epochs,
         log=(lambda line: print(line, flush=True)) if echo else None,
         checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
+        chunk=train_chunk.select_chunk(spec, cfg, dev),
     )
     for i in range(0, result.state.epoch, cfg.log_every):
         logger.log_epoch(i, n_epochs, {k: v[i] for k, v in result.history.items()})

@@ -9,11 +9,14 @@ in the order of ``desmo_tpu.train.make_train_chunk``:
 3. the plateau scheduler, stepped with the pre-update total when
    ``epoch % sched_every == 0``.
 
-Epochs run in chunks. A chunk's metrics stay on the device and are fetched
-once at its end, where the loop checks for a non-finite loss, prints the
-reference-format epoch lines and calls ``checkpoint_fn`` on its cadence.
-Steps/s leave out the first chunk, which pays for the kernels' build and the
-allocator's warm-up.
+Epochs run in chunks of the contract ``chunk(state, batch, num_steps) ->
+(state, metrics)`` of ``desmo_tpu/train.py``: the eager loop here
+(:func:`make_train_chunk`) or the mega-kernel
+(``kernels.train_chunk.fused_train_chunk``). A chunk's metrics stay on the
+device and are fetched once at its end, where the loop checks for a
+non-finite loss, prints the reference-format epoch lines and calls
+``checkpoint_fn`` on its cadence. Steps/s leave out the first chunk, which
+pays for the kernels' build and the allocator's warm-up.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from desmo_tpu_torch.configs import GROUP_ORDER, RunConfig
 
 LossFn = Callable[[dict, dict], tuple[torch.Tensor, dict]]
 """(params, batch) -> (total_loss, metrics dict with 'rec', 'ortho', 'l1')."""
+
+ChunkFn = Callable[["TrainState", dict, int], tuple["TrainState", dict]]
+"""(state, batch, num_steps) -> (state, metrics dict of (num_steps,) tensors)."""
 
 METRICS = ("rec", "ortho", "l1", "total")
 
@@ -81,55 +87,21 @@ class FlatLayout:
         return {k: p.view(self.shapes[k]) for k, p in zip(self.keys, parts)}
 
 
-@dataclasses.dataclass
-class TrainResult:
-    state: TrainState
-    history: dict[str, np.ndarray]  # per-epoch metrics
-    steps_per_sec: float
-    wall_seconds: float
+def make_train_chunk(loss_fn: LossFn, group_of: dict[str, str], cfg: RunConfig) -> ChunkFn:
+    """The eager chunk: ``chunk(state, batch, num_steps) -> (state, metrics)``
+    running ``num_steps`` epochs one PyTorch operation at a time.
 
+    The parameters and both Adamax moments travel as one packed vector each
+    inside the chunk; ``metrics`` holds one (num_steps,) device tensor per
+    key of ``METRICS``."""
 
-def fit(
-    loss_fn: LossFn,
-    group_of: dict[str, str],
-    cfg: RunConfig,
-    params: dict,
-    batch: dict,
-    num_epochs: Optional[int] = None,
-    chunk_size: Optional[int] = None,
-    log: Optional[Callable[[str], None]] = print,
-    checkpoint_fn: Optional[Callable[[TrainState, int], None]] = None,
-) -> TrainResult:
-    """Run training for ``num_epochs`` (default ``cfg.num_epochs``).
-
-    ``checkpoint_fn(state, epoch)`` runs every ``cfg.checkpoint_every``
-    epochs and after the last one, at chunk boundaries. A non-finite loss at
-    the end of a chunk raises ``FloatingPointError``."""
-    num_epochs = cfg.num_epochs if num_epochs is None else num_epochs
-    state = init_state(params, cfg)
-    if num_epochs <= 0:
-        return TrainResult(state=state, history={}, steps_per_sec=float("nan"), wall_seconds=0.0)
-    chunk_size = chunk_size or min(cfg.checkpoint_every, num_epochs)
-    layout = FlatLayout(state.params, group_of)
-    vec = layout.flatten(state.params)
-    mu, nu = layout.flatten(state.mu), layout.flatten(state.nu)
-    opt = optim.AdamaxState(state.count, mu, nu)
-    sched, epoch = state.sched, state.epoch
-
-    def snapshot() -> TrainState:
-        return TrainState(
-            layout.unflatten(vec), layout.unflatten(opt.mu), layout.unflatten(opt.nu),
-            opt.count, sched, epoch,
-        )
-
-    histories: list[dict] = []
-    t0 = None  # starts after the first chunk
-    first_chunk = 0
-    done = 0
-    while done < num_epochs:
-        n = min(chunk_size, num_epochs - done)
+    def chunk(state: TrainState, batch: dict, num_steps: int):
+        layout = FlatLayout(state.params, group_of)
+        vec = layout.flatten(state.params)
+        opt = optim.AdamaxState(state.count, layout.flatten(state.mu), layout.flatten(state.nu))
+        sched, epoch = state.sched, state.epoch
         rows = []
-        for _ in range(n):
+        for _ in range(num_steps):
             leaf = vec.detach().requires_grad_(True)
             total, metrics = loss_fn(layout.unflatten(leaf), batch)
             (grad,) = torch.autograd.grad(total, leaf)
@@ -143,8 +115,76 @@ def fit(
                     )
                 rows.append(torch.stack([metrics["rec"], metrics["ortho"], metrics["l1"], total]))
             epoch += 1
-        fetched = torch.stack(rows).cpu().numpy()  # the chunk's one host sync
-        chunk_metrics = {k: fetched[:, i] for i, k in enumerate(METRICS)}
+        out = TrainState(
+            layout.unflatten(vec), layout.unflatten(opt.mu), layout.unflatten(opt.nu),
+            opt.count, sched, epoch,
+        )
+        stacked = torch.stack(rows)
+        return out, {k: stacked[:, i] for i, k in enumerate(METRICS)}
+
+    return chunk
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: TrainState
+    history: dict[str, np.ndarray]  # per-epoch metrics
+    steps_per_sec: float
+    wall_seconds: float
+    # max |omega*latent| the chunk reported (the mega-kernel does); 0.0 when
+    # the chunk reports none
+    max_abs_trig_arg: float = 0.0
+
+
+def fit(
+    loss_fn: LossFn,
+    group_of: dict[str, str],
+    cfg: RunConfig,
+    params: dict,
+    batch: dict,
+    num_epochs: Optional[int] = None,
+    chunk_size: Optional[int] = None,
+    log: Optional[Callable[[str], None]] = print,
+    checkpoint_fn: Optional[Callable[[TrainState, int], None]] = None,
+    *,
+    state: Optional[TrainState] = None,
+    chunk: Optional[ChunkFn] = None,
+) -> TrainResult:
+    """Run, or resume from ``state``, ``num_epochs`` (default
+    ``cfg.num_epochs``) epochs of training.
+
+    ``chunk(state, batch, num_steps) -> (state, metrics)`` runs one chunk of
+    epochs; the default is the eager loop (:func:`make_train_chunk`), and
+    ``kernels.train_chunk.select_chunk`` gives the mega-kernel's. A chunk's
+    ``max_arg`` metric (max |omega*latent| per epoch) is taken out of the
+    history into ``TrainResult.max_abs_trig_arg``. ``checkpoint_fn(state,
+    epoch)`` runs every ``cfg.checkpoint_every`` epochs and after the last
+    one, at chunk boundaries. A non-finite loss at the end of a chunk raises
+    ``FloatingPointError``."""
+    num_epochs = cfg.num_epochs if num_epochs is None else num_epochs
+    if state is None:
+        state = init_state(params, cfg)
+    if num_epochs <= 0:
+        return TrainResult(state=state, history={}, steps_per_sec=float("nan"), wall_seconds=0.0)
+    chunk_size = chunk_size or min(cfg.checkpoint_every, num_epochs)
+    train_chunk = chunk or make_train_chunk(loss_fn, group_of, cfg)
+
+    histories: list[dict] = []
+    max_abs_trig_arg = 0.0
+    start_epoch = state.epoch
+    end_epoch = start_epoch + num_epochs
+    t0 = None  # starts after the first chunk
+    first_chunk = 0
+    done = start_epoch
+    while done < end_epoch:
+        n = min(chunk_size, end_epoch - done)
+        state, metrics = train_chunk(state, batch, n)
+        # the chunk's one host sync
+        fetched = torch.stack([metrics[k] for k in metrics]).cpu().numpy()
+        chunk_metrics = {k: fetched[i] for i, k in enumerate(metrics)}
+        max_arg = chunk_metrics.pop("max_arg", None)
+        if max_arg is not None:
+            max_abs_trig_arg = max(max_abs_trig_arg, float(np.max(max_arg)))
         if not np.isfinite(chunk_metrics["total"][-1]):
             bad = int(np.argmax(~np.isfinite(chunk_metrics["total"])))
             raise FloatingPointError(
@@ -156,19 +196,22 @@ def fit(
         histories.append(chunk_metrics)
         if log is not None:
             for i in range(done, done + n):
-                if i % cfg.log_every == 0 or i == num_epochs - 1:
+                if i % cfg.log_every == 0 or i == end_epoch - 1:
                     j = i - done
                     log(
-                        f"Epoch [{i + 1}/{num_epochs}], "
+                        f"Epoch [{i + 1}/{end_epoch}], "
                         f"Rec Loss: {chunk_metrics['rec'][j]:.12f}, "
                         f"Spatial ortho loss: {chunk_metrics['ortho'][j]:.8f}, "
                         f"L1 loss: {chunk_metrics['l1'][j]:.4f} "
                     )
         done += n
-        if checkpoint_fn is not None and (done % cfg.checkpoint_every == 0 or done == num_epochs):
-            checkpoint_fn(snapshot(), done)
+        if checkpoint_fn is not None and (done % cfg.checkpoint_every == 0 or done == end_epoch):
+            checkpoint_fn(state, done)
     wall = time.perf_counter() - t0
-    steps_timed = done - first_chunk
+    steps_timed = done - start_epoch - first_chunk
     sps = steps_timed / wall if wall > 0 and steps_timed > 0 else float("nan")
     history = {k: np.concatenate([h[k] for h in histories]) for k in METRICS}
-    return TrainResult(state=snapshot(), history=history, steps_per_sec=sps, wall_seconds=wall)
+    return TrainResult(
+        state=state, history=history, steps_per_sec=sps, wall_seconds=wall,
+        max_abs_trig_arg=max_abs_trig_arg,
+    )

@@ -1,5 +1,7 @@
-"""The port runs where jax is not installed: the package and its CLI, in a
-subprocess whose import system refuses ``jax`` and ``jaxlib``."""
+"""The port runs where jax is not installed and imports nothing of the JAX
+package: the package, ``chip_smoke`` and the CLI, in a subprocess whose
+import system refuses ``jax``, ``jaxlib`` and ``desmo_tpu`` (but not
+``desmo_tpu_torch``)."""
 
 import json
 import os
@@ -16,8 +18,8 @@ _BLOCK_JAX = """
 import sys
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ModuleNotFoundError(f"jax is blocked in this process: {name}")
+        if name.split(".")[0] in ("jax", "jaxlib", "desmo_tpu"):
+            raise ModuleNotFoundError(f"jax and desmo_tpu are blocked in this process: {name}")
         return None
 sys.meta_path.insert(0, _NoJax())
 """
@@ -27,10 +29,16 @@ MODULES = [
     "desmo_tpu_torch.__main__",
     "desmo_tpu_torch.checkpoint",
     "desmo_tpu_torch.configs",
+    "desmo_tpu_torch.data",
     "desmo_tpu_torch.device",
+    "desmo_tpu_torch.io.native",
+    "desmo_tpu_torch.io.synthetic",
+    "desmo_tpu_torch.io.vtk",
     "desmo_tpu_torch.kernels._build",
     "desmo_tpu_torch.kernels.dual_gemm",
+    "desmo_tpu_torch.kernels.train_chunk",
     "desmo_tpu_torch.library",
+    "desmo_tpu_torch.logging_utils",
     "desmo_tpu_torch.losses",
     "desmo_tpu_torch.models.desmo",
     "desmo_tpu_torch.optim",
@@ -38,7 +46,9 @@ MODULES = [
     "desmo_tpu_torch.runner",
     "desmo_tpu_torch.sparsify",
     "desmo_tpu_torch.train",
+    "chip_smoke",
 ]
+_BLOCKED = ("jax", "jaxlib", "desmo_tpu")
 
 
 def _run(code: str, tmp_path, timeout: int = 120):
@@ -54,28 +64,56 @@ def test_package_imports_without_jax(tmp_path):
         "import importlib\n"
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)\n"
-        "try:\n"
-        "    import jax\n"
-        "except ModuleNotFoundError:\n"
-        "    print('blocked')\n"
+        f"assert not any(m.split('.')[0] in {_BLOCKED!r} for m in sys.modules)\n"
+        f"for name in {_BLOCKED!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(name)\n"
+        "    except ModuleNotFoundError:\n"
+        "        print('blocked', name)\n"
     )
     proc = _run(code, tmp_path)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "blocked"
+    assert proc.stdout.split("\n")[:3] == [f"blocked {name}" for name in _BLOCKED]
+
+
+def test_sources_import_nothing_of_desmo_tpu():
+    """No line of the port or of ``chip_smoke.py`` imports ``desmo_tpu``,
+    lazily or not (the driver's check:
+    ``grep -rnE "^\\s*(from|import) desmo_tpu(\\.| |$)"``)."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"^\s*(from|import) desmo_tpu(\.| |$)")
+    files = sorted(Path(REPO, "desmo_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
+    assert len(files) > 20 and hits == []
 
 
 def test_cli_run_without_jax(tmp_path):
+    """The CLI at full width on the CPU through the preset's chunk method
+    (``auto``: the eager loop on the CPU)."""
+    _cli_run(tmp_path, None)
+
+
+def test_cli_run_megakernel_without_jax(tmp_path):
+    """The CLI at full width on the CPU through the mega-kernel's chunk (its
+    plain version on the CPU)."""
+    _cli_run(tmp_path, "megakernel")
+
+
+def _cli_run(tmp_path, chunk_method):
     out_dir = tmp_path / "runs"
+    extra = [] if chunk_method is None else ["--chunk-method", chunk_method]
     code = (
         "import runpy\n"
         "sys.argv = ['desmo_tpu_torch', 'run', '--preset', 'cylinder', '--synthetic', "
-        f"'--epochs', '3', '--device', 'cpu', '--out-dir', {str(out_dir)!r}]\n"
+        f"'--epochs', '3', '--device', 'cpu', '--out-dir', {str(out_dir)!r}] + {extra!r}\n"
         "runpy.run_module('desmo_tpu_torch', run_name='__main__')\n"
     )
     proc = _run(code, tmp_path)
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["preset"] == "cylinder" and summary["device"] == "cpu"
+    assert summary["chunk_method"] == (chunk_method or "auto")
     files = os.listdir(out_dir / "cylinder")
     assert "cylinder_r4_final.pt" in files and "state_final.npz" in files

@@ -99,7 +99,7 @@ def test_state_dict_matches_jax_key_scheme(tmp_path):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ({"chunk_method": "megakernel"}, "queue 2, item 3"),
+        ({"run_greedy_prune": True}, "queue 1, item 3"),
         ({"variant": "fourier"}, "queue 1, items 5 and 7"),
         ({"n_seeds": 2}, "queue 1, item 6"),
         ({"pod_method": "snapshots"}, "queue 1, item 9"),
