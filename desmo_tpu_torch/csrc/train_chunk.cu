@@ -51,10 +51,19 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRT = 32;   // rows per tile
-constexpr int kCW = 32;   // columns of X per staged chunk (xb)
+constexpr int kWarps = kThreads / 32;
+constexpr int kRT = 32;   // rows per tile of the rows phase
+constexpr int kCW = 64;   // columns of X per staged chunk (xb)
 constexpr int kSW = 8;    // columns per sub-slab (ax)
+constexpr int kRT3 = 64;  // rows per staged tile of the columns phase
 constexpr int kMaxK = 128;
+// values each thread prefetches into registers for the next staged tile
+constexpr int kPrefX1 = kRT * kCW / kThreads;   // rows phase, X
+constexpr int kPrefX3 = kRT3 * kSW / kThreads;  // columns phase, X
+
+// The kernel is compiled for K padded to KP = 32, 48, 64 or 128, so that the
+// register tiles and loops over k have fixed sizes.
+__host__ __device__ constexpr int padded_k(int K) { return K <= 32 ? 32 : K <= 48 ? 48 : K <= 64 ? 64 : 128; }
 constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
 constexpr int kAugW = kMaxR + 1;  // [1 | lat] per row
@@ -110,11 +119,14 @@ __host__ __device__ inline Layout make_layout(int n, int r, int K, int G) {
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 
-// Shared floats of the row phase, the largest of the phases.
+// Shared floats of the larger of the rows and columns phases.
 __host__ __device__ inline int smem_floats(int r, int T, int K) {
-  const int S = K + 1;
-  return round4(T * kMaxP) + round4(K) + round4(3 * r) + K * K + kRT * kAugW + 4 * kRT * S +
-         kRT * (kCW + 1) + K * (kCW + 1) + kThreads + round4(K) + round4(3 * r);
+  const int S = K + 1, KP = padded_k(K);
+  const int rows = round4(T * kMaxP) + round4(K) + round4(3 * r) + K * K + kRT * kAugW +
+                   4 * kRT * S + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
+                   round4(3 * r);
+  const int columns = K * K + kRT3 * K + KP + kRT3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads;
+  return rows > columns ? rows : columns;
 }
 
 #ifndef DESMO_EMULATED_GRID
@@ -237,7 +249,10 @@ __device__ void reduce_gb(const Args& a, const Layout& L, int parity) {
 }
 
 // Phase 1: forward, xb, dA, dl and the per-block partials over the block's rows.
+template <int KP>
 __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step) {
+  constexpr int kXC = KP / 16;                   // xb: k = tx + 16c, c < kXC
+  constexpr int kPrefB1 = KP * kCW / kThreads;   // B values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int n = a.n, m = a.m, r = a.r, P = a.P, T = a.T, K = a.K, S = K + 1;
   const float two_nm = (float)(2.0 / ((double)n * m));
@@ -252,7 +267,7 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step)
   float* V_s = p;   p += kRT * S;  // d D / d arg on the trig columns, 0 on the polynomial ones
   float* Y_s = p;   p += kRT * S;  // xb, then dA
   float* X_s = p;   p += kRT * (kCW + 1);
-  float* B_s = p;   p += K * (kCW + 1);
+  float* B_s = p;   p += KP * (kCW + 1);  // rows K..KP-1 stay zero
   float* red = p;   p += kThreads;
   float* cacc = p;  p += round4(K);
   float* oacc = p;
@@ -315,38 +330,53 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step)
       const int i = e / K, k = e % K;
       A_g[(long long)(r0 + i) * K + k] = A_s[i * S + k];
     }
-    // xb[i][k] = sum_j X[r0 + i][j] * B[k][j]: rows ty and ty + 16, k = tx + 16c
+    // xb[i][k] = sum_j X[r0 + i][j] * B[k][j]: rows ty and ty + 16, k = tx + 16c.
+    // The next chunk of X and B is loaded into registers while this one is used.
     {
       const int tx = t % 16, ty = t / 16;
-      float acc[2][kMaxK / 16];
+      float acc[2][kXC];
 #pragma unroll
-      for (int c = 0; c < kMaxK / 16; ++c) acc[0][c] = acc[1][c] = 0.f;
+      for (int c = 0; c < kXC; ++c) acc[0][c] = acc[1][c] = 0.f;
+      float px[kPrefX1], pb[kPrefB1];
+      auto fetch = [&](int j0) {
+#pragma unroll
+        for (int u = 0; u < kPrefX1; ++u) {
+          const int e = t + kThreads * u, i = e / kCW, col = j0 + e % kCW;
+          px[u] = (i < rows && col < m) ? a.x[(long long)(r0 + i) * m + col] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kPrefB1; ++u) {
+          const int e = t + kThreads * u, k = e / kCW, col = j0 + e % kCW;
+          pb[u] = (k < K && col < m) ? a.b[(long long)k * m + col] : 0.f;
+        }
+      };
+      fetch(0);
       for (int j0 = 0; j0 < m; j0 += kCW) {
         __syncthreads();
-        for (int e = t; e < kRT * kCW; e += kThreads) {
-          const int i = e / kCW, jj = e % kCW, col = j0 + jj;
-          X_s[i * (kCW + 1) + jj] = (i < rows && col < m) ? a.x[(long long)(r0 + i) * m + col] : 0.f;
+#pragma unroll
+        for (int u = 0; u < kPrefX1; ++u) {
+          const int e = t + kThreads * u;
+          X_s[(e / kCW) * (kCW + 1) + e % kCW] = px[u];
         }
-        for (int e = t; e < K * kCW; e += kThreads) {
-          const int k = e / kCW, jj = e % kCW, col = j0 + jj;
-          B_s[k * (kCW + 1) + jj] = col < m ? a.b[(long long)k * m + col] : 0.f;
+#pragma unroll
+        for (int u = 0; u < kPrefB1; ++u) {
+          const int e = t + kThreads * u;
+          B_s[(e / kCW) * (kCW + 1) + e % kCW] = pb[u];
         }
         __syncthreads();
+        if (j0 + kCW < m) fetch(j0 + kCW);
         for (int jj = 0; jj < kCW; ++jj) {
           const float x0 = X_s[ty * (kCW + 1) + jj], x1 = X_s[(ty + 16) * (kCW + 1) + jj];
 #pragma unroll
-          for (int c = 0; c < kMaxK / 16; ++c) {
-            const int k = tx + 16 * c;
-            if (k < K) {
-              const float bv = B_s[k * (kCW + 1) + jj];
-              acc[0][c] = fmaf(x0, bv, acc[0][c]);
-              acc[1][c] = fmaf(x1, bv, acc[1][c]);
-            }
+          for (int c = 0; c < kXC; ++c) {
+            const float bv = B_s[(tx + 16 * c) * (kCW + 1) + jj];
+            acc[0][c] = fmaf(x0, bv, acc[0][c]);
+            acc[1][c] = fmaf(x1, bv, acc[1][c]);
           }
         }
       }
 #pragma unroll
-      for (int c = 0; c < kMaxK / 16; ++c) {
+      for (int c = 0; c < kXC; ++c) {
         const int k = tx + 16 * c;
         if (k < K) {
           Y_s[ty * S + k] = acc[0][c];
@@ -439,7 +469,10 @@ __device__ void reduce_phase(const Args& a, const Layout& L) {
 
 // Phase 3: phi Adamax of the block's rows; ax, gB, the B Adamax and the next
 // B Bᵀ partial over the block's column slab.
+template <int KP>
 __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
+  constexpr int kKq = (KP + 31) / 32;              // ax: lane owns k = lane + 32q, q < kKq
+  constexpr int kPrefA3 = kRT3 * KP / kThreads;    // A values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int n = a.n, m = a.m, r = a.r, K = a.K, S = K + 1;
   const float two_nm = (float)(2.0 / ((double)n * m));
@@ -470,11 +503,12 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
 
   float* ga_s = smem;
   float* p = smem + L.kk;
-  float* As = p;   p += kRT * S;
-  float* Xs = p;   p += kRT * kSW;
+  float* As = p;   p += kRT3 * K + KP;  // lanes with k >= K read past the tile and are dropped
+  float* Xs = p;   p += kRT3 * kSW;
   float* Bo = p;   p += K * kSW;
   float* Bn = p;   p += K * kSW;
   float* ax_s = p; p += K * kSW;
+  float* wred = p; p += kWarps * K * kSW;
   float* red = p;
   for (int e = t; e < L.kk; e += kThreads) ga_s[e] = sums[e];
   float* part_gb = a.work + L.part_gb + (long long)b * L.kk;
@@ -482,42 +516,74 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
   float cross = 0.f;
   const long long km = (long long)K * m;
   const int W = (m + G - 1) / G, col_begin = b * W, col_end = min(m, col_begin + W);
-  constexpr int kOut = kMaxK * kSW / kThreads;  // outputs (k, jj) per thread
+  const int lane = t % 32, warp = t / 32;
   for (int j0 = col_begin; j0 < col_end; j0 += kSW) {
     const int w = min(kSW, col_end - j0);
-    float acc[kOut];
+    // ax[k][jj] over all rows: lane owns k = lane + 32q and all kSW columns,
+    // warp owns the rows of each staged tile that are warp mod kWarps. The
+    // next tile of A and X is loaded into registers while this one is used.
+    float acc[kKq][kSW];
 #pragma unroll
-    for (int q = 0; q < kOut; ++q) acc[q] = 0.f;
-    for (int i0 = 0; i0 < n; i0 += kRT) {
-      const int rows = min(kRT, n - i0);
-      __syncthreads();
-      for (int e = t; e < kRT * K; e += kThreads) {
-        const int i = e / K, k = e % K;
-        As[i * S + k] = i < rows ? A_g[(long long)(i0 + i) * K + k] : 0.f;
+    for (int q = 0; q < kKq; ++q)
+#pragma unroll
+      for (int jj = 0; jj < kSW; ++jj) acc[q][jj] = 0.f;
+    float pa[kPrefA3], px[kPrefX3];
+    auto fetch = [&](int i0) {
+      const int rows = min(kRT3, n - i0);
+      const float* src = A_g + (long long)i0 * K;  // the tile's rows of A are contiguous
+#pragma unroll
+      for (int u = 0; u < kPrefA3; ++u) {
+        const int e = t + kThreads * u;
+        pa[u] = e < rows * K ? src[e] : 0.f;
       }
-      for (int e = t; e < kRT * kSW; e += kThreads) {
-        const int i = e / kSW, jj = e % kSW;
-        Xs[e] = (i < rows && jj < w) ? a.x[(long long)(i0 + i) * m + j0 + jj] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kPrefX3; ++u) {
+        const int e = t + kThreads * u, i = e / kSW, jj = e % kSW;
+        px[u] = (i < rows && jj < w) ? a.x[(long long)(i0 + i) * m + j0 + jj] : 0.f;
       }
+    };
+    fetch(0);
+    for (int i0 = 0; i0 < n; i0 += kRT3) {
+      const int rows = min(kRT3, n - i0);
       __syncthreads();
 #pragma unroll
-      for (int q = 0; q < kOut; ++q) {
-        const int o = t + kThreads * q;
-        if (o < K * kSW) {
-          const int k = o / kSW, jj = o % kSW;
-          for (int i = 0; i < rows; ++i) acc[q] = fmaf(As[i * S + k], Xs[i * kSW + jj], acc[q]);
+      for (int u = 0; u < kPrefA3; ++u) {
+        const int e = t + kThreads * u;
+        if (e < kRT3 * K + KP) As[e] = pa[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kPrefX3; ++u) Xs[t + kThreads * u] = px[u];
+      __syncthreads();
+      if (i0 + kRT3 < n) fetch(i0 + kRT3);
+      for (int i = warp; i < rows; i += kWarps) {
+        float xv[kSW];
+#pragma unroll
+        for (int jj = 0; jj < kSW; ++jj) xv[jj] = Xs[i * kSW + jj];
+#pragma unroll
+        for (int q = 0; q < kKq; ++q) {
+          const float av = As[i * K + lane + 32 * q];
+#pragma unroll
+          for (int jj = 0; jj < kSW; ++jj) acc[q][jj] = fmaf(av, xv[jj], acc[q][jj]);
         }
       }
     }
     __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kKq; ++q) {
+      const int k = lane + 32 * q;
+      if (k < K)
+#pragma unroll
+        for (int jj = 0; jj < kSW; ++jj) wred[(warp * K + k) * kSW + jj] = acc[q][jj];
+    }
     for (int e = t; e < K * kSW; e += kThreads) {
       const int k = e / kSW, jj = e % kSW;
       Bo[e] = jj < w ? a.b[(long long)k * m + j0 + jj] : 0.f;
     }
-#pragma unroll
-    for (int q = 0; q < kOut; ++q) {
-      const int o = t + kThreads * q;
-      if (o < K * kSW) ax_s[o] = acc[q];
+    __syncthreads();
+    for (int o = t; o < K * kSW; o += kThreads) {
+      float sum = 0.f;
+      for (int ww = 0; ww < kWarps; ++ww) sum += wred[ww * K * kSW + o];  // in warp order
+      ax_s[o] = sum;
     }
     __syncthreads();
     // sum(ax * B), gB = 2/nm (ga B - ax) and the B Adamax
@@ -609,7 +675,8 @@ __device__ void finalize(const Args& a, const Layout& L, float* smem, int step) 
   }
 }
 
-__global__ void __launch_bounds__(kThreads) train_chunk_kernel(Args a) {
+template <int KP>
+__global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   float* smem = shared_base();
   const Layout L = make_layout(a.n, a.r, a.K, gridDim.x);
@@ -620,13 +687,13 @@ __global__ void __launch_bounds__(kThreads) train_chunk_kernel(Args a) {
   grid.sync();
   clock.mark(0);
   for (int step = 0; step < a.num_steps; ++step) {
-    row_phase(a, L, smem, step);
+    row_phase<KP>(a, L, smem, step);
     grid.sync();
     clock.mark(1);
     reduce_phase(a, L);
     grid.sync();
     clock.mark(2);
-    column_phase(a, L, smem);
+    column_phase<KP>(a, L, smem);
     grid.sync();
     clock.mark(3);
     reduce_gb(a, L, (step + 1) & 1);
@@ -638,6 +705,17 @@ __global__ void __launch_bounds__(kThreads) train_chunk_kernel(Args a) {
 }
 
 size_t smem_bytes(int r, int T, int K) { return sizeof(float) * (size_t)smem_floats(r, T, K); }
+
+using KernelFn = void (*)(Args);
+
+KernelFn kernel_for(int K) {
+  switch (padded_k(K)) {
+    case 32: return train_chunk_kernel<32>;
+    case 48: return train_chunk_kernel<48>;
+    case 64: return train_chunk_kernel<64>;
+    default: return train_chunk_kernel<128>;
+  }
+}
 
 }  // namespace
 
@@ -656,11 +734,10 @@ int desmo_chunk_grid(int n, int m, int r, int K) {
   if (err != cudaSuccess) return -(int)err;
   if (!coop) return -(int)cudaErrorNotSupported;
   const size_t bytes = smem_bytes(r, K - 3 * r, K);
-  err = cudaFuncSetAttribute((const void*)train_chunk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const void* kernel = (const void*)kernel_for(K);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)train_chunk_kernel,
-                                                        kThreads, bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
   if (err != cudaSuccess) return -(int)err;
   if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
   return sms;
@@ -693,11 +770,11 @@ int desmo_train_chunk(const float* pod, const float* x, const float* x_sq, const
   Args args{pod, x, x_sq, ftab, phi, b, coef, omega, svec, met, work,
             n, m, r, P, T, K, num_steps, sched_every, beta, lam, patience, factor, min_lr};
   const size_t bytes = smem_bytes(r, T, K);
-  cudaError_t err = cudaFuncSetAttribute((const void*)train_chunk_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const void* kernel = (const void*)kernel_for(K);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel((const void*)train_chunk_kernel, dim3(grid), dim3(kThreads),
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads),
                                     params, bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

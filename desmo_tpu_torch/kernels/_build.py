@@ -43,24 +43,28 @@ def nvcc_path() -> str:
     raise RuntimeError(f"nvcc not found on PATH or at {toolkit}")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, src: Path | None = None) -> Path:
+    """Where the library of ``csrc/<name>.cu`` (or of the source ``src``)
+    lands: named by a hash of the source and the flags."""
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built; returns
-    the library's path. The compiler's report (``-Xptxas -v``: registers and
-    shared memory per kernel) is kept beside it as ``<lib>.log``."""
-    out = library_path(name)
+def build(name: str, src: Path | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or another version of it, ``src``) unless
+    its library is already built; returns the library's path. The compiler's
+    report (``-Xptxas -v``: registers and shared memory per kernel) is kept
+    beside it as ``<lib>.log``."""
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
+    out = library_path(name, src)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as exc:

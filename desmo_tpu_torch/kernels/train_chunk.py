@@ -281,7 +281,11 @@ def train_chunk_plain(state: TrainState, batch: dict, num_steps: int, spec, cfg)
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("train_chunk")
+    return bind(_build.load("train_chunk"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from ``csrc/train_chunk.cu``."""
     lib.desmo_chunk_grid.argtypes = [ctypes.c_int] * 4
     lib.desmo_chunk_grid.restype = ctypes.c_int
     lib.desmo_chunk_workspace.argtypes = [ctypes.c_int] * 5
@@ -296,11 +300,11 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _grid(device_index: int, n: int, m: int, r: int, k: int) -> int:
+def _grid(device_index: int, n: int, m: int, r: int, k: int, lib: ctypes.CDLL | None = None) -> int:
     """Blocks of the cooperative launch on this device: one per SM when one
     fits there; raises when the device cannot launch it."""
     with torch.cuda.device(device_index):
-        grid = _lib().desmo_chunk_grid(n, m, r, k)
+        grid = (lib or _lib()).desmo_chunk_grid(n, m, r, k)
     if grid <= 0:
         raise RuntimeError(
             "fused_train_chunk: no cooperative launch on this device "
@@ -327,15 +331,16 @@ def _check(state: TrainState, batch: dict, spec) -> None:
         raise ValueError(f"fused_train_chunk: state on {state.params['phi'].device}, x on {x.device}")
 
 
-def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg):
-    """Check, allocate and launch one chunk on the card; returns the packed
-    state, the metrics rows and the scratch buffer."""
+def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: ctypes.CDLL | None = None):
+    """Allocate and launch one chunk on the card (through ``lib``, another
+    build of the kernel, when given); returns the packed state, the metrics
+    rows and the scratch buffer."""
     x = batch["x"]
     n, m = x.shape
     r, P, T = spec.r, spec.poly_order, spec.num_poly_terms
     K = T + 3 * r
-    lib = _lib()
-    grid = _grid(x.device.index, n, m, r, K)
+    lib = lib or _lib()
+    grid = _grid(x.device.index, n, m, r, K, lib)
     cs = pack(state)
     with torch.cuda.device(x.device):
         f32 = dict(dtype=torch.float32, device=x.device)
@@ -383,18 +388,19 @@ def fused_train_chunk(state: TrainState, batch: dict, num_steps: int, spec, cfg)
 PHASES = ("prologue", "rows", "reduce", "columns", "finalize")
 
 
-def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg) -> dict[str, float]:
+def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: ctypes.CDLL | None = None):
     """Seconds of one launch of ``num_steps`` epochs by phase, from the
     kernel's own clock (block 0, the card's global timer, each phase up to
     the end of its grid barrier): the prologue, then the rows, reduce,
     columns and finalize phases summed over the epochs. Needs the card; the
-    launch counts like any other."""
+    launch counts like any other. ``lib`` runs another build of the kernel."""
     if _checked_device(state, batch, num_steps, spec, cfg) != "cuda":
         raise ValueError("phase_split: needs CUDA tensors, the plain chunk has no phases")
-    _, _, work = _launch(state, batch, num_steps, spec, cfg)
+    lib = lib or _lib()
+    _, _, work = _launch(state, batch, num_steps, spec, cfg, lib)
     n, m = batch["x"].shape
     K = spec.num_poly_terms + 3 * spec.r
-    off = _lib().desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, n, m, spec.r, K))
+    off = lib.desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, n, m, spec.r, K, lib))
     ns = work[off:off + 2 * len(PHASES)].view(torch.int64).cpu().tolist()
     return {name: t * 1e-9 for name, t in zip(PHASES, ns)}
 

@@ -19,7 +19,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct float4 { float x, y, z, w; };
 struct uint3 { unsigned x, y, z; };

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one. The module imports
 no jax, so it runs on a machine that has none; ``tests/conftest.py`` does
@@ -11,8 +11,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from desmo_tpu_torch import losses  # noqa: E402
-from desmo_tpu_torch.kernels import dual_gemm  # noqa: E402
+import dataclasses  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from desmo_tpu_torch import configs, losses, pod, runner, train  # noqa: E402
+from desmo_tpu_torch.io import synthetic  # noqa: E402
+from desmo_tpu_torch.kernels import dual_gemm, train_chunk  # noqa: E402
+from desmo_tpu_torch.models import desmo  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -69,3 +75,62 @@ def test_kernel_rejects_k_above_its_limit(cuda):
     a, b, x = _inputs(64, 65, 32, cuda)
     with pytest.raises(ValueError, match="K=65"):
         dual_gemm.dual_contractions(a, b, x)
+
+
+def _chunk_problem(device, n, m, r, P, **over):
+    """The cylinder preset's configuration at (n, m, r, P) on its synthetic
+    data, POD init and all-ones params, with ``over`` applied."""
+    cfg = dataclasses.replace(configs.get("cylinder"), n=n, m=m, r=r, poly_order=P, **over)
+    x = synthetic.cylinder_wake(n, m, seed=cfg.seed)
+    batch = runner.prepare_batch(x, pod.pod_host(x, r, device).modes, device)
+    spec = desmo.DesmoSpec(n, m, r, P, cfg.omega_init)
+    return cfg, spec, batch, train.init_state(desmo.Desmo(spec, device=device).params(), cfg)
+
+
+@pytest.mark.parametrize(
+    "n, m, r, P, steps",
+    # the CPU suite's size; K=82 (the K <= 128 build); the cylinder preset
+    [(96, 40, 2, 2, 30), (200, 64, 4, 4, 10), (3961, 1001, 4, 3, 20)],
+)
+def test_mega_kernel_matches_plain_chunk(cuda, n, m, r, P, steps):
+    """omega_init=1 and lr_omega=1 keep the dynamics tame: the trace is held
+    to 2e-4 (rec, l1, total; ortho starts at the rounding of an orthonormal
+    Gram) and the state to 2e-3 of each array's largest entry."""
+    cfg, spec, batch, state = _chunk_problem(cuda, n, m, r, P, omega_init=1.0, lr_omega=1.0)
+    launches = train_chunk.fused_train_chunk.launches
+    sk, mk = train_chunk.fused_train_chunk(state, batch, steps, spec, cfg)
+    torch.cuda.synchronize()
+    assert train_chunk.fused_train_chunk.launches == launches + 1
+    sp, mp = train_chunk.train_chunk_plain(state, batch, steps, spec, cfg)
+    for key in ("rec", "l1", "total"):
+        assert ((mk[key] - mp[key]).abs() / mp[key].abs()).max() <= 2e-4, key
+    assert torch.isfinite(mk["ortho"]).all() and (mk["max_arg"] > 0).all()
+    for key in sk.params:
+        assert (sk.params[key] - sp.params[key]).abs().max() <= 2e-3 * sp.params[key].abs().max(), key
+    assert sk.epoch == sp.epoch == steps and torch.equal(sk.sched.lrs, sp.sched.lrs)
+    sk2, mk2 = train_chunk.fused_train_chunk(state, batch, steps, spec, cfg)
+    assert all(torch.equal(mk[k], mk2[k]) for k in mk)  # fixed-order reductions
+    assert all(torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
+
+
+def test_mega_kernel_plateau_drops_match_plain_chunk(cuda):
+    cfg, spec, batch, state = _chunk_problem(
+        cuda, 96, 40, 2, 2, omega_init=1.0, lr_omega=1.0, patience=3, sched_every=2
+    )
+    state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0, device=cuda))  # no epoch improves
+    sk, _ = train_chunk.fused_train_chunk(state, batch, 12, spec, cfg)
+    sp, _ = train_chunk.train_chunk_plain(state, batch, 12, spec, cfg)
+    assert float(sk.sched.lrs[0]) < cfg.lr_coef
+    assert torch.equal(sk.sched.lrs, sp.sched.lrs) and int(sk.sched.num_bad) == int(sp.sched.num_bad)
+
+
+def test_phase_split_and_runner_path(cuda, tmp_path):
+    cfg, spec, batch, state = _chunk_problem(cuda, 3961, 1001, 4, 3)
+    split = train_chunk.phase_split(state, batch, 50, spec, cfg)
+    assert list(split) == list(train_chunk.PHASES) and all(v > 0 for v in split.values())
+    x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
+    small = dataclasses.replace(cfg, checkpoint_every=100)
+    dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+    art = runner.run(small, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda)
+    assert train_chunk.fused_train_chunk.launches == 3 and dual_gemm.dual_contractions.launches == 0
+    assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14

@@ -335,6 +335,8 @@ def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid):
         (96, 40, 2, 2, 6, 300, 1),  # the JAX suite's size; two column sub-slabs per block
         (64, 24, 4, 3, 4, 300, 1),  # the cylinder regime, K=47
         (37, 9, 2, 2, 8, 1, 2),  # ragged rows, a block with no columns, LR drops
+        (40, 17, 5, 2, 3, 300, 1),  # K=36: the kernel built for K <= 64
+        (33, 12, 4, 4, 2, 300, 1),  # K=82: the kernel built for K <= 128
     ],
 )
 def test_cuda_source_on_emulated_grid(emulated_train_chunk, tmp_path, n, m, r, P, steps, patience, sched_every):
