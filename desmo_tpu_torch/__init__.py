@@ -8,21 +8,26 @@ against it by ``tests/test_torch_*.py``.
 
 Modules
 -------
+- ``configs``     run configurations and the named presets
+- ``data``        snapshot-matrix preprocessing
+- ``io``          the synthetic generator, VTK readers and the native loader
 - ``device``      the one place that resolves the torch device
 - ``library``     candidate-term factor tables (term order is a checkpoint contract)
 - ``losses``      reconstruction / orthogonality / sparsity objectives
-- ``kernels``     hand-written CUDA kernels and their plain PyTorch twins
+- ``kernels``     hand-written CUDA kernels and their plain PyTorch versions:
+  ``train_chunk`` (a whole training chunk per launch) and ``dual_gemm``
 - ``models``      the DESMO model (``models.desmo``)
 - ``pod``         host POD initialization
 - ``optim``       torch-semantics Adamax + ReduceLROnPlateau on tensor state
-- ``train``       the chunked eager training loop
-- ``checkpoint``  ``.npz`` run state, ``.pt`` export, weights from the JAX package
+- ``train``       the chunked training loop (eager, or the mega-kernel's chunk)
+- ``checkpoint``  ``.npz`` run state, ``.pt`` export, weights and state from the JAX package
 - ``sparsify``    term energies and threshold sweeps
+- ``logging_utils`` CSV/JSONL metrics
 - ``runner``      the end-to-end pipeline behind ``python -m desmo_tpu_torch run``
 
-Only ``desmo_tpu``'s jax-free modules (``configs``, ``data``, ``io``,
-``logging_utils``) are imported from the reference package. Importing this
-package builds no kernel.
+The package imports nothing of ``desmo_tpu``: ``configs``, ``data``, ``io``
+and ``logging_utils`` are its own copies of the reference's jax-free
+modules. Importing this package builds no kernel.
 """
 
 __version__ = "0.1.0"

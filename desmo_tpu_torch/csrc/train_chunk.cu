@@ -474,7 +474,7 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
   constexpr int kKq = (KP + 31) / 32;              // ax: lane owns k = lane + 32q, q < kKq
   constexpr int kPrefA3 = kRT3 * KP / kThreads;    // A values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
-  const int n = a.n, m = a.m, r = a.r, K = a.K, S = K + 1;
+  const int n = a.n, m = a.m, r = a.r, K = a.K;
   const float two_nm = (float)(2.0 / ((double)n * m));
   const float bias = 1.f - a.svec[kPow] * kB1;
   const float lr_phi = a.svec[kLr0 + 1], lr_z = a.svec[kLr0 + 2];
@@ -723,9 +723,7 @@ extern "C" {
 
 // Blocks of the cooperative launch on the current device (one per SM), or a
 // negative cudaError_t: cooperative launch unsupported, or no block fits.
-int desmo_chunk_grid(int n, int m, int r, int K) {
-  (void)n;
-  (void)m;
+int desmo_chunk_grid(int r, int K) {
   if (r < 1 || r > kMaxR || K < 1 || K > kMaxK || K <= 3 * r) return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -744,8 +742,7 @@ int desmo_chunk_grid(int n, int m, int r, int K) {
 }
 
 // Floats of scratch the launch needs for a grid of `grid` blocks.
-long long desmo_chunk_workspace(int n, int m, int r, int K, int grid) {
-  (void)m;
+long long desmo_chunk_workspace(int n, int r, int K, int grid) {
   return make_layout(n, r, K, grid).total;
 }
 

@@ -286,9 +286,9 @@ def _lib() -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``csrc/train_chunk.cu``."""
-    lib.desmo_chunk_grid.argtypes = [ctypes.c_int] * 4
+    lib.desmo_chunk_grid.argtypes = [ctypes.c_int] * 2
     lib.desmo_chunk_grid.restype = ctypes.c_int
-    lib.desmo_chunk_workspace.argtypes = [ctypes.c_int] * 5
+    lib.desmo_chunk_workspace.argtypes = [ctypes.c_int] * 4
     lib.desmo_chunk_workspace.restype = ctypes.c_longlong
     lib.desmo_chunk_timer_offset.argtypes = [ctypes.c_int] * 4
     lib.desmo_chunk_timer_offset.restype = ctypes.c_longlong
@@ -300,11 +300,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _grid(device_index: int, n: int, m: int, r: int, k: int, lib: ctypes.CDLL | None = None) -> int:
+def _grid(device_index: int, r: int, k: int, lib: ctypes.CDLL | None = None) -> int:
     """Blocks of the cooperative launch on this device: one per SM when one
     fits there; raises when the device cannot launch it."""
     with torch.cuda.device(device_index):
-        grid = (lib or _lib()).desmo_chunk_grid(n, m, r, k)
+        grid = (lib or _lib()).desmo_chunk_grid(r, k)
     if grid <= 0:
         raise RuntimeError(
             "fused_train_chunk: no cooperative launch on this device "
@@ -340,13 +340,13 @@ def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: ctyp
     r, P, T = spec.r, spec.poly_order, spec.num_poly_terms
     K = T + 3 * r
     lib = lib or _lib()
-    grid = _grid(x.device.index, n, m, r, K, lib)
+    grid = _grid(x.device.index, r, K, lib)
     cs = pack(state)
     with torch.cuda.device(x.device):
         f32 = dict(dtype=torch.float32, device=x.device)
         ftab = torch.as_tensor(spec.factor_table(), dtype=torch.int32, device=x.device).contiguous()
         met = torch.empty((num_steps, len(METRICS)), **f32)
-        work = torch.empty((lib.desmo_chunk_workspace(n, m, r, K, grid),), **f32)
+        work = torch.empty((lib.desmo_chunk_workspace(n, r, K, grid),), **f32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.desmo_train_chunk(
             batch["pod_modes"].data_ptr(), x.data_ptr(), batch["x_sq"].data_ptr(), ftab.data_ptr(),
@@ -398,9 +398,9 @@ def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: 
         raise ValueError("phase_split: needs CUDA tensors, the plain chunk has no phases")
     lib = lib or _lib()
     _, _, work = _launch(state, batch, num_steps, spec, cfg, lib)
-    n, m = batch["x"].shape
+    n = batch["x"].shape[0]
     K = spec.num_poly_terms + 3 * spec.r
-    off = lib.desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, n, m, spec.r, K, lib))
+    off = lib.desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, spec.r, K, lib))
     ns = work[off:off + 2 * len(PHASES)].view(torch.int64).cpu().tolist()
     return {name: t * 1e-9 for name, t in zip(PHASES, ns)}
 

@@ -95,9 +95,9 @@ def load_data(
 
 
 def resolve_loss_method(cfg: configs.RunConfig, device: torch.device) -> str:
-    """``auto`` is the dual-contraction kernel on a GPU and the factored Gram
-    products on the CPU, as the JAX package picks its Pallas kernel on a TPU
-    only."""
+    """The eager loop's loss: ``auto`` is the dual-contraction kernel on a GPU
+    and the factored Gram products on the CPU, as the JAX package picks its
+    Pallas kernel on a TPU only. The mega-kernel's chunk computes its own."""
     if cfg.loss_method != "auto":
         return cfg.loss_method
     return "fused" if device.type == "cuda" else "factored"

@@ -10,7 +10,8 @@ preset at full width (n=3961, m=1001, r=4, P=3; synthetic data, the preset's
 init), runs one 2,000-epoch chunk of each in the order A, B, B, A and prints
 each launch's µs per epoch and its phase split from the kernel's own clock,
 and how far B's metrics and final state lie from A's. Prints the card's name
-and power limit first.
+and power limit first. Both versions must have the checkout's C interface
+(``train_chunk.bind``).
 """
 
 from __future__ import annotations

@@ -89,8 +89,9 @@ def _chunk_problem(device, n, m, r, P, **over):
 
 @pytest.mark.parametrize(
     "n, m, r, P, steps",
-    # the CPU suite's size; K=82 (the K <= 128 build); the cylinder preset
-    [(96, 40, 2, 2, 30), (200, 64, 4, 4, 10), (3961, 1001, 4, 3, 20)],
+    # the CPU suite's size; K=82 (the K <= 128 build); the cylinder preset;
+    # the aneurysm preset's shape, which the TPU kernel streamed
+    [(96, 40, 2, 2, 30), (200, 64, 4, 4, 10), (3961, 1001, 4, 3, 20), (27000, 1000, 4, 2, 10)],
 )
 def test_mega_kernel_matches_plain_chunk(cuda, n, m, r, P, steps):
     """omega_init=1 and lr_omega=1 keep the dynamics tame: the trace is held

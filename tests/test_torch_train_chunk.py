@@ -247,14 +247,6 @@ def test_wrapper_rejects_malformed_inputs(bad):
         train_chunk.fused_train_chunk(state, bad(batch), 2, spec, cfg)
 
 
-def test_failed_build_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(_build, "nvcc_path", lambda: shutil.which("false"))
-    with pytest.raises(RuntimeError, match="train_chunk"):
-        _build.build("train_chunk")
-    assert not list(tmp_path.glob("*.so"))
-
-
 @pytest.mark.parametrize("omega", ["unit", "preset"])
 def test_runner_runs_the_mega_kernel_chunk(tmp_path, omega):
     """``runner.run`` with ``chunk_method='megakernel'`` on the CPU (the
