@@ -309,10 +309,16 @@ def main() -> int:
           f"{chunk_bound * per_epoch:.1f} us/epoch ({chunk_by}); slice {slice_sps:.1f} steps/s, "
           f"eager path {eager_sps:.1f} steps/s")
 
-    print(f"[7 split] {card}: mega-kernel phases over a {preset.checkpoint_every}-epoch chunk (kernel clock, "
+    phases: dict[str, float] = {}
+    for k, v in split.items():
+        phases[k.split(".")[0]] = phases.get(k.split(".")[0], 0.0) + v
+    per_epoch_us = 1e6 / preset.checkpoint_every
+    print(f"[7 split] {card}: mega-kernel over a {preset.checkpoint_every}-epoch chunk (kernel clock, "
           f"block 0): prologue {split['prologue'] * 1e6:.1f} us once; "
-          + ", ".join(f"{k} {v * 1e6 / preset.checkpoint_every:.1f} us/epoch ({v / split_total:.1%})"
-                      for k, v in split.items() if k != "prologue"))
+          + ", ".join(f"{k} {v * per_epoch_us:.1f} us/epoch ({v / split_total:.1%})"
+                      for k, v in phases.items() if k != "prologue")
+          + "; by part " + ", ".join(f"{k} {v * per_epoch_us:.1f}" for k, v in split.items() if "." in k)
+          + " us/epoch")
 
     # 8. the records
     print(json.dumps({"kernels": [

@@ -54,12 +54,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRT = 32;   // rows per tile of the rows phase
 constexpr int kCW = 64;   // columns of X per staged chunk (xb)
-constexpr int kSW = 8;    // columns per sub-slab (ax)
-constexpr int kRT3 = 64;  // rows per staged tile of the columns phase
+constexpr int kSW = 8;    // columns per sub-slab (ax); its rows are read as two float4
+static_assert(kSW == 8, "the columns phase reads a row of its X tile as two float4");
+// rows per staged tile of the columns phase
+__host__ __device__ constexpr int ax_tile_rows(int KP) { return KP <= 64 ? 128 : 64; }
 constexpr int kMaxK = 128;
 // values each thread prefetches into registers for the next staged tile
 constexpr int kPrefX1 = kRT * kCW / kThreads;   // rows phase, X
-constexpr int kPrefX3 = kRT3 * kSW / kThreads;  // columns phase, X
+
 
 // The kernel is compiled for K padded to KP = 32, 48, 64 or 128, so that the
 // register tiles and loops over k have fixed sizes.
@@ -68,7 +70,14 @@ constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
 constexpr int kAugW = kMaxR + 1;  // [1 | lat] per row
 constexpr int kMetrics = 5;       // rec, ortho, l1, total, max |omega * lat|
-constexpr int kPhases = 5;        // prologue, rows, reduce, columns, finalize
+// the kernel clock's counters (PhaseClock): the prologue; in the rows phase
+// the dictionary, xb, the gradients and Gram partials, and the rest up to
+// the end of its barrier; the reduce phase; in the columns phase the phi
+// update, ax, and the rest up to the end of its barrier; the finalize phase
+enum Phase {
+  kPrologue, kRowsDictionary, kRowsXb, kRowsGradients, kRowsBarrier, kReduce,
+  kColumnsPhi, kColumnsAx, kColumnsBarrier, kFinalize, kPhases
+};
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
 constexpr float kImproved = (float)(1.0 - 1e-4);  // plateau threshold, relative
@@ -125,7 +134,8 @@ __host__ __device__ inline int smem_floats(int r, int T, int K) {
   const int rows = round4(T * kMaxP) + round4(K) + round4(3 * r) + K * K + kRT * kAugW +
                    4 * kRT * S + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
                    round4(3 * r);
-  const int columns = K * K + kRT3 * K + KP + kRT3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads;
+  const int rt3 = ax_tile_rows(KP);
+  const int columns = round4(K * K) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads;
   return rows > columns ? rows : columns;
 }
 
@@ -142,9 +152,10 @@ __device__ __forceinline__ unsigned long long globaltimer_ns() {
 }
 #endif
 
-// Block 0's thread 0 adds the time from the previous mark to the end of each
-// grid barrier to that phase's counter: where the chunk's time goes, at the
-// cost of one clock read per phase.
+// Block 0's thread 0 adds the time since its previous mark to a counter at
+// each mark: where the chunk's time goes, at the cost of one clock read per
+// mark. Marks inside a phase time block 0's own work; the mark after a grid
+// barrier also takes in the wait for the slowest block.
 struct PhaseClock {
   unsigned long long ns[kPhases] = {};
   unsigned long long last = 0;
@@ -207,6 +218,24 @@ __device__ float block_max(float v, float* red) {
   return out;
 }
 
+// p[0] + p[stride] + ... + p[(count - 1) * stride], added in that order, with
+// the loads issued kSumDepth at a time so that they wait on memory together.
+constexpr int kSumDepth = 16;
+constexpr int kGroup = 8;  // entries a thread carries side by side in dA and the Gram partials
+__device__ __forceinline__ float ordered_sum(const float* p, long long stride, int count) {
+  float s = 0.f;
+  int bb = 0;
+  for (; bb + kSumDepth <= count; bb += kSumDepth) {
+    float v[kSumDepth];
+#pragma unroll
+    for (int u = 0; u < kSumDepth; ++u) v[u] = p[(bb + u) * stride];
+#pragma unroll
+    for (int u = 0; u < kSumDepth; ++u) s += v[u];
+  }
+  for (; bb < count; ++bb) s += p[bb * stride];
+  return s;
+}
+
 // part_gb[e] += sum over the sub-slab's w columns of Bn[k1][jj] * Bn[k2][jj]
 __device__ void accumulate_gb(const float* bn, int w, int K, float* part_gb) {
   for (int e = threadIdx.x; e < K * K; e += kThreads) {
@@ -241,16 +270,13 @@ __device__ void reduce_gb(const Args& a, const Layout& L, int parity) {
   const int G = gridDim.x;
   const float* part = a.work + L.part_gb;
   float* gb = a.work + L.gb + (long long)parity * L.kk;
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e < L.kk; e += G * kThreads) {
-    float s = 0.f;
-    for (int bb = 0; bb < G; ++bb) s += part[(long long)bb * L.kk + e];
-    gb[e] = s;
-  }
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < L.kk; e += G * kThreads)
+    gb[e] = ordered_sum(part + e, L.kk, G);
 }
 
 // Phase 1: forward, xb, dA, dl and the per-block partials over the block's rows.
 template <int KP>
-__device__ void row_phase(const Args& a, const Layout& L, float* smem, int step) {
+__device__ void row_phase(const Args& a, const Layout& L, float* smem, int step, PhaseClock& clock) {
   constexpr int kXC = KP / 16;                   // xb: k = tx + 16c, c < kXC
   constexpr int kPrefB1 = KP * kCW / kThreads;   // B values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
@@ -330,6 +356,8 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step)
       const int i = e / K, k = e % K;
       A_g[(long long)(r0 + i) * K + k] = A_s[i * S + k];
     }
+    __syncthreads();
+    clock.mark(kRowsDictionary);
     // xb[i][k] = sum_j X[r0 + i][j] * B[k][j]: rows ty and ty + 16, k = tx + 16c.
     // The next chunk of X and B is loaded into registers while this one is used.
     {
@@ -385,12 +413,25 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step)
       }
     }
     __syncthreads();
-    // dA = 2/nm (A gb - xb), in place of xb
-    for (int e = t; e < kRT * K; e += kThreads) {
-      const int i = e / K, k = e % K;
-      float s = 0.f;
-      for (int l = 0; l < K; ++l) s = fmaf(A_s[i * S + l], gb_s[l * K + k], s);
-      Y_s[i * S + k] = two_nm * (s - Y_s[i * S + k]);
+    clock.mark(kRowsXb);
+    // dA = 2/nm (A gb - xb), in place of xb; each thread carries kGroup
+    // entries side by side
+    for (int e0 = 0; e0 < kRT * K; e0 += kGroup * kThreads) {
+      int ia[kGroup], ka[kGroup];
+      float acc[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int e = min(e0 + t + kThreads * u, kRT * K - 1);
+        ia[u] = (e / K) * S;
+        ka[u] = e % K;
+        acc[u] = 0.f;
+      }
+      for (int l = 0; l < K; ++l)
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) acc[u] = fmaf(A_s[ia[u] + l], gb_s[l * K + ka[u]], acc[u]);
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u)
+        if (e0 + t + kThreads * u < kRT * K) Y_s[ia[u] + ka[u]] = two_nm * (acc[u] - Y_s[ia[u] + ka[u]]);
     }
     __syncthreads();
     // coefficient and omega gradients: thread k owns column k
@@ -428,12 +469,24 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step)
       }
       dl_g[(long long)(r0 + i) * r + j] = trig + poly;
     }
-    // Gram partials AᵀA and latᵀlat over the tile's rows
-    for (int e = t; e < L.kk; e += kThreads) {
-      const int k1 = e / K, k2 = e % K;
-      float g = part_ga[e];
-      for (int i = 0; i < rows; ++i) g = fmaf(A_s[i * S + k1], A_s[i * S + k2], g);
-      part_ga[e] = g;
+    // Gram partials AᵀA and latᵀlat over the tile's rows, kGroup entries of
+    // AᵀA side by side
+    for (int e0 = 0; e0 < L.kk; e0 += kGroup * kThreads) {
+      int k1[kGroup], k2[kGroup];
+      float g[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int e = min(e0 + t + kThreads * u, L.kk - 1);
+        k1[u] = e / K;
+        k2[u] = e % K;
+        g[u] = part_ga[e];
+      }
+      for (int i = 0; i < rows; ++i)
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) g[u] = fmaf(A_s[i * S + k1[u]], A_s[i * S + k2[u]], g[u]);
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u)
+        if (e0 + t + kThreads * u < L.kk) part_ga[e0 + t + kThreads * u] = g[u];
     }
     for (int e = t; e < r * r; e += kThreads) {
       const int j1 = e / r, j2 = e % r;
@@ -441,8 +494,9 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step)
       for (int i = 0; i < rows; ++i) g = fmaf(aug_s[i * kAugW + 1 + j1], aug_s[i * kAugW + 1 + j2], g);
       part_lat[e] = g;
     }
+    __syncthreads();
+    clock.mark(kRowsGradients);
   }
-  __syncthreads();
   for (int k = t; k < K; k += kThreads) part[L.kk + r * r + k] = cacc[k];
   for (int q = t; q < 3 * r; q += kThreads) part[L.kk + r * r + K + q] = oacc[q];
   vmax = block_max(vmax, red);
@@ -460,9 +514,7 @@ __device__ void reduce_phase(const Args& a, const Layout& L) {
       for (int bb = 0; bb < G; ++bb) v = max_nan(v, a.work[L.part_max + bb]);
       a.work[L.maxarg] = v;
     } else {
-      float s = 0.f;
-      for (int bb = 0; bb < G; ++bb) s += part[(long long)bb * L.es + e];
-      sums[e] = s;
+      sums[e] = ordered_sum(part + e, L.es, G);
     }
   }
 }
@@ -470,9 +522,11 @@ __device__ void reduce_phase(const Args& a, const Layout& L) {
 // Phase 3: phi Adamax of the block's rows; ax, gB, the B Adamax and the next
 // B Bᵀ partial over the block's column slab.
 template <int KP>
-__device__ void column_phase(const Args& a, const Layout& L, float* smem) {
+__device__ void column_phase(const Args& a, const Layout& L, float* smem, PhaseClock& clock) {
+  constexpr int kRT3 = ax_tile_rows(KP);
   constexpr int kKq = (KP + 31) / 32;              // ax: lane owns k = lane + 32q, q < kKq
   constexpr int kPrefA3 = kRT3 * KP / kThreads;    // A values prefetched per thread
+  constexpr int kPrefX3 = kRT3 * kSW / kThreads;   // X values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int n = a.n, m = a.m, r = a.r, K = a.K;
   const float two_nm = (float)(2.0 / ((double)n * m));
@@ -500,11 +554,13 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
       adamax(a.phi + o, a.phi + rn + o, a.phi + 2 * rn + o, g, lr_phi, bias);
     }
   }
+  __syncthreads();
+  clock.mark(kColumnsPhi);
 
   float* ga_s = smem;
-  float* p = smem + L.kk;
+  float* p = smem + round4(L.kk);
   float* As = p;   p += kRT3 * K + KP;  // lanes with k >= K read past the tile and are dropped
-  float* Xs = p;   p += kRT3 * kSW;
+  float* Xs = p;   p += kRT3 * kSW;     // 16-byte aligned: rows are read as float4
   float* Bo = p;   p += K * kSW;
   float* Bn = p;   p += K * kSW;
   float* ax_s = p; p += K * kSW;
@@ -556,9 +612,9 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
       __syncthreads();
       if (i0 + kRT3 < n) fetch(i0 + kRT3);
       for (int i = warp; i < rows; i += kWarps) {
-        float xv[kSW];
-#pragma unroll
-        for (int jj = 0; jj < kSW; ++jj) xv[jj] = Xs[i * kSW + jj];
+        const float4 lo = reinterpret_cast<const float4*>(Xs + i * kSW)[0];
+        const float4 hi = reinterpret_cast<const float4*>(Xs + i * kSW)[1];
+        const float xv[kSW] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
         for (int q = 0; q < kKq; ++q) {
           const float av = As[i * K + lane + 32 * q];
@@ -586,6 +642,7 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem) {
       ax_s[o] = sum;
     }
     __syncthreads();
+    clock.mark(kColumnsAx);
     // sum(ax * B), gB = 2/nm (ga B - ax) and the B Adamax
     for (int o = t; o < K * kSW; o += kThreads) {
       const int k = o / kSW, jj = o % kSW;
@@ -685,21 +742,21 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   grid.sync();
   reduce_gb(a, L, 0);
   grid.sync();
-  clock.mark(0);
+  clock.mark(kPrologue);
   for (int step = 0; step < a.num_steps; ++step) {
-    row_phase<KP>(a, L, smem, step);
+    row_phase<KP>(a, L, smem, step, clock);
     grid.sync();
-    clock.mark(1);
+    clock.mark(kRowsBarrier);
     reduce_phase(a, L);
     grid.sync();
-    clock.mark(2);
-    column_phase<KP>(a, L, smem);
+    clock.mark(kReduce);
+    column_phase<KP>(a, L, smem, clock);
     grid.sync();
-    clock.mark(3);
+    clock.mark(kColumnsBarrier);
     reduce_gb(a, L, (step + 1) & 1);
     if (blockIdx.x == 0) finalize(a, L, smem, step);
     grid.sync();
-    clock.mark(4);
+    clock.mark(kFinalize);
   }
   clock.store(a.work + L.timer);
 }
@@ -746,9 +803,8 @@ long long desmo_chunk_workspace(int n, int r, int K, int grid) {
   return make_layout(n, r, K, grid).total;
 }
 
-// Offset (in floats) in the scratch of the launch's five 64-bit nanosecond
-// counters: prologue, then the rows, reduce, columns and finalize phases
-// summed over the epochs, each up to the end of its grid barrier.
+// Offset (in floats) in the scratch of the launch's kPhases 64-bit
+// nanosecond counters (enum Phase), summed over the epochs.
 long long desmo_chunk_timer_offset(int n, int r, int K, int grid) {
   return make_layout(n, r, K, grid).timer;
 }

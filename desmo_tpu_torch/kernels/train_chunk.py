@@ -385,15 +385,22 @@ def fused_train_chunk(state: TrainState, batch: dict, num_steps: int, spec, cfg)
     return unpack(cs, state, num_steps), {k: met[:, i] for i, k in enumerate(METRICS)}
 
 
-PHASES = ("prologue", "rows", "reduce", "columns", "finalize")
+# the kernel clock's counters, in the order of ``enum Phase`` in the source;
+# the "barrier" entries close their phase, the wait for the slowest block
+# included
+PHASES = (
+    "prologue", "rows.dictionary", "rows.xb", "rows.gradients", "rows.barrier", "reduce",
+    "columns.phi", "columns.ax", "columns.barrier", "finalize",
+)
 
 
 def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: ctypes.CDLL | None = None):
-    """Seconds of one launch of ``num_steps`` epochs by phase, from the
-    kernel's own clock (block 0, the card's global timer, each phase up to
-    the end of its grid barrier): the prologue, then the rows, reduce,
-    columns and finalize phases summed over the epochs. Needs the card; the
-    launch counts like any other. ``lib`` runs another build of the kernel."""
+    """Seconds of one launch of ``num_steps`` epochs by part (``PHASES``),
+    from the kernel's own clock: block 0's thread reads the card's global
+    timer at each mark, so a part inside a phase is block 0's own time and a
+    phase's last part takes in the wait at its grid barrier. Summed over the
+    epochs. Needs the card; the launch counts like any other. ``lib`` runs
+    another build of the kernel."""
     if _checked_device(state, batch, num_steps, spec, cfg) != "cuda":
         raise ValueError("phase_split: needs CUDA tensors, the plain chunk has no phases")
     lib = lib or _lib()
