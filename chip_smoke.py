@@ -36,6 +36,7 @@ EAGER_EPOCHS = 300
 CPU_EPOCHS = 10
 SLICE_EPOCHS = 10_000
 PARITY_STEPS = 200
+STATE_STEPS = 30
 TIMED_STEPS = 50
 # kernel vs plain: fp32 FMA against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
@@ -216,28 +217,36 @@ def main() -> int:
     identical = all(torch.equal(mk[k], mk2[k]) for k in mk) and all(
         torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
     check(identical, "two mega-kernel launches from the same state differ")
+    eager_loss = desmo.build_loss(spec, unit.beta, unit.l1_lambda, method="factored")
+    eager = train.make_train_chunk(eager_loss, desmo.param_groups(st.params), unit)
+    se, _ = eager(st, batch, PARITY_STEPS)
     e_trace = {k: trace_rel(mk, mp, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
     e_params = {k: rel_err(sk.params[k], sp.params[k]) for k in sk.params}
+    e_kernel_eager = max(rel_err(sk.params[k], se.params[k]) for k in sk.params)
+    e_eager_plain = max(rel_err(se.params[k], sp.params[k]) for k in sp.params)
     chunk_max_abs = max(float((sk.params[k] - sp.params[k]).abs().max()) for k in sk.params)
     print(f"[5 unit] mega-kernel vs plain chunk, omega_init=1 lr_omega=1, {PARITY_STEPS} epochs at "
           f"(n, m, K)=({preset.n}, {preset.m}, {K}): trace " + ", ".join(f"{k} {v:.2e}" for k, v in e_trace.items())
           + "; params " + ", ".join(f"{k} {v:.2e}" for k, v in e_params.items())
-          + "; two launches bit-identical")
-    # the same epochs through the eager autograd loop: two implementations of
-    # the same step, for the spread the final params may show
-    eager_loss = desmo.build_loss(spec, unit.beta, unit.l1_lambda, method="factored")
-    se, _ = train.make_train_chunk(eager_loss, desmo.param_groups(st.params), unit)(st, batch, PARITY_STEPS)
-    e_eager = {k: rel_err(se.params[k], sp.params[k]) for k in sp.params}
-    print("[5 unit] eager loop vs plain chunk, same epochs: params "
-          + ", ".join(f"{k} {v:.2e}" for k, v in e_eager.items()))
-    # The trace is held to the JAX suite's 2e-4 (ortho aside: at epoch 0 it
-    # is the fp32 rounding of an orthonormal POD Gram, 6e-8). The final
-    # params are held to 3e-3 of max|param|, not the suite's 5e-4: the eager
-    # loop and the plain chunk land up to 9e-4 apart (the line above), and
-    # the signs of that rounding-level Gram, which steer phi's ortho
-    # gradient, differ between the kernel's sums and cuBLAS's.
+          + f"; kernel vs eager loop {e_kernel_eager:.2e}, eager loop vs plain {e_eager_plain:.2e} of max|param|;"
+          " two launches bit-identical")
+    sk30, _ = train_chunk.fused_train_chunk(st, batch, STATE_STEPS, spec, unit)
+    sp30, _ = train_chunk.train_chunk_plain(st, batch, STATE_STEPS, spec, unit)
+    e_params30 = max(rel_err(sk30.params[k], sp30.params[k]) for k in sp30.params)
+    print(f"[5 unit] mega-kernel vs plain chunk after {STATE_STEPS} epochs: params {e_params30:.2e} of max|param|")
+    # The trace is held to the JAX suite's 2e-4 over all 200 epochs (ortho
+    # aside: at epoch 0 it is the fp32 rounding of an orthonormal POD Gram,
+    # 6e-8), and the params to its 5e-4 after its 30 epochs. After 200 the
+    # params are held to 1e-2: correct implementations of the step drift
+    # apart there, since Adamax divides each gradient by its running maximum
+    # and an entry whose gradient is near zero steps by +-lr on rounding
+    # alone. Measured on the H100: the eager loop and the plain chunk 9.4e-4
+    # apart (the line above), two versions of this kernel that differ only
+    # in summation order 1.8e-3 (scripts/torch_ab_train_chunk.py), the
+    # kernel and the eager loop up to 4.6e-3.
     check(max(e_trace.values()) <= 2e-4, f"mega-kernel trace vs plain beyond 2e-4: {e_trace}")
-    check(max(e_params.values()) <= 3e-3, f"mega-kernel params vs plain beyond 3e-3: {e_params}")
+    check(e_params30 <= 5e-4, f"mega-kernel params vs plain after {STATE_STEPS} epochs beyond 5e-4: {e_params30}")
+    check(max(e_params.values()) <= 1e-2, f"mega-kernel params vs plain beyond 1e-2: {e_params}")
 
     # the preset's omega_init=1e4: chaotic after a few epochs (phase 4)
     spec, st = start(preset)

@@ -102,7 +102,7 @@ struct Args {
 
 // Offsets (in floats) into the scratch buffer for a grid of G blocks.
 struct Layout {
-  long long a, dl, part, part_max, part_cross, part_gb, sums, maxarg, gb, timer, total;
+  long long a, dl, part, part_max, part_cross, part_gb, sums, gb, timer, total;
   int kk, es;  // K*K; entries of the summed partials: ga, latᵀlat, gcoef, gomega
 };
 
@@ -118,7 +118,6 @@ __host__ __device__ inline Layout make_layout(int n, int r, int K, int G) {
   L.part_cross = o; o += G;
   L.part_gb = o;    o += (long long)G * L.kk;
   L.sums = o;       o += L.es;
-  L.maxarg = o;     o += 1;
   L.gb = o;         o += 2LL * L.kk;  // by epoch parity
   o += o & 1;
   L.timer = o;      o += 2 * kPhases;  // kPhases unsigned 64-bit ns counters
@@ -128,15 +127,20 @@ __host__ __device__ inline Layout make_layout(int n, int r, int K, int G) {
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 
-// Shared floats of the larger of the rows and columns phases.
+// Shared memory that lives through the launch: the factor table (T, P) and,
+// for each mode j, the (t, p) entries of the table that hold factor j + 1
+// (offsets and entries), for the polynomial backward.
+__host__ __device__ inline int table_floats(int T) { return 2 * round4(T * kMaxP) + round4(kMaxR + 1); }
+
+// Shared floats: the tables, then the larger of the rows and columns phases.
 __host__ __device__ inline int smem_floats(int r, int T, int K) {
   const int S = K + 1, KP = padded_k(K);
-  const int rows = round4(T * kMaxP) + round4(K) + round4(3 * r) + K * K + kRT * kAugW +
+  const int rows = round4(K) + round4(3 * r) + K * K + kRT * kAugW +
                    4 * kRT * S + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
                    round4(3 * r);
   const int rt3 = ax_tile_rows(KP);
   const int columns = round4(K * K) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads;
-  return rows > columns ? rows : columns;
+  return table_floats(T) + (rows > columns ? rows : columns);
 }
 
 #ifndef DESMO_EMULATED_GRID
@@ -218,22 +222,36 @@ __device__ float block_max(float v, float* red) {
   return out;
 }
 
-// p[0] + p[stride] + ... + p[(count - 1) * stride], added in that order, with
-// the loads issued kSumDepth at a time so that they wait on memory together.
-constexpr int kSumDepth = 16;
 constexpr int kGroup = 8;  // entries a thread carries side by side in dA and the Gram partials
-__device__ __forceinline__ float ordered_sum(const float* p, long long stride, int count) {
-  float s = 0.f;
-  int bb = 0;
-  for (; bb + kSumDepth <= count; bb += kSumDepth) {
-    float v[kSumDepth];
-#pragma unroll
-    for (int u = 0; u < kSumDepth; ++u) v[u] = p[(bb + u) * stride];
-#pragma unroll
-    for (int u = 0; u < kSumDepth; ++u) s += v[u];
+
+// The factor table and, for each mode j, the entries t * P + p of the table
+// that hold factor j + 1 (d_tp[d_off[j]] .. d_tp[d_off[j + 1] - 1], in
+// ascending order), in shared memory for the whole launch.
+struct Tables {
+  int* f;
+  int* d_off;
+  int* d_tp;
+};
+
+__device__ Tables build_tables(const Args& a, float* smem) {
+  Tables tb;
+  tb.f = reinterpret_cast<int*>(smem);
+  tb.d_off = tb.f + round4(a.T * kMaxP);
+  tb.d_tp = tb.d_off + round4(kMaxR + 1);
+  const int TP = a.T * a.P;
+  for (int e = threadIdx.x; e < TP; e += kThreads) tb.f[e] = a.ftab[e];
+  __syncthreads();
+  if (threadIdx.x == 0) {  // r * T * P steps, once per launch
+    int o = 0;
+    for (int j = 0; j < a.r; ++j) {
+      tb.d_off[j] = o;
+      for (int e = 0; e < TP; ++e)
+        if (tb.f[e] == j + 1) tb.d_tp[o++] = e;
+    }
+    tb.d_off[a.r] = o;
   }
-  for (; bb < count; ++bb) s += p[bb * stride];
-  return s;
+  __syncthreads();
+  return tb;
 }
 
 // part_gb[e] += sum over the sub-slab's w columns of Bn[k1][jj] * Bn[k2][jj]
@@ -265,25 +283,44 @@ __device__ void gb_partial(const Args& a, const Layout& L, float* smem) {
   }
 }
 
-// gb[parity] = sum over blocks, in block order, of the B Bᵀ partials.
-__device__ void reduce_gb(const Args& a, const Layout& L, int parity) {
-  const int G = gridDim.x;
-  const float* part = a.work + L.part_gb;
-  float* gb = a.work + L.gb + (long long)parity * L.kk;
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e < L.kk; e += G * kThreads)
-    gb[e] = ordered_sum(part + e, L.kk, G);
+// out[e] = the sum over the grid's blocks b of part[b * stride + e], for
+// e < count: one warp per entry, lane l adding partials l, l + 32, ... in
+// order, then the 32 lane sums added in lane order. Fixed order, so
+// repeatable; every thread of the block must call it.
+__device__ void reduce_partials(const float* part, long long stride, int count, float* out, float* red) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32, G = gridDim.x;
+  for (int e0 = blockIdx.x * kWarps; e0 < count; e0 += G * kWarps) {
+    const int e = e0 + warp;
+    float s = 0.f;
+    if (e < count)
+      for (int bb = lane; bb < G; bb += 32) s += part[bb * stride + e];
+    __syncthreads();
+    red[t] = s;
+    __syncthreads();
+    if (lane == 0 && e < count) {
+      float v = 0.f;
+      for (int l = 0; l < 32; ++l) v += red[t + l];
+      out[e] = v;
+    }
+  }
+}
+
+// gb[parity] = B Bᵀ from the blocks' partials.
+__device__ void reduce_gb(const Args& a, const Layout& L, int parity, float* red) {
+  reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.work + L.gb + (long long)parity * L.kk, red);
 }
 
 // Phase 1: forward, xb, dA, dl and the per-block partials over the block's rows.
 template <int KP>
-__device__ void row_phase(const Args& a, const Layout& L, float* smem, int step, PhaseClock& clock) {
+__device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, float* smem, int step,
+                          PhaseClock& clock) {
   constexpr int kXC = KP / 16;                   // xb: k = tx + 16c, c < kXC
   constexpr int kPrefB1 = KP * kCW / kThreads;   // B values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int n = a.n, m = a.m, r = a.r, P = a.P, T = a.T, K = a.K, S = K + 1;
   const float two_nm = (float)(2.0 / ((double)n * m));
-  int* f_s = reinterpret_cast<int*>(smem);
-  float* p = smem + round4(T * kMaxP);
+  const int* f_s = tb.f;
+  float* p = smem;
   float* c_s = p;   p += round4(K);
   float* om_s = p;  p += round4(3 * r);
   float* gb_s = p;  p += K * K;
@@ -305,7 +342,6 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step,
   float* dl_g = a.work + L.dl;
   const float* gb = a.work + L.gb + (long long)(step & 1) * L.kk;
 
-  for (int e = t; e < T * P; e += kThreads) f_s[e] = a.ftab[e];
   for (int k = t; k < K; k += kThreads) { c_s[k] = a.coef[k]; cacc[k] = 0.f; }
   for (int q = t; q < 3 * r; q += kThreads) { om_s[q] = a.omega[q]; oacc[q] = 0.f; }
   for (int e = t; e < L.kk; e += kThreads) gb_s[e] = gb[e];
@@ -457,15 +493,12 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step,
         trig += Y_s[i * S + k] * c_s[k] * V_s[i * S + k] * om_s[q];
       }
       float poly = 0.f;
-      for (int tt = 0; tt < T; ++tt) {
-        const float dth = Y_s[i * S + tt] * c_s[tt];
-        for (int q = 0; q < P; ++q) {
-          if (f_s[tt * P + q] != j + 1) continue;
-          float prod = dth;
-          for (int u = 0; u < P; ++u)
-            if (u != q) prod *= ag[f_s[tt * P + u]];
-          poly += prod;
-        }
+      for (int d = tb.d_off[j]; d < tb.d_off[j + 1]; ++d) {
+        const int tt = tb.d_tp[d] / P, q = tb.d_tp[d] % P;
+        float prod = Y_s[i * S + tt] * c_s[tt];
+        for (int u = 0; u < P; ++u)
+          if (u != q) prod *= ag[f_s[tt * P + u]];
+        poly += prod;
       }
       dl_g[(long long)(r0 + i) * r + j] = trig + poly;
     }
@@ -503,20 +536,9 @@ __device__ void row_phase(const Args& a, const Layout& L, float* smem, int step,
   if (t == 0) a.work[L.part_max + b] = vmax;
 }
 
-// Phase 2: sums[e] = sum over blocks of the row phase's partials; the max.
-__device__ void reduce_phase(const Args& a, const Layout& L) {
-  const int G = gridDim.x;
-  const float* part = a.work + L.part;
-  float* sums = a.work + L.sums;
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e <= L.es; e += G * kThreads) {
-    if (e == L.es) {
-      float v = 0.f;
-      for (int bb = 0; bb < G; ++bb) v = max_nan(v, a.work[L.part_max + bb]);
-      a.work[L.maxarg] = v;
-    } else {
-      sums[e] = ordered_sum(part + e, L.es, G);
-    }
-  }
+// Phase 2: sums = the row phase's partials summed over the blocks.
+__device__ void reduce_phase(const Args& a, const Layout& L, float* red) {
+  reduce_partials(a.work + L.part, L.es, L.es, a.work + L.sums, red);
 }
 
 // Phase 3: phi Adamax of the block's rows; ax, gB, the B Adamax and the next
@@ -694,6 +716,9 @@ __device__ void finalize(const Args& a, const Layout& L, float* smem, int step) 
     if (e / r != e % r) v += fabsf(latg[e]);
   const float ortho = 0.5f * block_sum(v, red);
   v = 0.f;
+  for (int bb = t; bb < G; bb += kThreads) v = max_nan(v, a.work[L.part_max + bb]);
+  const float maxarg = block_max(v, red);
+  v = 0.f;
   for (int k = t; k < K; k += kThreads) v += fabsf(a.coef[k]);
   const float l1 = block_sum(v, red);  // its barriers order the reads of c before the updates
   const float nm = (float)((double)a.n * a.m);
@@ -705,7 +730,7 @@ __device__ void finalize(const Args& a, const Layout& L, float* smem, int step) 
     row[1] = ortho;
     row[2] = l1;
     row[3] = total;
-    row[4] = a.work[L.maxarg];
+    row[4] = maxarg;
   }
   for (int k = t; k < K; k += kThreads) {
     const float g = gcoef[k] + a.lam * sgn(a.coef[k]);
@@ -735,25 +760,26 @@ __device__ void finalize(const Args& a, const Layout& L, float* smem, int step) 
 template <int KP>
 __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
-  float* smem = shared_base();
   const Layout L = make_layout(a.n, a.r, a.K, gridDim.x);
   PhaseClock clock;
+  const Tables tb = build_tables(a, shared_base());
+  float* smem = shared_base() + table_floats(a.T);  // each phase's own shared memory
   gb_partial(a, L, smem);
   grid.sync();
-  reduce_gb(a, L, 0);
+  reduce_gb(a, L, 0, smem);
   grid.sync();
   clock.mark(kPrologue);
   for (int step = 0; step < a.num_steps; ++step) {
-    row_phase<KP>(a, L, smem, step, clock);
+    row_phase<KP>(a, L, tb, smem, step, clock);
     grid.sync();
     clock.mark(kRowsBarrier);
-    reduce_phase(a, L);
+    reduce_phase(a, L, smem);
     grid.sync();
     clock.mark(kReduce);
     column_phase<KP>(a, L, smem, clock);
     grid.sync();
     clock.mark(kColumnsBarrier);
-    reduce_gb(a, L, (step + 1) & 1);
+    reduce_gb(a, L, (step + 1) & 1, smem);
     if (blockIdx.x == 0) finalize(a, L, smem, step);
     grid.sync();
     clock.mark(kFinalize);
