@@ -15,8 +15,9 @@ through ``runner.run``:
   launch per 2,000-epoch chunk, 10,000 epochs.
 
 Each path runs with every launch count set to 0 just before it and read just
-after. Then it times each kernel against its plain version in turns. Each
-phase prints one line; any failed check exits non-zero. The second-to-last
+after. Then it times each kernel against its plain version in turns, beside
+its bound, and splits the mega-kernel's time by phase with the kernel's own
+clock. Each phase prints its lines; any failed check exits non-zero. The second-to-last
 line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
 when no CUDA device is available.

@@ -18,23 +18,28 @@
 // Design (simple first; wgmma/TMA and 3xTF32 are later work). The TPU's
 // sequential grid (num_steps + 1, row tiles) becomes a loop inside one
 // persistent cooperative launch of one block per SM; the grid size is an
-// argument and every split derives from it. Per epoch, four phases with a
-// grid-wide barrier after each:
+// argument and every split derives from it. The kernel is compiled for K
+// padded to 32, 48, 64 or 128, so its register tiles fit K. Per epoch, four
+// phases with a grid-wide barrier after each:
 //   1. rows: each block owns a contiguous row range. In tiles of kRT rows it
 //      builds lat = pod * phiᵀ, the library D and A = D * c in shared memory,
-//      writes A to scratch, forms xb = X Bᵀ for its rows (X and B staged in
-//      shared memory), dA = 2/nm (A gb - xb), the per-row latent gradient
-//      dl, and per-block partials of AᵀA, latᵀlat, the coefficient and
-//      omega gradients and max |omega * lat|;
-//   2. reduce: the partials are summed over the blocks in block order;
+//      writes A to scratch, forms xb = X Bᵀ for its rows (chunks of X and B
+//      staged in shared memory, the next chunk loaded into registers
+//      meanwhile), dA = 2/nm (A gb - xb), the per-row latent gradient dl, and
+//      per-block partials of AᵀA, latᵀlat, the coefficient and omega
+//      gradients and max |omega * lat|;
+//   2. reduce: the partials are summed over the blocks, one warp per entry;
 //   3. columns: each block applies the phi Adamax to its own rows (the ortho
 //      sign needs the reduced latᵀlat), then for its slab of columns forms
-//      ax = Aᵀ X (A read back from L2), its share of sum(ax * B), gB = 2/nm
+//      ax = Aᵀ X (A read back from L2 in prefetched tiles, each thread
+//      holding up to 4 k x 8 columns), its share of sum(ax * B), gB = 2/nm
 //      (ga B - ax), the B Adamax, and its partial of the next epoch's B Bᵀ;
 //   4. finalize: the B Bᵀ partials are summed; block 0 writes the metrics
 //      row, steps the coefficient and omega Adamax and the scheduler.
 // Every sum across threads or blocks runs in a fixed order, so two launches
-// give identical bits. Products are plain fp32 FMA (the TPU's bf16 hi/lo
+// give identical bits. At one block of 8 warps per SM most loops wait on
+// latency: the designs above keep several loads or FMA chains in flight per
+// thread. A per-phase clock (PhaseClock) says where the time goes. Products are plain fp32 FMA (the TPU's bf16 hi/lo
 // three-pass products, 128-lane AUG/WIDE packing, selection matmuls and
 // gathers, VMEM budgets and fast sin/cos do not carry over). Trig is CUDA's
 // full-range sincosf/tanhf (no fast math); the polynomial backward uses the
@@ -54,18 +59,16 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRT = 32;   // rows per tile of the rows phase
 constexpr int kCW = 64;   // columns of X per staged chunk (xb)
+constexpr int kPrefX1 = kRT * kCW / kThreads;  // X values a thread prefetches per chunk
 constexpr int kSW = 8;    // columns per sub-slab (ax); its rows are read as two float4
 static_assert(kSW == 8, "the columns phase reads a row of its X tile as two float4");
-// rows per staged tile of the columns phase
-__host__ __device__ constexpr int ax_tile_rows(int KP) { return KP <= 64 ? 128 : 64; }
 constexpr int kMaxK = 128;
-// values each thread prefetches into registers for the next staged tile
-constexpr int kPrefX1 = kRT * kCW / kThreads;   // rows phase, X
-
 
 // The kernel is compiled for K padded to KP = 32, 48, 64 or 128, so that the
 // register tiles and loops over k have fixed sizes.
 __host__ __device__ constexpr int padded_k(int K) { return K <= 32 ? 32 : K <= 48 ? 48 : K <= 64 ? 64 : 128; }
+// rows per staged tile of the columns phase
+__host__ __device__ constexpr int ax_tile_rows(int KP) { return KP <= 64 ? 128 : 64; }
 constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
 constexpr int kAugW = kMaxR + 1;  // [1 | lat] per row
