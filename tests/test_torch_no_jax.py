@@ -78,7 +78,7 @@ def test_package_imports_without_jax(tmp_path):
 
 def test_sources_import_nothing_of_desmo_tpu():
     """No line of the port or of ``chip_smoke.py`` imports ``desmo_tpu``,
-    lazily or not (the driver's check:
+    lazily or not (the same match as
     ``grep -rnE "^\\s*(from|import) desmo_tpu(\\.| |$)"``)."""
     import re
     from pathlib import Path

@@ -252,7 +252,7 @@ def test_runner_runs_the_mega_kernel_chunk(tmp_path, omega):
     """``runner.run`` with ``chunk_method='megakernel'`` on the CPU (the
     plain chunk) against the same run through the eager loop. At
     omega_init=1 the whole run is held to 1e-4; at the preset's 1e4 the
-    dynamics amplify rounding about tenfold an epoch (``PERF.md``, PR 1), so
+    dynamics amplify rounding about tenfold an epoch (``PERF.md``, Findings), so
     the first 3 epochs are held to 1e-4 and the rest only to finiteness."""
     over = dict(omega_init=1.0, lr_omega=1.0) if omega == "unit" else {}
     base = dataclasses.replace(
