@@ -25,6 +25,7 @@ when no CUDA device is available.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -42,6 +43,8 @@ TIMED_STEPS = 50
 # kernel vs plain: fp32 FMA against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
 GRAD_RTOL = 2e-4
+# mega-kernel ortho vs plain: the absolute floor of tests/test_torch_train_chunk.py
+ORTHO_ATOL = 1e-5
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): fp32 outside
 # the tensor cores, and HBM
 PEAK_FP32 = 67e12
@@ -79,9 +82,10 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def chunk_flops(n: int, m: int, k: int) -> float:
-    """Operations of one epoch: AᵀX and XBᵀ (2nmK each), AᵀA and A·gb
-    (2nK² each), ga·B and BBᵀ (2K²m each)."""
-    return 2 * (2 * n * m * k) + 2 * (2 * n * k * k) + 2 * (2 * k * k * m)
+    """Operations of one epoch: AᵀX and XBᵀ (2nmK each), A·gb (2nK²), ga·B
+    (2K²m), and the symmetric Grams AᵀA and BBᵀ, whose upper triangles need
+    nK(K+1) and mK(K+1)."""
+    return 2 * (2 * n * m * k) + 2 * n * k * k + 2 * k * k * m + n * k * (k + 1) + m * k * (k + 1)
 
 
 def main() -> int:
@@ -109,7 +113,9 @@ def main() -> int:
 
     # 2. build both kernels from this checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
-    libs = _build.build_all(["dual_gemm", "train_chunk"])
+    names = ("dual_gemm", "train_chunk")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(_build.build, names)))
     for name in libs:
         _build.load(name)
     print(f"[2 build] {', '.join(os.path.relpath(p) for p in libs.values())} in {time.perf_counter() - t0:.1f} s")
@@ -222,22 +228,38 @@ def main() -> int:
     eager = train.make_train_chunk(eager_loss, desmo.param_groups(st.params), unit)
     se, _ = eager(st, batch, PARITY_STEPS)
     e_trace = {k: trace_rel(mk, mp, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
+    ortho_diff = (mk["ortho"][1:] - mp["ortho"][1:]).abs()
+    e_ortho = (ortho_diff / mp["ortho"][1:].abs()).max().item()
+    # every metric of one state: one epoch of each from the kernel's state
+    _, mk1 = train_chunk.fused_train_chunk(sk, batch, 1, spec, unit)
+    _, mp1 = train_chunk.train_chunk_plain(sk, batch, 1, spec, unit)
+    e_one = {k: ((mk1[k] - mp1[k]).abs() / mp1[k].abs()).item() for k in train_chunk.METRICS}
+    one_ok = all(bool((mk1[k] - mp1[k]).abs() <= 2e-4 * mp1[k].abs() + (ORTHO_ATOL if k == "ortho" else 0.0))
+                 for k in train_chunk.METRICS)
     e_params = {k: rel_err(sk.params[k], sp.params[k]) for k in sk.params}
     e_kernel_eager = max(rel_err(sk.params[k], se.params[k]) for k in sk.params)
     e_eager_plain = max(rel_err(se.params[k], sp.params[k]) for k in sp.params)
     chunk_max_abs = max(float((sk.params[k] - sp.params[k]).abs().max()) for k in sk.params)
     print(f"[5 unit] mega-kernel vs plain chunk, omega_init=1 lr_omega=1, {PARITY_STEPS} epochs at "
           f"(n, m, K)=({preset.n}, {preset.m}, {K}): trace " + ", ".join(f"{k} {v:.2e}" for k, v in e_trace.items())
+          + f", ortho over epochs 1-{PARITY_STEPS - 1} {e_ortho:.2e} (max abs {ortho_diff.max().item():.2e})"
           + "; params " + ", ".join(f"{k} {v:.2e}" for k, v in e_params.items())
           + f"; kernel vs eager loop {e_kernel_eager:.2e}, eager loop vs plain {e_eager_plain:.2e} of max|param|;"
           " two launches bit-identical")
+    print(f"[5 unit] one epoch from the kernel's state after {PARITY_STEPS}, kernel vs plain: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e_one.items())
+          + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute)")
     sk30, _ = train_chunk.fused_train_chunk(st, batch, STATE_STEPS, spec, unit)
     sp30, _ = train_chunk.train_chunk_plain(st, batch, STATE_STEPS, spec, unit)
     e_params30 = max(rel_err(sk30.params[k], sp30.params[k]) for k in sp30.params)
     print(f"[5 unit] mega-kernel vs plain chunk after {STATE_STEPS} epochs: params {e_params30:.2e} of max|param|")
-    # The trace is held to the JAX suite's 2e-4 over all 200 epochs (ortho
-    # aside: at epoch 0 it is the fp32 rounding of an orthonormal POD Gram,
-    # 6e-8), and the params to its 5e-4 after its 30 epochs. After 200 the
+    # The trace is held to the JAX suite's 2e-4 over all 200 epochs, and the
+    # params to its 5e-4 after its 30 epochs. Ortho is not held along the
+    # trajectory: at epoch 0 it is the fp32 rounding of an orthonormal POD
+    # Gram (6e-8), whose sign steers phi's ortho gradient, so the two
+    # trajectories' ortho rows part (3.6e-3 over epochs 1-199, measured on
+    # the H100). Every metric, ortho included, is held to 2e-4 (ortho plus
+    # the CPU suite's 1e-5 absolute) on one epoch from one state. After 200 the
     # params are held to 1e-2: correct implementations of the step drift
     # apart there, since Adamax divides each gradient by its running maximum
     # and an entry whose gradient is near zero steps by +-lr on rounding
@@ -246,6 +268,7 @@ def main() -> int:
     # in summation order 1.8e-3 (scripts/torch_ab_train_chunk.py), the
     # kernel and the eager loop up to 4.6e-3.
     check(max(e_trace.values()) <= 2e-4, f"mega-kernel trace vs plain beyond 2e-4: {e_trace}")
+    check(one_ok, f"mega-kernel metrics of one state vs plain beyond 2e-4: {e_one}")
     check(e_params30 <= 5e-4, f"mega-kernel params vs plain after {STATE_STEPS} epochs beyond 5e-4: {e_params30}")
     check(max(e_params.values()) <= 1e-2, f"mega-kernel params vs plain beyond 1e-2: {e_params}")
 

@@ -9,9 +9,10 @@
 // them out beside its plain PyTorch version.
 //
 // Bound on an H100 SXM at the cylinder shape (n=3961, m=1001, r=4, P=3, so
-// T=35, K=47): an epoch needs about 0.79 GFLOP (AᵀX and XBᵀ 2nmK each, AᵀA
-// and A·gb 2nK² each, ga·B and BBᵀ 2K²m each) and reads X (15.9 MB) once:
-// about 11.8 us at the 67 TFLOP/s fp32 rate outside the tensor cores, with
+// T=35, K=47): an epoch needs about 0.78 GFLOP (AᵀX and XBᵀ 2nmK each, A·gb
+// 2nK², ga·B 2K²m, and the symmetric Grams AᵀA nK(K+1) and BBᵀ mK(K+1)) and
+// reads X (15.9 MB) once:
+// about 11.6 us at the 67 TFLOP/s fp32 rate outside the tensor cores, with
 // the X read (4.7 us at 3.35 TB/s) hidden under it. fp32-FMA-bound; X stays
 // in the 50 MB L2 from one epoch to the next.
 //

@@ -10,7 +10,6 @@ CUDA tensor builds. A failed build raises with the compiler's output.
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -43,21 +42,21 @@ def nvcc_path() -> str:
     raise RuntimeError(f"nvcc not found on PATH or at {toolkit}")
 
 
-def library_path(name: str, src: Path | None = None) -> Path:
-    """Where the library of ``csrc/<name>.cu`` (or of the source ``src``)
-    lands: named by a hash of the source and the flags."""
-    src = CSRC / f"{name}.cu" if src is None else Path(src)
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lands: named by a hash of the
+    source and the flags."""
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str, src: Path | None = None) -> Path:
-    """Compile ``csrc/<name>.cu`` (or another version of it, ``src``) unless
-    its library is already built; returns the library's path. The compiler's
-    report (``-Xptxas -v``: registers and shared memory per kernel) is kept
-    beside it as ``<lib>.log``."""
-    src = CSRC / f"{name}.cu" if src is None else Path(src)
-    out = library_path(name, src)
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built; returns
+    the library's path. The compiler's report (``-Xptxas -v``: registers and
+    shared memory per kernel) is kept beside it as ``<lib>.log``. Safe to call
+    for different names from several threads at once."""
+    src = CSRC / f"{name}.cu"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -80,13 +79,6 @@ def build(name: str, src: Path | None = None) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
-
-
-def build_all(names: list[str]) -> dict[str, Path]:
-    """Build several sources at once, one ``nvcc`` process each; returns each
-    library's path by name."""
-    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -281,10 +281,10 @@ def train_chunk_plain(state: TrainState, batch: dict, num_steps: int, spec, cfg)
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    return bind(_build.load("train_chunk"))
+    return _bind(_build.load("train_chunk"))
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``csrc/train_chunk.cu``."""
     lib.desmo_chunk_grid.argtypes = [ctypes.c_int] * 2
     lib.desmo_chunk_grid.restype = ctypes.c_int
@@ -300,11 +300,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _grid(device_index: int, r: int, k: int, lib: ctypes.CDLL | None = None) -> int:
+def _grid(device_index: int, r: int, k: int) -> int:
     """Blocks of the cooperative launch on this device: one per SM when one
     fits there; raises when the device cannot launch it."""
     with torch.cuda.device(device_index):
-        grid = (lib or _lib()).desmo_chunk_grid(r, k)
+        grid = _lib().desmo_chunk_grid(r, k)
     if grid <= 0:
         raise RuntimeError(
             "fused_train_chunk: no cooperative launch on this device "
@@ -331,16 +331,15 @@ def _check(state: TrainState, batch: dict, spec) -> None:
         raise ValueError(f"fused_train_chunk: state on {state.params['phi'].device}, x on {x.device}")
 
 
-def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: ctypes.CDLL | None = None):
-    """Allocate and launch one chunk on the card (through ``lib``, another
-    build of the kernel, when given); returns the packed state, the metrics
-    rows and the scratch buffer."""
+def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg):
+    """Allocate and launch one chunk on the card; returns the packed state,
+    the metrics rows and the scratch buffer."""
     x = batch["x"]
     n, m = x.shape
     r, P, T = spec.r, spec.poly_order, spec.num_poly_terms
     K = T + 3 * r
-    lib = lib or _lib()
-    grid = _grid(x.device.index, r, K, lib)
+    lib = _lib()
+    grid = _grid(x.device.index, r, K)
     cs = pack(state)
     with torch.cuda.device(x.device):
         f32 = dict(dtype=torch.float32, device=x.device)
@@ -394,20 +393,18 @@ PHASES = (
 )
 
 
-def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg, lib: ctypes.CDLL | None = None):
+def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg):
     """Seconds of one launch of ``num_steps`` epochs by part (``PHASES``),
     from the kernel's own clock: block 0's thread reads the card's global
     timer at each mark, so a part inside a phase is block 0's own time and a
     phase's last part takes in the wait at its grid barrier. Summed over the
-    epochs. Needs the card; the launch counts like any other. ``lib`` runs
-    another build of the kernel."""
+    epochs. Needs the card; the launch counts like any other."""
     if _checked_device(state, batch, num_steps, spec, cfg) != "cuda":
         raise ValueError("phase_split: needs CUDA tensors, the plain chunk has no phases")
-    lib = lib or _lib()
-    _, _, work = _launch(state, batch, num_steps, spec, cfg, lib)
+    _, _, work = _launch(state, batch, num_steps, spec, cfg)
     n = batch["x"].shape[0]
     K = spec.num_poly_terms + 3 * spec.r
-    off = lib.desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, spec.r, K, lib))
+    off = _lib().desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, spec.r, K))
     ns = work[off:off + 2 * len(PHASES)].view(torch.int64).cpu().tolist()
     return {name: t * 1e-9 for name, t in zip(PHASES, ns)}
 
