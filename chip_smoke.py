@@ -5,22 +5,25 @@
 
 Builds the port's two CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, started together), holds each against its plain PyTorch
-version at the main path's shapes, and drives both training paths of the
-cylinder preset at full width (n=3961, m=1001, r=4, P=3) on synthetic data
-through ``runner.run``:
+version at the main paths' shapes, and drives the training paths of two
+presets at full width on synthetic data through ``runner.run``:
 
-- the eager loop (``chunk_method="scan"``) through the dual-contraction
-  kernel, 300 epochs;
-- the preset as configured (``chunk_method="auto"``): the mega-kernel, one
-  launch per 2,000-epoch chunk, 10,000 epochs.
+- cylinder (n=3961, m=1001, r=4, P=3): the eager loop
+  (``chunk_method="scan"``) through the dual-contraction kernel, 300 epochs,
+  and the preset as configured (``chunk_method="auto"``): the mega-kernel's
+  desmo form, one launch per 2,000-epoch chunk, 10,000 epochs;
+- fourier_cylinder (n=3961, m=1001, r=2, P=2, nF=10): the eager loop through
+  the dual-contraction kernel, 100 epochs, and the preset as configured:
+  the mega-kernel's Fourier form, one launch per 2,000-epoch chunk, 10,000
+  epochs.
 
 Each path runs with every launch count set to 0 just before it and read just
-after. Then it times each kernel against its plain version in turns, beside
-its bound, and splits the mega-kernel's time by phase with the kernel's own
-clock. Each phase prints its lines; any failed check exits non-zero. The second-to-last
-line is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Exits non-zero without printing a result
-when no CUDA device is available.
+after. Then it times each kernel (the mega-kernel in both forms) against its
+plain version in turns, beside its bound, and splits the mega-kernel's time
+by phase with the kernel's own clock. Each phase prints its lines; any
+failed check exits non-zero. The second-to-last line is a JSON record of the
+kernels; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
+without printing a result when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import tempfile
 import time
 
 EAGER_EPOCHS = 300
+FOURIER_EAGER_EPOCHS = 100
 CPU_EPOCHS = 10
 SLICE_EPOCHS = 10_000
 PARITY_STEPS = 200
@@ -81,11 +85,15 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def chunk_flops(n: int, m: int, k: int) -> float:
+def chunk_flops(n: int, m: int, k: int, nf: int = 0) -> float:
     """Operations of one epoch: AᵀX and XBᵀ (2nmK each), A·gb (2nK²), ga·B
     (2K²m), and the symmetric Grams AᵀA and BBᵀ, whose upper triangles need
-    nK(K+1) and mK(K+1)."""
-    return 2 * (2 * n * m * k) + 2 * n * k * k + 2 * k * k * m + n * k * (k + 1) + m * k * (k + 1)
+    nK(K+1) and mK(K+1); the Fourier form adds its series forward and
+    backward, 20 operations per row, column and harmonic (the recurrence 6
+    and the sum 4 forward; the recurrence, the two products and sums and
+    the period's term backward)."""
+    return (2 * (2 * n * m * k) + 2 * n * k * k + 2 * k * k * m + n * k * (k + 1) + m * k * (k + 1)
+            + 20 * k * m * nf)
 
 
 def main() -> int:
@@ -96,9 +104,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device", file=sys.stderr)
         return 1
     from desmo_tpu_torch import configs, device as device_mod, losses, pod, runner, train
-    from desmo_tpu_torch.io import synthetic
     from desmo_tpu_torch.kernels import _build, dual_gemm, train_chunk
-    from desmo_tpu_torch.models import desmo
+    from desmo_tpu_torch.models import desmo, fourier
 
     # 1. the card
     dev = device_mod.resolve("cuda")
@@ -201,6 +208,33 @@ def main() -> int:
     # and the first 10 to that reference spread, 0.2.
     check(bool((rel[:3] <= 1e-4).all() and (rel <= 0.2).all()), "GPU vs CPU totals disagree")
 
+    # 4f. the Fourier preset's eager path: the series loss through the dual kernel
+    fpreset = configs.get("fourier_cylinder")
+    fx_np, _ = runner.load_data(fpreset, synthetic=True)
+    feager_cfg = dataclasses.replace(fpreset, chunk_method="scan", loss_method="fused",
+                                     checkpoint_every=50, log_every=50)
+    with tempfile.TemporaryDirectory() as tmp:
+        dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+        t0 = time.perf_counter()
+        art = runner.run(feager_cfg, fx_np, out_dir=tmp, num_epochs=FOURIER_EAGER_EPOCHS, echo=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dual_launches_f = dual_gemm.dual_contractions.launches
+        chunk_launches_f = train_chunk.fused_train_chunk.launches
+        hist = art.history
+        check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (FOURIER_EAGER_EPOCHS,) for k in hist),
+              "Fourier eager history")
+        check(hist["rec"][-1] < hist["rec"][0], f"Fourier eager rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+        check(dual_launches_f == FOURIER_EAGER_EPOCHS,
+              f"dual kernel launched {dual_launches_f} times in {FOURIER_EAGER_EPOCHS} Fourier loss evaluations")
+        check(chunk_launches_f == 0, f"the Fourier eager path launched the mega-kernel {chunk_launches_f} times")
+        check("fourier_cylinder_r2_final.pt" in os.listdir(art.out_dir), "Fourier eager export")
+        feager_sps = art.steps_per_sec
+        print(f"[4f eager] fourier_cylinder n={art.config.n} m={art.config.m} r={fpreset.r} P={fpreset.poly_order} "
+              f"nF={fpreset.n_fourier}, chunk_method=scan: {FOURIER_EAGER_EPOCHS} epochs in {wall:.1f} s, "
+              f"{feager_sps:.1f} steps/s over epochs 51-{FOURIER_EAGER_EPOCHS}; rec {hist['rec'][0]:.6e} -> "
+              f"{hist['rec'][-1]:.6e}; dual kernel launches {dual_launches_f} = loss evaluations, mega-kernel 0")
+
     # 5. the mega-kernel against the plain chunk at full width
     pod_modes = pod.pod_host(x_np, preset.r, dev).modes
     batch = runner.prepare_batch(x_np, pod_modes, dev)
@@ -281,6 +315,83 @@ def main() -> int:
           f"(limit 1e-4), over 0-9 {e10:.2e} (limit 0.2)")
     check(e3 <= 1e-4 and e10 <= 0.2, "mega-kernel vs plain at the preset's omega")
 
+    # 5f. the Fourier form against its plain chunk at fourier_cylinder's full width
+    fpod = pod.pod_host(fx_np, fpreset.r, dev).modes
+    fbatch = runner.prepare_batch(fx_np, fpod, dev)
+
+    def fstart(cfg):
+        spec = fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier,
+                                   cfg.period_init)
+        return spec, train.init_state(fourier.Fourier(spec, device=dev).params(), cfg)
+
+    funit = dataclasses.replace(fpreset, omega_init=1.0, lr_omega=1.0)
+    fspec, fst = fstart(funit)
+    fK = fspec.num_poly_terms + 3 * fspec.r
+    sk, mk = train_chunk.fused_train_chunk(fst, fbatch, PARITY_STEPS, fspec, funit)
+    torch.cuda.synchronize()
+    sp, mp = train_chunk.train_chunk_plain(fst, fbatch, PARITY_STEPS, fspec, funit)
+    sk2, mk2 = train_chunk.fused_train_chunk(fst, fbatch, PARITY_STEPS, fspec, funit)
+    torch.cuda.synchronize()
+    check(all(torch.equal(mk[k], mk2[k]) for k in mk) and all(torch.equal(sk.params[k], sk2.params[k]) for k in sk.params),
+          "two Fourier mega-kernel launches from the same state differ")
+    fe_trace = {k: trace_rel(mk, mp, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
+    fe_l1_30 = trace_rel(mk, mp, "l1", STATE_STEPS)
+    sk1, mk1 = train_chunk.fused_train_chunk(sk, fbatch, 1, fspec, funit)
+    sp1, mp1 = train_chunk.train_chunk_plain(sk, fbatch, 1, fspec, funit)
+    fe_one = {k: ((mk1[k] - mp1[k]).abs() / mp1[k].abs()).item() for k in train_chunk.METRICS}
+    fone_ok = all(bool((mk1[k] - mp1[k]).abs() <= 2e-4 * mp1[k].abs() + (ORTHO_ATOL if k == "ortho" else 0.0))
+                  for k in train_chunk.METRICS)
+    fe_one_params = {k: rel_err(sk1.params[k], sp1.params[k]) for k in sk1.params}
+    fourier_max_abs = max(float((sk1.params[k] - sp1.params[k]).abs().max()) for k in sk1.params)
+    fe_params = {k: rel_err(sk.params[k], sp.params[k]) for k in sk.params}
+    sk30, _ = train_chunk.fused_train_chunk(fst, fbatch, STATE_STEPS, fspec, funit)
+    sp30, _ = train_chunk.train_chunk_plain(fst, fbatch, STATE_STEPS, fspec, funit)
+    fe_params30 = {k: rel_err(sk30.params[k], sp30.params[k]) for k in sp30.params}
+    # the spread of two correct implementations: the plain chunk on the CPU
+    cpu_batch = runner.prepare_batch(fx_np, fpod.cpu(), torch.device("cpu"))
+    fst_cpu = train.init_state(fourier.Fourier(fspec).params(), funit)
+    sc30, _ = train_chunk.train_chunk_plain(fst_cpu, cpu_batch, STATE_STEPS, fspec, funit)
+    sc, mc = train_chunk.train_chunk_plain(fst_cpu, cpu_batch, PARITY_STEPS, fspec, funit)
+    fe_spread30 = max(rel_err(sp30.params[k].cpu(), sc30.params[k]) for k in sc30.params)
+    fe_spread = max(rel_err(sp.params[k].cpu(), sc.params[k]) for k in sc.params)
+    fe_trace_spread = {k: float(((mp[k].cpu() - mc[k]).abs() / mc[k].abs()).max()) for k in ("rec", "l1", "total")}
+    print(f"[5f unit] Fourier mega-kernel vs plain chunk, omega_init=1 lr_omega=1, {PARITY_STEPS} epochs at "
+          f"(n, m, K, nF)=({fpreset.n}, {fpreset.m}, {fK}, {fpreset.n_fourier}): trace "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe_trace.items())
+          + f" (l1 over epochs 0-{STATE_STEPS - 1} {fe_l1_30:.2e}); params "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe_params.items()) + " of max|param|; two launches bit-identical")
+    print(f"[5f unit] the plain chunk on the GPU vs on the CPU over the same {PARITY_STEPS} epochs: trace "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe_trace_spread.items()) + f"; params {fe_spread:.2e} of max|param|")
+    print(f"[5f unit] one epoch from the kernel's state after {PARITY_STEPS}, kernel vs plain: metrics "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe_one.items())
+          + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute); params "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe_one_params.items()) + " of max|param| (limit 1e-5)")
+    print(f"[5f unit] after {STATE_STEPS} epochs: kernel vs plain chunk, params "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe_params30.items())
+          + f" of max|param|; the plain chunk on the GPU vs on the CPU {fe_spread30:.2e}")
+    # Every metric and every parameter of one epoch from one state are held
+    # to 2e-4 and 1e-5, rec and total over 200 epochs to 2e-4, and l1 over
+    # the JAX suite's 30. Along the trajectory the lat1*lat2 term's series
+    # row and coefficient have near-zero gradients, which Adamax steps by
+    # +-lr on rounding alone, so even the plain chunk on the GPU and on the
+    # CPU part there (the lines above print by how much): l1 over 200 epochs
+    # is held to 1e-3 and the parameters, after 30 epochs as after 200, to
+    # 1e-2.
+    check(fe_trace["rec"] <= 2e-4 and fe_trace["total"] <= 2e-4 and fe_l1_30 <= 2e-4 and fe_trace["l1"] <= 1e-3,
+          f"Fourier mega-kernel trace vs plain beyond its limits: {fe_trace}, l1 over {STATE_STEPS}: {fe_l1_30}")
+    check(fone_ok, f"Fourier mega-kernel metrics of one state vs plain beyond 2e-4: {fe_one}")
+    check(max(fe_one_params.values()) <= 1e-5, f"Fourier params of one epoch from one state beyond 1e-5: {fe_one_params}")
+    check(max(fe_params30.values()) <= 1e-2 and max(fe_params.values()) <= 1e-2,
+          f"Fourier mega-kernel params vs plain beyond 1e-2: {fe_params30}, {fe_params}")
+
+    fspec, fst = fstart(fpreset)
+    sk, mk = train_chunk.fused_train_chunk(fst, fbatch, 3, fspec, fpreset)
+    sp, mp = train_chunk.train_chunk_plain(fst, fbatch, 3, fspec, fpreset)
+    fe3 = trace_rel(mk, mp, "total", 3)
+    print(f"[5f preset] Fourier mega-kernel vs plain chunk, omega_init=1e4: total over epochs 0-2 {fe3:.2e} "
+          "(limit 1e-4)")
+    check(fe3 <= 1e-4, "Fourier mega-kernel vs plain at the preset's omega")
+
     # 6. the slice: the preset as configured, through the mega-kernel
     with tempfile.TemporaryDirectory() as tmp:
         dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
@@ -307,6 +418,37 @@ def main() -> int:
               f"(POD, sweep and exports included), {slice_sps:.1f} steps/s over chunks 2-{n_chunks}; rec "
               f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; relative error {art.relative_error:.6f}; "
               f"mega-kernel launches {chunk_launches} = chunks, dual kernel 0")
+
+    # 6f. the Fourier preset as configured, through the mega-kernel's Fourier form
+    with tempfile.TemporaryDirectory() as tmp:
+        dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+        t0 = time.perf_counter()
+        art = runner.run(fpreset, fx_np, out_dir=tmp, num_epochs=SLICE_EPOCHS, echo=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fourier_launches = train_chunk.fused_train_chunk.launches
+        fslice_dual = dual_gemm.dual_contractions.launches
+        hist = art.history
+        n_chunks = SLICE_EPOCHS // fpreset.checkpoint_every
+        check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (SLICE_EPOCHS,) for k in hist),
+              "Fourier slice history")
+        check(hist["rec"][-1] < hist["rec"][0], f"Fourier slice rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+        check(fourier_launches == n_chunks, f"Fourier mega-kernel launched {fourier_launches} times for {n_chunks} chunks")
+        check(fslice_dual == 0, f"the Fourier mega-kernel path launched the dual kernel {fslice_dual} times")
+        files = set(os.listdir(art.out_dir))
+        want = {"fourier_cylinder_r2_final.pt", "state_final.npz"} | {
+            f"state_epoch{e}.npz" for e in range(fpreset.checkpoint_every, SLICE_EPOCHS + 1, fpreset.checkpoint_every)}
+        check(want <= files, f"missing Fourier exports in {sorted(files)}")
+        sd = torch.load(os.path.join(art.out_dir, "fourier_cylinder_r2_final.pt"), weights_only=True)
+        check({"period_list.0", "trig_period_list.5"} <= set(sd) and tuple(sd["z_list.0"].shape) == (21,),
+              "Fourier export keys")
+        check(art.relative_error == art.relative_error and len(art.sweep) == 14, "Fourier slice error/sweep")
+        fslice_sps = art.steps_per_sec
+        print(f"[6f slice] fourier_cylinder as configured (chunk_method=auto): {SLICE_EPOCHS} epochs in {wall:.1f} s "
+              f"(POD, sweep and exports included), {fslice_sps:.1f} steps/s over chunks 2-{n_chunks}; rec "
+              f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; relative error {art.relative_error:.6f}, POD(r) "
+              f"{art.pod_error_r:.6f}; periods {sd['period_list.0'].item():.4f} ...; mega-kernel launches "
+              f"{fourier_launches} = chunks, dual kernel 0")
 
     # 7. times on the card, each kernel and its plain version in turns
     a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((cyl[0], cyl[2]), (cyl[2], cyl[1]), cyl[:2]))
@@ -353,6 +495,29 @@ def main() -> int:
           + "; by part " + ", ".join(f"{k} {v * per_epoch_us:.1f}" for k, v in split.items() if "." in k)
           + " us/epoch")
 
+    fspec, fst = fstart(fpreset)
+    kernel = lambda: train_chunk.fused_train_chunk(fst, fbatch, TIMED_STEPS, fspec, fpreset)  # noqa: E731
+    plain = lambda: train_chunk.train_chunk_plain(fst, fbatch, TIMED_STEPS, fspec, fpreset)  # noqa: E731
+    k1, p1, p2, k2 = (time_ms(f, 3) for f in (kernel, plain, plain, kernel))
+    fourier_ms, fourier_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    flong_ms = time_ms(lambda: train_chunk.fused_train_chunk(fst, fbatch, fpreset.checkpoint_every, fspec, fpreset), 2)
+    fsplit = train_chunk.phase_split(fst, fbatch, fpreset.checkpoint_every, fspec, fpreset)
+    nc, fr = 2 * fpreset.n_fourier + 1, fpreset.r
+    fstate_bytes = 4 * 2 * (3 * fr * n + 3 * fK * nc + 3 * fK + 3 * fK + 9 * fr + train_chunk.SVEC)
+    fchunk_bytes = 4 * (n * m + n * fr + m + TIMED_STEPS * len(train_chunk.METRICS)) + fstate_bytes
+    fourier_bound, fourier_by = bound_ms(TIMED_STEPS * chunk_flops(n, m, fK, fpreset.n_fourier), fchunk_bytes)
+    print(f"[7f time] {card}: Fourier mega-kernel at (n, m, K, nF)=({n}, {m}, {fK}, {fpreset.n_fourier}): "
+          f"{flong_ms * 1e3 / fpreset.checkpoint_every:.1f} us/epoch over a {fpreset.checkpoint_every}-epoch chunk; "
+          f"over {TIMED_STEPS}-epoch chunks in turns: kernel {k1 * per_epoch:.1f}/{k2 * per_epoch:.1f} us/epoch, "
+          f"plain chunk {p1 * per_epoch:.1f}/{p2 * per_epoch:.1f} us/epoch; bound "
+          f"{fourier_bound * per_epoch:.1f} us/epoch ({fourier_by}); slice {fslice_sps:.1f} steps/s, "
+          f"eager path {feager_sps:.1f} steps/s")
+    fsplit_total = sum(fsplit.values())
+    print(f"[7f split] {card}: Fourier mega-kernel over a {fpreset.checkpoint_every}-epoch chunk (kernel clock, "
+          f"block 0): prologue {fsplit['prologue'] * 1e6:.1f} us once; "
+          + ", ".join(f"{k} {v * per_epoch_us:.1f} us/epoch ({v / fsplit_total:.1%})"
+                      for k, v in fsplit.items() if k != "prologue") + "")
+
     # 8. the records
     print(json.dumps({"kernels": [
         {
@@ -379,6 +544,19 @@ def main() -> int:
             "plain_ms": chunk_plain_ms,
             "bound_ms": chunk_bound,
             "bound_by": chunk_by,
+            "library_ms": None,
+        },
+        {
+            "name": "fused_train_chunk (Fourier form)",
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/train_chunk.cu",
+            "replaces": "desmo_tpu/pallas/train_chunk.py:356 (nf>0)",
+            "launches": fourier_launches,
+            "max_abs_err": fourier_max_abs,
+            "ms": fourier_ms,
+            "plain_ms": fourier_plain_ms,
+            "bound_ms": fourier_bound,
+            "bound_by": fourier_by,
             "library_ms": None,
         },
     ]}))

@@ -4,6 +4,7 @@
     python -m desmo_tpu_torch run --preset cylinder --synthetic --epochs 2000
     python -m desmo_tpu_torch run --preset cylinder --npz snapshots.npz --device cpu
     python -m desmo_tpu_torch run --preset cylinder --synthetic --chunk-method scan
+    python -m desmo_tpu_torch run --preset fourier_cylinder --synthetic --epochs 2000
 
 ``run`` trains on the GPU by default and raises when there is none; the plain
 PyTorch path runs only with ``--device cpu``. ``--chunk-method`` sets the

@@ -2,7 +2,8 @@
 scheme, and weights carried over from the JAX package.
 
 Port of ``save_state``, ``state_dict_from_params`` and
-``params_from_state_dict`` from ``desmo_tpu/checkpoint.py`` (desmo variant).
+``params_from_state_dict`` from ``desmo_tpu/checkpoint.py`` (desmo and
+Fourier variants).
 ``save_state`` writes the same flat keys as the JAX package
 (``params/<key>``, ``opt/count``, ``opt/mu/<key>``, ``opt/nu/<key>``,
 ``sched/lrs``, ``sched/best``, ``sched/num_bad``, ``epoch``), so
@@ -27,10 +28,14 @@ def _host(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def state_dict_from_params(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def state_dict_from_params(
+    params: Mapping[str, torch.Tensor], variant: str = "desmo"
+) -> dict[str, torch.Tensor]:
     """The reference's ``ParameterList`` key scheme (``phi_list.0``,
     ``c_coef``, ``z_list.*``, ``zsin_list.*``, ``sin_coef_list.*``,
-    ``omega_list.{3i+k}``, ...), as contiguous CPU tensors."""
+    ``omega_list.{3i+k}``, ...), as contiguous CPU tensors. The Fourier
+    variant's ``z_list.{t}`` hold the 2nF+1 series coefficients, and it adds
+    ``period_list.{t}`` and ``trig_period_list.{3i+k}``, each of shape (1,)."""
     p = {k: v.detach().cpu() for k, v in params.items()}
     r = p["phi"].shape[0]
     sd: dict[str, torch.Tensor] = {}
@@ -48,10 +53,18 @@ def state_dict_from_params(params: Mapping[str, torch.Tensor]) -> dict[str, torc
     for i in range(r):
         for k in range(3):
             sd[f"omega_list.{3 * i + k}"] = p["omega"][k, i]
+    if variant == "fourier":
+        for t in range(p["period"].shape[0]):
+            sd[f"period_list.{t}"] = p["period"][t : t + 1]
+        for i in range(r):
+            for k in range(3):
+                sd[f"trig_period_list.{3 * i + k}"] = p["trig_period"][k, i].reshape(1)
     return {k: v.contiguous().clone() for k, v in sd.items()}
 
 
-def params_from_state_dict(sd: Mapping, device: torch.device | str) -> dict[str, torch.Tensor]:
+def params_from_state_dict(
+    sd: Mapping, device: torch.device | str, variant: str = "desmo"
+) -> dict[str, torch.Tensor]:
     """Inverse of :func:`state_dict_from_params`; values may be tensors or arrays."""
 
     def collect(prefix: str) -> np.ndarray:
@@ -76,12 +89,17 @@ def params_from_state_dict(sd: Mapping, device: torch.device | str) -> dict[str,
         # omega_list[3i+k] -> omega[k, i]
         "omega": np.array([scalar(f"omega_list.{j}") for j in range(3 * r)]).reshape(r, 3).T,
     }
+    if variant == "fourier":
+        params["period"] = collect("period_list").reshape(-1)
+        # trig_period_list[3i+k] -> trig_period[k, i]
+        params["trig_period"] = np.array([scalar(f"trig_period_list.{j}") for j in range(3 * r)]).reshape(r, 3).T
     return params_from_jax(params, device)
 
 
 def params_from_jax(np_params: Mapping[str, np.ndarray], device: torch.device | str) -> dict[str, torch.Tensor]:
-    """The JAX package's parameters (as numpy arrays, same keys and shapes)
-    as the port's float32 tensors on ``device``."""
+    """The JAX package's parameters (as numpy arrays, same keys and shapes,
+    the Fourier variant's ``period`` and ``trig_period`` included) as the
+    port's float32 tensors on ``device``."""
     return {
         k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
         for k, v in np_params.items()

@@ -3,10 +3,11 @@
 // analytic gradients, the plateau scheduler and one metrics row per epoch.
 //
 // Replaces the TPU kernel desmo_tpu/pallas/train_chunk.py:356 _make_kernel in
-// its single-seed desmo form (resident or streamed transport; the Fourier and
-// seed-packed forms are not ported yet). The per-epoch semantics are those of
-// the eager training step, as desmo_tpu_torch/kernels/train_chunk.py sets
-// them out beside its plain PyTorch version.
+// its single-seed forms: desmo (resident or streamed transport) and Fourier
+// (nf > 0; the seed-packed form is not ported yet). The per-epoch semantics
+// are those of the eager training step, as
+// desmo_tpu_torch/kernels/train_chunk.py sets them out beside its plain
+// PyTorch version.
 //
 // Bound on an H100 SXM at the cylinder shape (n=3961, m=1001, r=4, P=3, so
 // T=35, K=47): an epoch needs about 0.78 GFLOP (AᵀX and XBᵀ 2nmK each, A·gb
@@ -47,6 +48,31 @@
 // product rule over the P factors, so it needs no guard at lat == 0. The
 // kernel allocates nothing and does not synchronise; the entry point returns
 // the launch's cudaError_t.
+//
+// The Fourier form (a template parameter, so the desmo form's code is as it
+// was; its fields sit at the end of Args, since placing them among the desmo
+// form's slowed that form, which runs at 255 registers). B (K, m) is no parameter there but the truncated series of each row,
+// B[k][j] = z_k0 + sum_h z_k,2h-1 cos(h th) + z_k,2h sin(h th) with
+// th = 2 pi t_j / period_k, built as the TPU kernel builds it: cos and sin of
+// th once (sincosf, full range: th reaches about 1e3 rad), the harmonics by
+// the recurrence cos((h+1) th) = c_h c_1 - s_h s_1. t_j is the host's float32
+// t_points, passed in (the step m/(m-1) is not integral). B lives in the
+// scratch. The gradients of the series and the periods are sums over all m
+// columns, so B can no longer be stepped slab by slab in the columns phase:
+//   3. columns: as above up to gB, then per-block partials of each row's
+//      series gradient (gB times 1, cos h th, sin h th) and of its period's
+//      term (gB dB/dth th), over the block's columns;
+//   4. finalize: the series partials are summed over the blocks (one warp per
+//      entry, all blocks); block 0 as above;
+//   5. series: every block steps the series and period Adamax from the sums
+//      (a few hundred entries, redundantly, into shared memory; block 0 also
+//      writes the new state to the scratch), rebuilds its own column slab of
+//      B from the new series and forms its partial of the next B Bᵀ;
+//   6. gram: the B Bᵀ partials are summed; block 0 stores the new series.
+// Six grid barriers per epoch against the desmo form's four. Rebuilding all
+// of B (K m series values) and B Bᵀ (K² m) in every block would save two of
+// them but multiply that work by the grid size, so each block rebuilds only
+// its own slab and the Gram goes through partials as in the desmo form.
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -74,13 +100,17 @@ constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
 constexpr int kAugW = kMaxR + 1;  // [1 | lat] per row
 constexpr int kMetrics = 5;       // rec, ortho, l1, total, max |omega * lat|
+constexpr int kMaxNf = 63;        // Fourier harmonics
+constexpr int kSerTab = 4096;     // shared floats of the columns phase's series table
+constexpr float kTwoPi = 6.28318530717958647692f;
 // the kernel clock's counters (PhaseClock): the prologue; in the rows phase
 // the dictionary, xb, the gradients and Gram partials, and the rest up to
 // the end of its barrier; the reduce phase; in the columns phase the phi
-// update, ax, and the rest up to the end of its barrier; the finalize phase
+// update, ax, and the rest up to the end of its barrier; the finalize phase;
+// the Fourier form's series update and its B Bᵀ reduction
 enum Phase {
   kPrologue, kRowsDictionary, kRowsXb, kRowsGradients, kRowsBarrier, kReduce,
-  kColumnsPhi, kColumnsAx, kColumnsBarrier, kFinalize, kPhases
+  kColumnsPhi, kColumnsAx, kColumnsBarrier, kFinalize, kSeries, kSeriesGram, kPhases
 };
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
@@ -94,7 +124,7 @@ struct Args {
   const float* x_sq;  // sum(X * X)
   const int* ftab;    // (T, P) factor indices into [1 | lat]
   float* phi;         // (3, r, n): phi, mu, nu
-  float* b;           // (3, K, m): B, mu, nu
+  float* b;           // desmo: (3, K, m): B, mu, nu; Fourier: B (K, m) in the scratch
   float* coef;        // (3, K)
   float* omega;       // (3, 3r)
   float* svec;        // scheduler vector
@@ -102,18 +132,28 @@ struct Args {
   float* work;        // scratch, make_layout(...).total floats
   int n, m, r, P, T, K, num_steps, sched_every;
   float beta, lam, patience, factor, min_lr;
+  // the Fourier form's (nf > 0; nf = 0 is the desmo form)
+  const float* tpts;  // (m,) t_points
+  float* ser;         // (3, K, nc) series coefficients, mu, nu
+  float* per;         // (3, K) periods, mu, nu
+  int nf;
 };
 
-// Offsets (in floats) into the scratch buffer for a grid of G blocks.
+// Offsets (in floats) into the scratch buffer for a grid of G blocks; nc is
+// the Fourier form's series length 2 nf + 1, 0 for the desmo form.
 struct Layout {
-  long long a, dl, part, part_max, part_cross, part_gb, sums, gb, timer, total;
+  long long a, dl, part, part_max, part_cross, part_gb, sums, gb;
+  long long bw, part_ser, sums_ser, ser_next, timer, total;
   int kk, es;  // K*K; entries of the summed partials: ga, latᵀlat, gcoef, gomega
+  int es_ser;  // Fourier: entries of a series partial, K (nc + 1)
 };
 
-__host__ __device__ inline Layout make_layout(int n, int r, int K, int G) {
+__host__ __device__ inline Layout make_layout(int n, int m, int r, int K, int nc, int G) {
   Layout L;
   L.kk = K * K;
   L.es = K * K + r * r + K + 3 * r;
+  L.es_ser = nc > 0 ? K * (nc + 1) : 0;
+  const long long fourier = nc > 0;
   long long o = 0;
   L.a = o;          o += (long long)n * K;
   L.dl = o;         o += (long long)n * r;
@@ -123,6 +163,10 @@ __host__ __device__ inline Layout make_layout(int n, int r, int K, int G) {
   L.part_gb = o;    o += (long long)G * L.kk;
   L.sums = o;       o += L.es;
   L.gb = o;         o += 2LL * L.kk;  // by epoch parity
+  L.bw = o;         o += fourier * K * m;
+  L.part_ser = o;   o += (long long)G * L.es_ser;
+  L.sums_ser = o;   o += L.es_ser;
+  L.ser_next = o;   o += fourier * 3LL * K * (nc + 1);  // series (3, K, nc), then periods (3, K)
   o += o & 1;
   L.timer = o;      o += 2 * kPhases;  // kPhases unsigned 64-bit ns counters
   L.total = o;
@@ -136,15 +180,18 @@ __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 // (offsets and entries), for the polynomial backward.
 __host__ __device__ inline int table_floats(int T) { return 2 * round4(T * kMaxP) + round4(kMaxR + 1); }
 
-// Shared floats: the tables, then the larger of the rows and columns phases.
-__host__ __device__ inline int smem_floats(int r, int T, int K) {
+// Shared floats: the tables, then the largest of the phases' own.
+__host__ __device__ inline int smem_floats(int r, int T, int K, int nc) {
   const int S = K + 1, KP = padded_k(K);
   const int rows = round4(K) + round4(3 * r) + K * K + kRT * kAugW +
                    4 * kRT * S + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
                    round4(3 * r);
   const int rt3 = ax_tile_rows(KP);
-  const int columns = round4(K * K) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads;
-  return table_floats(T) + (rows > columns ? rows : columns);
+  const int columns = round4(K * K) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads +
+                      (nc > 0 ? kSerTab : 0);
+  const int series = nc > 0 ? round4(K * kSW) + round4(K * nc) + round4(K) : 0;
+  const int most = rows > columns ? rows : columns;
+  return table_floats(T) + (most > series ? most : series);
 }
 
 #ifndef DESMO_EMULATED_GRID
@@ -163,9 +210,12 @@ __device__ __forceinline__ unsigned long long globaltimer_ns() {
 // Block 0's thread 0 adds the time since its previous mark to a counter at
 // each mark: where the chunk's time goes, at the cost of one clock read per
 // mark. Marks inside a phase time block 0's own work; the mark after a grid
-// barrier also takes in the wait for the slowest block.
+// barrier also takes in the wait for the slowest block. N counters: the
+// desmo form keeps none for the Fourier form's phases (every thread carries
+// them, and the kernel is at its register limit).
+template <int N>
 struct PhaseClock {
-  unsigned long long ns[kPhases] = {};
+  unsigned long long ns[N] = {};
   unsigned long long last = 0;
   bool on;
   __device__ PhaseClock() : on(blockIdx.x == 0 && threadIdx.x == 0) {
@@ -180,7 +230,7 @@ struct PhaseClock {
   __device__ void store(float* where) const {
     if (!on) return;
     unsigned long long* out = reinterpret_cast<unsigned long long*>(where);
-    for (int p = 0; p < kPhases; ++p) out[p] = ns[p];
+    for (int p = 0; p < N; ++p) out[p] = ns[p];
   }
 };
 
@@ -314,10 +364,139 @@ __device__ void reduce_gb(const Args& a, const Layout& L, int parity, float* red
   reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.work + L.gb + (long long)parity * L.kk, red);
 }
 
+// Fourier: th = 2 pi t_j / period as the host forms it in float32,
+// (2 pi t_j) * (1 / period); its cosine and sine.
+__device__ __forceinline__ float series_angle(const float* tpts, float inv_period, int j, float* c1, float* s1) {
+  const float th = (kTwoPi * tpts[j]) * inv_period;
+  sincosf(th, s1, c1);
+  return th;
+}
+
+// Fourier: the series z (2 nf + 1 coefficients) at the angle whose cosine
+// and sine are c1 and s1, the harmonics by the recurrence.
+__device__ float series_value(const float* z, int nf, float c1, float s1) {
+  float acc = z[0] + z[1] * c1 + z[2] * s1;
+  float ck = c1, sk = s1;
+  for (int h = 2; h <= nf; ++h) {
+    const float ckn = ck * c1 - sk * s1, skn = sk * c1 + ck * s1;
+    acc = acc + z[2 * h - 1] * ckn + z[2 * h] * skn;
+    ck = ckn;
+    sk = skn;
+  }
+  return acc;
+}
+
+// Fourier: this block's column slab of B from the series zc (K, nc) and the
+// periods per (K,), written to the scratch's B, then its partial of B Bᵀ.
+__device__ void series_slab(const Args& a, const Layout& L, const float* zc, const float* per, float* smem) {
+  const int K = a.K, m = a.m, nc = 2 * a.nf + 1, G = gridDim.x;
+  const int W = (m + G - 1) / G, col_begin = blockIdx.x * W, w = min(m, col_begin + W) - col_begin;
+  for (int e = threadIdx.x; e < K * w; e += kThreads) {
+    const int k = e / w, j = col_begin + e % w;
+    float c1, s1;
+    series_angle(a.tpts, 1.f / per[k], j, &c1, &s1);
+    a.b[(long long)k * m + j] = series_value(zc + k * nc, a.nf, c1, s1);
+  }
+  __syncthreads();
+  gb_partial(a, L, smem);
+}
+
+// Fourier, columns phase: part_ser[k (nc + 1) + c] += the sum over the
+// sub-slab's w columns j0.. of gB[k][jj] times dB[k][j] / dz_kc (1, cos h th,
+// sin h th) for c < nc, and at c = nc of gB dB/dth th, the period's gradient
+// before its factor -1/period. The terms are staged in shared memory (tab,
+// kSerTab floats) for a group of rows at a time and summed in column order.
+__device__ void series_partial(const Args& a, const float* gb_s, int j0, int w, float* tab, float* part_ser) {
+  const int K = a.K, nf = a.nf, nc = 2 * nf + 1, NC = nc + 1;
+  const int kg = max(1, kSerTab / (NC * kSW));
+  for (int k0 = 0; k0 < K; k0 += kg) {
+    const int kn = min(kg, K - k0);
+    for (int e = threadIdx.x; e < kn * kSW; e += kThreads) {
+      const int kl = e / kSW, jj = e % kSW, k = k0 + kl;
+      if (jj >= w) continue;  // never read
+      float* col = tab + kl * NC * kSW + jj;
+      const float* z = a.ser + (long long)k * nc;
+      const float g = gb_s[k * kSW + jj];
+      float c1, s1;
+      const float th = series_angle(a.tpts, 1.f / a.per[k], j0 + jj, &c1, &s1);
+      col[0] = g;
+      col[kSW] = g * c1;
+      col[2 * kSW] = g * s1;
+      float dbdt = z[2] * c1 - z[1] * s1;
+      float ck = c1, sk = s1;
+      for (int h = 2; h <= nf; ++h) {
+        const float ckn = ck * c1 - sk * s1, skn = sk * c1 + ck * s1;
+        col[(2 * h - 1) * kSW] = g * ckn;
+        col[2 * h * kSW] = g * skn;
+        dbdt = dbdt + (float)h * (z[2 * h] * ckn - z[2 * h - 1] * skn);
+        ck = ckn;
+        sk = skn;
+      }
+      col[nc * kSW] = g * dbdt * th;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kn * NC; e += kThreads) {
+      const float* row = tab + e * kSW;
+      float s = part_ser[k0 * NC + e];
+      for (int jj = 0; jj < w; ++jj) s += row[jj];
+      part_ser[k0 * NC + e] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// The learning rates and bias of the series update, read from the scheduler
+// vector before block 0's finalize steps it.
+struct SeriesStep {
+  float lr_z, lr_per, bias;
+};
+
+// Fourier, series phase: the series and period Adamax from the reduced
+// gradients and the old state, into shared memory in every block (zc_s (K,
+// nc), per_s (K)); block 0 also writes the new state with its moments to the
+// scratch (ser_next), which the next phase stores.
+__device__ void series_update(const Args& a, const Layout& L, const SeriesStep& st, float* zc_s, float* per_s) {
+  const int K = a.K, nc = 2 * a.nf + 1, NC = nc + 1;
+  const float* sums = a.work + L.sums_ser;
+  float* next = a.work + L.ser_next;
+  const long long kn = (long long)K * nc;
+  const bool store = blockIdx.x == 0;
+  for (int e = threadIdx.x; e < K * nc; e += kThreads) {
+    float p = a.ser[e], mu = a.ser[kn + e], nu = a.ser[2 * kn + e];
+    adamax(&p, &mu, &nu, sums[(e / nc) * NC + e % nc], st.lr_z, st.bias);
+    zc_s[e] = p;
+    if (store) {
+      next[e] = p;
+      next[kn + e] = mu;
+      next[2 * kn + e] = nu;
+    }
+  }
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    const float g = -(1.f / a.per[k]) * sums[k * NC + nc];
+    float p = a.per[k], mu = a.per[K + k], nu = a.per[2 * K + k];
+    adamax(&p, &mu, &nu, g, st.lr_per, st.bias);
+    per_s[k] = p;
+    if (store) {
+      next[3 * kn + k] = p;
+      next[3 * kn + K + k] = mu;
+      next[3 * kn + 2 * K + k] = nu;
+    }
+  }
+  __syncthreads();
+}
+
+// Fourier, block 0: the new series and periods from the scratch into the state.
+__device__ void store_series(const Args& a, const Layout& L) {
+  const long long kn = 3LL * a.K * (2 * a.nf + 1);
+  const float* next = a.work + L.ser_next;
+  for (long long e = threadIdx.x; e < kn; e += kThreads) a.ser[e] = next[e];
+  for (int e = threadIdx.x; e < 3 * a.K; e += kThreads) a.per[e] = next[kn + e];
+}
+
 // Phase 1: forward, xb, dA, dl and the per-block partials over the block's rows.
-template <int KP>
+template <int KP, typename Clock>
 __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, float* smem, int step,
-                          PhaseClock& clock) {
+                          Clock& clock) {
   constexpr int kXC = KP / 16;                   // xb: k = tx + 16c, c < kXC
   constexpr int kPrefB1 = KP * kCW / kThreads;   // B values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
@@ -545,10 +724,11 @@ __device__ void reduce_phase(const Args& a, const Layout& L, float* red) {
   reduce_partials(a.work + L.part, L.es, L.es, a.work + L.sums, red);
 }
 
-// Phase 3: phi Adamax of the block's rows; ax, gB, the B Adamax and the next
-// B Bᵀ partial over the block's column slab.
-template <int KP>
-__device__ void column_phase(const Args& a, const Layout& L, float* smem, PhaseClock& clock) {
+// Phase 3: phi Adamax of the block's rows; ax and gB over the block's column
+// slab, then the B Adamax and the next B Bᵀ partial (desmo) or the series
+// gradient partials (Fourier).
+template <int KP, bool kFourier, typename Clock>
+__device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock& clock) {
   constexpr int kRT3 = ax_tile_rows(KP);
   constexpr int kKq = (KP + 31) / 32;              // ax: lane owns k = lane + 32q, q < kKq
   constexpr int kPrefA3 = kRT3 * KP / kThreads;    // A values prefetched per thread
@@ -591,10 +771,16 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, PhaseC
   float* Bn = p;   p += K * kSW;
   float* ax_s = p; p += K * kSW;
   float* wred = p; p += kWarps * K * kSW;
-  float* red = p;
+  float* red = p;  p += kThreads;
+  float* tab = p;  // Fourier: kSerTab floats
   for (int e = t; e < L.kk; e += kThreads) ga_s[e] = sums[e];
   float* part_gb = a.work + L.part_gb + (long long)b * L.kk;
-  for (int e = t; e < L.kk; e += kThreads) part_gb[e] = 0.f;
+  float* part_ser = a.work + L.part_ser + (long long)b * L.es_ser;
+  if (kFourier) {
+    for (int e = t; e < L.es_ser; e += kThreads) part_ser[e] = 0.f;
+  } else {
+    for (int e = t; e < L.kk; e += kThreads) part_gb[e] = 0.f;
+  }
   float cross = 0.f;
   const long long km = (long long)K * m;
   const int W = (m + G - 1) / G, col_begin = b * W, col_end = min(m, col_begin + W);
@@ -669,7 +855,8 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, PhaseC
     }
     __syncthreads();
     clock.mark(kColumnsAx);
-    // sum(ax * B), gB = 2/nm (ga B - ax) and the B Adamax
+    // sum(ax * B), gB = 2/nm (ga B - ax) and the B Adamax (desmo; Bn the new
+    // B) or gB alone (Fourier; Bn holds gB)
     for (int o = t; o < K * kSW; o += kThreads) {
       const int k = o / kSW, jj = o % kSW;
       float nb = 0.f;
@@ -678,14 +865,21 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, PhaseC
         float s = 0.f;
         for (int l = 0; l < K; ++l) s = fmaf(ga_s[k * K + l], Bo[l * kSW + jj], s);
         const float g = two_nm * (s - ax_s[o]);
-        const long long gi = (long long)k * m + j0 + jj;
-        adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
-        nb = a.b[gi];
+        if (kFourier) {
+          nb = g;
+        } else {
+          const long long gi = (long long)k * m + j0 + jj;
+          adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
+          nb = a.b[gi];
+        }
       }
       Bn[o] = nb;
     }
     __syncthreads();
-    accumulate_gb(Bn, w, K, part_gb);
+    if (kFourier)
+      series_partial(a, Bn, j0, w, tab, part_ser);
+    else
+      accumulate_gb(Bn, w, K, part_gb);
   }
   cross = block_sum(cross, red);
   if (t == 0) a.work[L.part_cross + b] = cross;
@@ -761,48 +955,76 @@ __device__ void finalize(const Args& a, const Layout& L, float* smem, int step) 
   }
 }
 
-template <int KP>
+template <int KP, bool kFourier>
 __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
-  const Layout L = make_layout(a.n, a.r, a.K, gridDim.x);
-  PhaseClock clock;
+  const int nc = kFourier ? 2 * a.nf + 1 : 0;
+  const Layout L = make_layout(a.n, a.m, a.r, a.K, nc, gridDim.x);
+  if (kFourier) a.b = a.work + L.bw;
+  PhaseClock<kFourier ? kPhases : kSeries> clock;
   const Tables tb = build_tables(a, shared_base());
   float* smem = shared_base() + table_floats(a.T);  // each phase's own shared memory
-  gb_partial(a, L, smem);
+  float* zc_s = smem + round4(a.K * kSW);           // Fourier, series phase
+  float* per_s = zc_s + round4(a.K * nc);
+  if (kFourier)
+    series_slab(a, L, a.ser, a.per, smem);
+  else
+    gb_partial(a, L, smem);
   grid.sync();
   reduce_gb(a, L, 0, smem);
   grid.sync();
   clock.mark(kPrologue);
   for (int step = 0; step < a.num_steps; ++step) {
+    // read before block 0's finalize of this epoch steps the scheduler
+    const SeriesStep st = kFourier ? SeriesStep{a.svec[kLr0 + 2], a.svec[kLr0 + 4], 1.f - a.svec[kPow] * kB1}
+                                   : SeriesStep{};
     row_phase<KP>(a, L, tb, smem, step, clock);
     grid.sync();
     clock.mark(kRowsBarrier);
     reduce_phase(a, L, smem);
     grid.sync();
     clock.mark(kReduce);
-    column_phase<KP>(a, L, smem, clock);
+    column_phase<KP, kFourier>(a, L, smem, clock);
     grid.sync();
     clock.mark(kColumnsBarrier);
-    reduce_gb(a, L, (step + 1) & 1, smem);
-    if (blockIdx.x == 0) finalize(a, L, smem, step);
-    grid.sync();
-    clock.mark(kFinalize);
+    if constexpr (kFourier) {
+      reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem);
+      if (blockIdx.x == 0) finalize(a, L, smem, step);
+      grid.sync();
+      clock.mark(kFinalize);
+      series_update(a, L, st, zc_s, per_s);
+      series_slab(a, L, zc_s, per_s, smem);
+      grid.sync();
+      clock.mark(kSeries);
+      reduce_gb(a, L, (step + 1) & 1, smem);
+      if (blockIdx.x == 0) store_series(a, L);
+      grid.sync();
+      clock.mark(kSeriesGram);
+    } else {
+      reduce_gb(a, L, (step + 1) & 1, smem);
+      if (blockIdx.x == 0) finalize(a, L, smem, step);
+      grid.sync();
+      clock.mark(kFinalize);
+    }
   }
   clock.store(a.work + L.timer);
 }
 
-size_t smem_bytes(int r, int T, int K) { return sizeof(float) * (size_t)smem_floats(r, T, K); }
+size_t smem_bytes(int r, int T, int K, int nc) { return sizeof(float) * (size_t)smem_floats(r, T, K, nc); }
 
 using KernelFn = void (*)(Args);
 
-KernelFn kernel_for(int K) {
+template <bool kFourier>
+KernelFn kernel_for_k(int K) {
   switch (padded_k(K)) {
-    case 32: return train_chunk_kernel<32>;
-    case 48: return train_chunk_kernel<48>;
-    case 64: return train_chunk_kernel<64>;
-    default: return train_chunk_kernel<128>;
+    case 32: return train_chunk_kernel<32, kFourier>;
+    case 48: return train_chunk_kernel<48, kFourier>;
+    case 64: return train_chunk_kernel<64, kFourier>;
+    default: return train_chunk_kernel<128, kFourier>;
   }
 }
+
+KernelFn kernel_for(int K, int nf) { return nf > 0 ? kernel_for_k<true>(K) : kernel_for_k<false>(K); }
 
 }  // namespace
 
@@ -810,16 +1032,18 @@ extern "C" {
 
 // Blocks of the cooperative launch on the current device (one per SM), or a
 // negative cudaError_t: cooperative launch unsupported, or no block fits.
-int desmo_chunk_grid(int r, int K) {
-  if (r < 1 || r > kMaxR || K < 1 || K > kMaxK || K <= 3 * r) return -(int)cudaErrorInvalidValue;
+// nf is the number of Fourier harmonics, 0 for the desmo form.
+int desmo_chunk_grid(int r, int K, int nf) {
+  if (r < 1 || r > kMaxR || K < 1 || K > kMaxK || K <= 3 * r || nf < 0 || nf > kMaxNf)
+    return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return -(int)err;
   if (!coop) return -(int)cudaErrorNotSupported;
-  const size_t bytes = smem_bytes(r, K - 3 * r, K);
-  const void* kernel = (const void*)kernel_for(K);
+  const size_t bytes = smem_bytes(r, K - 3 * r, K, nf > 0 ? 2 * nf + 1 : 0);
+  const void* kernel = (const void*)kernel_for(K, nf);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
@@ -829,31 +1053,35 @@ int desmo_chunk_grid(int r, int K) {
 }
 
 // Floats of scratch the launch needs for a grid of `grid` blocks.
-long long desmo_chunk_workspace(int n, int r, int K, int grid) {
-  return make_layout(n, r, K, grid).total;
+long long desmo_chunk_workspace(int n, int m, int r, int K, int nf, int grid) {
+  return make_layout(n, m, r, K, nf > 0 ? 2 * nf + 1 : 0, grid).total;
 }
 
 // Offset (in floats) in the scratch of the launch's kPhases 64-bit
 // nanosecond counters (enum Phase), summed over the epochs.
-long long desmo_chunk_timer_offset(int n, int r, int K, int grid) {
-  return make_layout(n, r, K, grid).timer;
+long long desmo_chunk_timer_offset(int n, int m, int r, int K, int nf, int grid) {
+  return make_layout(n, m, r, K, nf > 0 ? 2 * nf + 1 : 0, grid).timer;
 }
 
-// Runs num_steps epochs in place on phi, b, coef, omega and svec; writes the
-// metrics rows. Returns a cudaError_t.
+// Runs num_steps epochs in place on phi, coef, omega, svec and either b
+// (desmo, nf = 0; tpts, ser and per unused) or ser and per (Fourier, nf > 0;
+// b unused); writes the metrics rows. Returns a cudaError_t.
 int desmo_train_chunk(const float* pod, const float* x, const float* x_sq, const int* ftab,
-                      float* phi, float* b, float* coef, float* omega, float* svec, float* met,
-                      float* work, int n, int m, int r, int P, int T, int num_steps,
+                      const float* tpts, float* phi, float* b, float* ser, float* per,
+                      float* coef, float* omega, float* svec, float* met, float* work,
+                      int n, int m, int r, int P, int T, int nf, int num_steps,
                       int sched_every, int grid, float beta, float lam, float patience,
                       float factor, float min_lr, void* stream) {
   const int K = T + 3 * r;
   if (n < 1 || m < 1 || r < 1 || r > kMaxR || P < 1 || P > kMaxP || T < 1 || K > kMaxK ||
-      num_steps < 1 || sched_every < 1 || grid < 1)
+      nf < 0 || nf > kMaxNf || num_steps < 1 || sched_every < 1 || grid < 1 ||
+      (nf > 0 ? (!tpts || !ser || !per) : !b))
     return (int)cudaErrorInvalidValue;
   Args args{pod, x, x_sq, ftab, phi, b, coef, omega, svec, met, work,
-            n, m, r, P, T, K, num_steps, sched_every, beta, lam, patience, factor, min_lr};
-  const size_t bytes = smem_bytes(r, T, K);
-  const void* kernel = (const void*)kernel_for(K);
+            n, m, r, P, T, K, num_steps, sched_every, beta, lam, patience, factor, min_lr,
+            tpts, ser, per, nf};
+  const size_t bytes = smem_bytes(r, T, K, nf > 0 ? 2 * nf + 1 : 0);
+  const void* kernel = (const void*)kernel_for(K, nf);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   void* params[] = {&args};

@@ -1,6 +1,7 @@
 """A whole training chunk of single-seed DESMO in one kernel launch. Port of
-the desmo form of ``desmo_tpu/pallas/train_chunk.py`` (``_make_kernel``,
-``make_fused_train_chunk``, ``supports``, ``select_chunk``).
+the desmo and Fourier forms of ``desmo_tpu/pallas/train_chunk.py``
+(``_make_kernel``, ``make_fused_train_chunk``, ``supports``,
+``select_chunk``).
 
 A chunk runs ``num_steps`` epochs, each in the order of the eager
 ``train.make_train_chunk``:
@@ -23,10 +24,20 @@ A chunk runs ``num_steps`` epochs, each in the order of the eager
 5. the plateau scheduler, stepped with this step's total when
    ``epoch % sched_every == 0``.
 
+The Fourier form (``variant="fourier"``) follows the TPU kernel's arithmetic:
+at the start of each epoch B is built from the series, ``th = (2 pi t) *
+(1 / period)`` on the float32 ``t_points``, cos and sin of th once and the
+harmonics by the recurrence ``cos((h+1) th) = c_h c_1 - s_h s_1``; gB is
+carried back into the coefficients (row sums of gB, gB cos h th, gB sin h th)
+and the periods (``-(1/period) * rowsum(gB dB/dth th)``), which take Adamax
+steps with ``lr_z`` and ``lr_period``.
+
 The state travels in the kernel's layout (:class:`ChunkState`): phi and its
-moments as one (3, r, n) tensor, B and its moments (3, K, m), the
-coefficients ``c ‖ c_trig`` (3, K), omega (3, 3r) and a 16-slot scheduler
-vector (group LRs, best, b1^count, count, num_bad, epoch).
+moments as one (3, r, n) tensor; B and its moments (3, K, m) (desmo) or the
+series ``z ‖ z_trig`` (3, K, 2nF+1) and the periods ``period ‖
+trig_period`` (3, K) with their moments (Fourier); the coefficients ``c ‖
+c_trig`` (3, K), omega (3, 3r) and a 16-slot scheduler vector (group LRs,
+best, b1^count, count, num_bad, epoch).
 
 ``fused_train_chunk`` takes the plain version (:func:`train_chunk_plain`,
 the same arithmetic written out in PyTorch) for CPU tensors only. On a CUDA
@@ -46,6 +57,7 @@ import torch
 from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch import library, optim
 from desmo_tpu_torch.kernels import _build
+from desmo_tpu_torch.models import fourier
 from desmo_tpu_torch.train import ChunkFn, TrainState
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -54,15 +66,24 @@ METRICS = ("rec", "ortho", "l1", "total", "max_arg")
 # scheduler-vector slots (floats, as in the TPU kernel's svec row)
 _LR0, _BEST, _POW, _COUNT, _NUMBAD, _EPOCH = 0, 5, 6, 7, 8, 9
 SVEC = 16
-MAX_K, MAX_R, MAX_P = 128, 8, 8
+MAX_K, MAX_R, MAX_P, MAX_NF = 128, 8, 8, 63
+
+
+def n_fourier(spec, cfg) -> int:
+    """The Fourier form's harmonics nF, 0 for the desmo form."""
+    return int(getattr(spec, "n_fourier", 0)) if getattr(cfg, "variant", "desmo") == "fourier" else 0
 
 
 def supports(spec, cfg) -> bool:
-    """Whether the mega-kernel runs this configuration: the desmo variant
-    with K = T + 3r <= 128, P <= 8 and r <= 8, the answer of
-    ``desmo_tpu.pallas.train_chunk.supports`` for that variant. The Fourier
-    form is not ported yet (ROADMAP queue 2, item 4)."""
-    if getattr(cfg, "variant", "desmo") != "desmo":
+    """Whether the mega-kernel runs this configuration, the answer of
+    ``desmo_tpu.pallas.train_chunk.supports``: the desmo or Fourier variant
+    with K = T + 3r <= 128, P <= 8 and r <= 8, and for Fourier
+    1 <= nF <= 63."""
+    variant = getattr(cfg, "variant", "desmo")
+    if variant == "fourier":
+        if not 1 <= getattr(spec, "n_fourier", 0) <= MAX_NF:
+            return False
+    elif variant != "desmo":
         return False
     r, P = spec.r, spec.poly_order
     return library.num_poly_terms(r, P) + 3 * r <= MAX_K and P <= MAX_P and r <= MAX_R
@@ -108,26 +129,36 @@ def select_chunk(spec, cfg, device: torch.device):
 
 @dataclasses.dataclass
 class ChunkState:
-    """Training state in the kernel's layout; the kernel updates it in place."""
+    """Training state in the kernel's layout; the kernel updates it in place.
+    The desmo form holds ``b``, the Fourier form ``series`` and ``periods``."""
 
     phi: torch.Tensor  # (3, r, n): phi, its Adamax mu and nu
-    b: torch.Tensor  # (3, K, m): B = [z; z_trig], mu, nu
     coef: torch.Tensor  # (3, K): c ‖ c_trig (kind-major), mu, nu
     omega: torch.Tensor  # (3, 3r): omega (kind-major), mu, nu
     svec: torch.Tensor  # (SVEC,): group LRs, best, b1^count, count, num_bad, epoch
+    b: torch.Tensor | None = None  # (3, K, m): B = [z; z_trig], mu, nu
+    series: torch.Tensor | None = None  # (3, K, 2nF+1): [z; z_trig] coefficients, mu, nu
+    periods: torch.Tensor | None = None  # (3, K): period ‖ trig_period, mu, nu
 
 
 def pack(state: TrainState) -> ChunkState:
     """A new :class:`ChunkState` holding a copy of ``state``; builds no host
     sync (count and epoch are host ints)."""
     trees = (state.params, state.mu, state.nu)
-    m = state.params["z"].shape[1]
+    width = state.params["z"].shape[1]  # m, or the Fourier form's 2nF+1
 
     def stack(fn):
         return torch.stack([fn(t).to(torch.float32) for t in trees]).contiguous()
 
     phi = stack(lambda t: t["phi"])
-    b = stack(lambda t: torch.cat([t["z"], t["z_trig"].reshape(-1, m)]))
+    temporal = stack(lambda t: torch.cat([t["z"], t["z_trig"].reshape(-1, width)]))
+    if "period" in state.params:
+        form = dict(
+            series=temporal,
+            periods=stack(lambda t: torch.cat([t["period"], t["trig_period"].reshape(-1)])),
+        )
+    else:
+        form = dict(b=temporal)
     coef = stack(lambda t: torch.cat([t["c"], t["c_trig"].reshape(-1)]))
     omega = stack(lambda t: t["omega"].reshape(-1))
     sched = state.sched
@@ -143,7 +174,7 @@ def pack(state: TrainState) -> ChunkState:
         torch.tensor([float(state.epoch)], dtype=torch.float32, device=dev),
         torch.zeros(SVEC - _EPOCH - 1, dtype=torch.float32, device=dev),
     ])
-    return ChunkState(phi, b, coef, omega, svec)
+    return ChunkState(phi=phi, coef=coef, omega=omega, svec=svec, **form)
 
 
 def unpack(cs: ChunkState, like: TrainState, num_steps: int) -> TrainState:
@@ -151,17 +182,22 @@ def unpack(cs: ChunkState, like: TrainState, num_steps: int) -> TrainState:
     started from ``like``; parameters are views into ``cs``."""
     r, n = cs.phi.shape[1:]
     T = cs.coef.shape[1] - 3 * r
-    m = cs.b.shape[2]
+    temporal = cs.b if cs.series is None else cs.series
+    width = temporal.shape[2]
 
     def tree(i):
-        return {
+        out = {
             "phi": cs.phi[i],
             "c": cs.coef[i, :T],
-            "z": cs.b[i, :T],
-            "z_trig": cs.b[i, T:].view(3, r, m),
+            "z": temporal[i, :T],
+            "z_trig": temporal[i, T:].view(3, r, width),
             "c_trig": cs.coef[i, T:].view(3, r),
             "omega": cs.omega[i].view(3, r),
         }
+        if cs.periods is not None:
+            out["period"] = cs.periods[i, :T]
+            out["trig_period"] = cs.periods[i, T:].view(3, r)
+        return out
 
     params, mu, nu = (tree(i) for i in range(3))
     keys = list(like.params)
@@ -189,6 +225,38 @@ def _adamax_(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, g, lr, bias) -
     p.copy_(p - (lr / bias) * mu / nu)
 
 
+def series_forward(zc: torch.Tensor, per: torch.Tensor, tw: torch.Tensor):
+    """The Fourier form's B (K, m) from the series zc (K, 2nF+1) and the
+    periods (K,) at ``tw = 2 pi t_points``, as the TPU kernel builds it;
+    returns ``(B, harmonics, th)`` with the list of ``(cos h th, sin h th)``
+    for h = 1..nF."""
+    nf = (zc.shape[1] - 1) // 2
+    th = tw[None, :] * (1.0 / per)[:, None]
+    c1, s1 = torch.cos(th), torch.sin(th)
+    acc = zc[:, 0:1] + zc[:, 1:2] * c1 + zc[:, 2:3] * s1
+    harmonics = [(c1, s1)]
+    ck, sk = c1, s1
+    for h in range(2, nf + 1):
+        ck, sk = ck * c1 - sk * s1, sk * c1 + ck * s1
+        acc = acc + zc[:, 2 * h - 1:2 * h] * ck + zc[:, 2 * h:2 * h + 1] * sk
+        harmonics.append((ck, sk))
+    return acc, harmonics, th
+
+
+def series_backward(g_b: torch.Tensor, zc: torch.Tensor, per: torch.Tensor, harmonics, th: torch.Tensor):
+    """The gradients of the series coefficients (K, 2nF+1) and the periods
+    (K,) from gB (K, m), through :func:`series_forward`'s harmonics."""
+    cols = [g_b.sum(1)]
+    c1, s1 = harmonics[0]
+    dbdt = zc[:, 2:3] * c1 - zc[:, 1:2] * s1
+    for h, (ck, sk) in enumerate(harmonics, 1):
+        cols += [(g_b * ck).sum(1), (g_b * sk).sum(1)]
+        if h > 1:
+            dbdt = dbdt + float(h) * (zc[:, 2 * h:2 * h + 1] * ck - zc[:, 2 * h - 1:2 * h] * sk)
+    g_per = -(1.0 / per) * (g_b * dbdt * th).sum(1)
+    return torch.stack(cols, dim=1), g_per
+
+
 def train_chunk_plain(state: TrainState, batch: dict, num_steps: int, spec, cfg):
     """The chunk in plain PyTorch: the kernel's arithmetic step by step, with
     the analytic gradients (no autograd). Returns ``(state, metrics)`` like
@@ -205,13 +273,20 @@ def train_chunk_plain(state: TrainState, batch: dict, num_steps: int, spec, cfg)
     offdiag = 1.0 - torch.eye(r, dtype=torch.float32, device=x.device)
     ones = torch.ones((n, 1), dtype=torch.float32, device=x.device)
     phi, phi_mu, phi_nu = cs.phi.unbind(0)
-    bm, b_mu, b_nu = cs.b.unbind(0)
+    if cs.series is None:
+        bm, b_mu, b_nu = cs.b.unbind(0)
+    else:
+        zc, zc_mu, zc_nu = cs.series.unbind(0)
+        per, per_mu, per_nu = cs.periods.unbind(0)
+        tw = torch.as_tensor(fourier.TWO_PI * fourier.t_points(m), device=x.device)  # float32 2 pi t
     c, c_mu, c_nu = cs.coef.unbind(0)
     om, om_mu, om_nu = cs.omega.unbind(0)
     sv = cs.svec
     rows = []
     for _ in range(num_steps):
         # forward of the generation-s parameters
+        if cs.series is not None:
+            bm, harmonics, th_b = series_forward(zc, per, tw)
         lat = pod * phi.T  # (n, r)
         gathered = torch.cat([ones, lat], dim=1)[:, F]  # (n, T, P)
         theta = gathered[..., 0]
@@ -258,7 +333,12 @@ def train_chunk_plain(state: TrainState, batch: dict, num_steps: int, spec, cfg)
         lrs = sv[_LR0:_LR0 + 5].clone()
         _adamax_(c, c_mu, c_nu, g_coef, lrs[0], bias)
         _adamax_(phi, phi_mu, phi_nu, g_phi, lrs[1], bias)
-        _adamax_(bm, b_mu, b_nu, g_b, lrs[2], bias)
+        if cs.series is None:
+            _adamax_(bm, b_mu, b_nu, g_b, lrs[2], bias)
+        else:
+            g_zc, g_per = series_backward(g_b, zc, per, harmonics, th_b)
+            _adamax_(zc, zc_mu, zc_nu, g_zc, lrs[2], bias)
+            _adamax_(per, per_mu, per_nu, g_per, lrs[4], bias)
         _adamax_(om, om_mu, om_nu, g_om, lrs[3], bias)
         # plateau scheduler
         best, num_bad, epoch = sv[_BEST].clone(), sv[_NUMBAD].clone(), sv[_EPOCH].clone()
@@ -286,25 +366,25 @@ def _lib() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from ``csrc/train_chunk.cu``."""
-    lib.desmo_chunk_grid.argtypes = [ctypes.c_int] * 2
+    lib.desmo_chunk_grid.argtypes = [ctypes.c_int] * 3
     lib.desmo_chunk_grid.restype = ctypes.c_int
-    lib.desmo_chunk_workspace.argtypes = [ctypes.c_int] * 4
+    lib.desmo_chunk_workspace.argtypes = [ctypes.c_int] * 6
     lib.desmo_chunk_workspace.restype = ctypes.c_longlong
-    lib.desmo_chunk_timer_offset.argtypes = [ctypes.c_int] * 4
+    lib.desmo_chunk_timer_offset.argtypes = [ctypes.c_int] * 6
     lib.desmo_chunk_timer_offset.restype = ctypes.c_longlong
     lib.desmo_train_chunk.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
     )
     lib.desmo_train_chunk.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _grid(device_index: int, r: int, k: int) -> int:
+def _grid(device_index: int, r: int, k: int, nf: int) -> int:
     """Blocks of the cooperative launch on this device: one per SM when one
     fits there; raises when the device cannot launch it."""
     with torch.cuda.device(device_index):
-        grid = _lib().desmo_chunk_grid(r, k)
+        grid = _lib().desmo_chunk_grid(r, k, nf)
     if grid <= 0:
         raise RuntimeError(
             "fused_train_chunk: no cooperative launch on this device "
@@ -313,7 +393,7 @@ def _grid(device_index: int, r: int, k: int) -> int:
     return grid
 
 
-def _check(state: TrainState, batch: dict, spec) -> None:
+def _check(state: TrainState, batch: dict, spec, nf: int) -> None:
     x, pod, x_sq = batch["x"], batch["pod_modes"], batch["x_sq"]
     n, m = x.shape
     r = spec.r
@@ -325,8 +405,13 @@ def _check(state: TrainState, batch: dict, spec) -> None:
             )
         if t.device != x.device:
             raise ValueError(f"fused_train_chunk: {name} on {t.device}, x on {x.device}")
-    if tuple(state.params["phi"].shape) != (r, n) or tuple(state.params["z"].shape[1:]) != (m,):
-        raise ValueError("fused_train_chunk: state does not match the batch's (n, m) and the spec's r")
+    width = 2 * nf + 1 if nf else m
+    if tuple(state.params["phi"].shape) != (r, n) or tuple(state.params["z"].shape[1:]) != (width,):
+        raise ValueError(
+            "fused_train_chunk: state does not match the batch's (n, m), the spec's r and its series length"
+        )
+    if nf and "period" not in state.params:
+        raise ValueError("fused_train_chunk: the Fourier form needs the state's periods")
     if state.params["phi"].device != x.device:
         raise ValueError(f"fused_train_chunk: state on {state.params['phi'].device}, x on {x.device}")
 
@@ -338,20 +423,26 @@ def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg):
     n, m = x.shape
     r, P, T = spec.r, spec.poly_order, spec.num_poly_terms
     K = T + 3 * r
+    nf = n_fourier(spec, cfg)
     lib = _lib()
-    grid = _grid(x.device.index, r, K)
+    grid = _grid(x.device.index, r, K, nf)
     cs = pack(state)
     with torch.cuda.device(x.device):
         f32 = dict(dtype=torch.float32, device=x.device)
         ftab = torch.as_tensor(spec.factor_table(), dtype=torch.int32, device=x.device).contiguous()
+        tpts = torch.as_tensor(fourier.t_points(m), device=x.device) if nf else None
         met = torch.empty((num_steps, len(METRICS)), **f32)
-        work = torch.empty((lib.desmo_chunk_workspace(n, r, K, grid),), **f32)
+        work = torch.empty((lib.desmo_chunk_workspace(n, m, r, K, nf, grid),), **f32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         rc = lib.desmo_train_chunk(
             batch["pod_modes"].data_ptr(), x.data_ptr(), batch["x_sq"].data_ptr(), ftab.data_ptr(),
-            cs.phi.data_ptr(), cs.b.data_ptr(), cs.coef.data_ptr(), cs.omega.data_ptr(),
-            cs.svec.data_ptr(), met.data_ptr(), work.data_ptr(),
-            n, m, r, P, T, num_steps, int(cfg.sched_every), grid,
+            ptr(tpts), cs.phi.data_ptr(), ptr(cs.b), ptr(cs.series), ptr(cs.periods),
+            cs.coef.data_ptr(), cs.omega.data_ptr(), cs.svec.data_ptr(), met.data_ptr(), work.data_ptr(),
+            n, m, r, P, T, nf, num_steps, int(cfg.sched_every), grid,
             float(cfg.beta), float(cfg.l1_lambda), float(cfg.patience),
             float(cfg.sched_factor), float(cfg.sched_min_lr), stream,
         )
@@ -366,7 +457,7 @@ def _checked_device(state: TrainState, batch: dict, num_steps: int, spec, cfg) -
         raise ValueError(f"fused_train_chunk needs num_steps >= 1, got {num_steps}")
     if not supports(spec, cfg):
         raise ValueError(f"fused_train_chunk: unsupported configuration {cfg.name!r}")
-    _check(state, batch, spec)
+    _check(state, batch, spec, n_fourier(spec, cfg))
     kind = batch["x"].device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_chunk: unsupported device {batch['x'].device}")
@@ -386,27 +477,32 @@ def fused_train_chunk(state: TrainState, batch: dict, num_steps: int, spec, cfg)
 
 # the kernel clock's counters, in the order of ``enum Phase`` in the source;
 # the "barrier" entries close their phase, the wait for the slowest block
-# included
+# included. The Fourier form adds its series update and the B Bᵀ reduction
+# after it (``FOURIER_PHASES``).
 PHASES = (
     "prologue", "rows.dictionary", "rows.xb", "rows.gradients", "rows.barrier", "reduce",
     "columns.phi", "columns.ax", "columns.barrier", "finalize",
 )
+FOURIER_PHASES = PHASES + ("series.update", "series.gram")
 
 
 def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg):
-    """Seconds of one launch of ``num_steps`` epochs by part (``PHASES``),
-    from the kernel's own clock: block 0's thread reads the card's global
-    timer at each mark, so a part inside a phase is block 0's own time and a
-    phase's last part takes in the wait at its grid barrier. Summed over the
-    epochs. Needs the card; the launch counts like any other."""
+    """Seconds of one launch of ``num_steps`` epochs by part (``PHASES``, or
+    ``FOURIER_PHASES`` for the Fourier form), from the kernel's own clock:
+    block 0's thread reads the card's global timer at each mark, so a part
+    inside a phase is block 0's own time and a phase's last part takes in the
+    wait at its grid barrier. Summed over the epochs. Needs the card; the
+    launch counts like any other."""
     if _checked_device(state, batch, num_steps, spec, cfg) != "cuda":
         raise ValueError("phase_split: needs CUDA tensors, the plain chunk has no phases")
     _, _, work = _launch(state, batch, num_steps, spec, cfg)
-    n = batch["x"].shape[0]
+    n, m = batch["x"].shape
     K = spec.num_poly_terms + 3 * spec.r
-    off = _lib().desmo_chunk_timer_offset(n, spec.r, K, _grid(batch["x"].device.index, spec.r, K))
-    ns = work[off:off + 2 * len(PHASES)].view(torch.int64).cpu().tolist()
-    return {name: t * 1e-9 for name, t in zip(PHASES, ns)}
+    nf = n_fourier(spec, cfg)
+    names = FOURIER_PHASES if nf else PHASES
+    off = _lib().desmo_chunk_timer_offset(n, m, spec.r, K, nf, _grid(batch["x"].device.index, spec.r, K, nf))
+    ns = work[off:off + 2 * len(names)].view(torch.int64).cpu().tolist()
+    return {name: t * 1e-9 for name, t in zip(names, ns)}
 
 
 fused_train_chunk.launches = 0

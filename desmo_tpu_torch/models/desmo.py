@@ -172,10 +172,14 @@ _GROUP_OF = {
     "z": "z",
     "z_trig": "z",
     "omega": "omega",
+    # the Fourier variant's learnable periods
+    "period": "period",
+    "trig_period": "period",
 }
 
 
 def param_groups(params: Params) -> dict[str, str]:
     """Optimizer group per parameter key, mirroring the reference's LR
-    groups: coef (c, c_trig), phi, z (z, z_trig), omega."""
+    groups: coef (c, c_trig), phi, z (z, z_trig), omega and, for the Fourier
+    variant, period (period, trig_period)."""
     return {k: _GROUP_OF[k] for k in params}

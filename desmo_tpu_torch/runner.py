@@ -1,6 +1,6 @@
 """End-to-end pipeline: load -> preprocess -> POD -> train -> error ->
-sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo variant on
-one device, one seed, with no holdout and no figures.
+sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo and Fourier
+variants on one device, one seed, with no holdout and no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -21,6 +21,7 @@ from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch.kernels import train_chunk
 from desmo_tpu_torch.logging_utils import MetricsLogger
 from desmo_tpu_torch.models import desmo as desmo_model
+from desmo_tpu_torch.models import fourier as fourier_model
 
 
 @dataclasses.dataclass
@@ -106,8 +107,10 @@ def resolve_loss_method(cfg: configs.RunConfig, device: torch.device) -> str:
 def check_supported(cfg: configs.RunConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     todo = []
-    if cfg.variant != "desmo":
-        todo.append(f"variant {cfg.variant!r} (ROADMAP queue 1, items 5 and 7)")
+    if cfg.variant not in ("desmo", "fourier"):
+        todo.append(f"variant {cfg.variant!r} (ROADMAP queue 1, item 7)")
+    if cfg.variant == "fourier" and cfg.period_multistart > 1:
+        todo.append("the Fourier period multi-start, period_multistart > 1 (ROADMAP queue 1, item 5b)")
     if cfg.n_seeds > 1 or cfg.sweep_beta or cfg.sweep_lam or cfg.sweep_lr_scale:
         todo.append("multi-seed and hyperparameter multi-start (ROADMAP queue 1, item 6)")
     if cfg.pod_method != "host":
@@ -119,12 +122,19 @@ def check_supported(cfg: configs.RunConfig) -> None:
 
 
 def build_model(cfg: configs.RunConfig, device: torch.device):
-    """``(spec, params, loss_fn, groups)`` for the desmo variant on ``device``."""
+    """``(spec, params, loss_fn, groups)`` for the config's variant on ``device``."""
     check_supported(cfg)
-    spec = desmo_model.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
-    params = desmo_model.Desmo(spec, device=device).params()
     method = resolve_loss_method(cfg, device)
-    loss_fn = desmo_model.build_loss(spec, cfg.beta, cfg.l1_lambda, method=method)
+    if cfg.variant == "fourier":
+        spec = fourier_model.FourierSpec(
+            cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier, cfg.period_init
+        )
+        params = fourier_model.Fourier(spec, device=device).params()
+        loss_fn = fourier_model.build_loss(spec, cfg.beta, cfg.l1_lambda, method=method)
+    else:
+        spec = desmo_model.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+        params = desmo_model.Desmo(spec, device=device).params()
+        loss_fn = desmo_model.build_loss(spec, cfg.beta, cfg.l1_lambda, method=method)
     return spec, params, loss_fn, desmo_model.param_groups(params)
 
 
@@ -152,6 +162,7 @@ def run(
     echo: bool = True,
     *,
     device: str | torch.device = "cuda",
+    holdout: float = 0.0,
 ) -> RunArtifacts:
     """Train, report and export one preset on ``device``.
 
@@ -161,7 +172,12 @@ def run(
     through the mega-kernel or the eager loop as
     ``kernels.train_chunk.select_chunk`` decides. ``ga_single_pass`` is a
     TPU shortcut of the mega-kernel's Gram and is ignored: the port's kernel
-    computes the exact Gram."""
+    computes the exact Gram. ``holdout`` (forecasting at held-out times) is
+    not ported yet and raises when set."""
+    if holdout:
+        raise NotImplementedError(
+            "desmo_tpu_torch does not run holdout forecasting (ROADMAP queue 1, item 5b) yet"
+        )
     dev = device_mod.resolve(device)
     cfg = dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1])
     check_supported(cfg)
@@ -177,7 +193,7 @@ def run(
         checkpoint.save_state(os.path.join(out_dir, f"state_{tag}.npz"), state)
         checkpoint.save_pt(
             os.path.join(out_dir, f"{cfg.name}_r{cfg.r}_{tag}.pt"),
-            checkpoint.state_dict_from_params(state.params),
+            checkpoint.state_dict_from_params(state.params, cfg.variant),
         )
 
     n_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
@@ -193,7 +209,8 @@ def run(
     logger.close()
 
     with torch.no_grad():
-        recon = desmo_model.apply(result.state.params, batch["pod_modes"], spec)[0]
+        model = fourier_model if cfg.variant == "fourier" else desmo_model
+        recon = model.apply(result.state.params, batch["pod_modes"], spec)[0]
         err = float(losses.relative_frobenius_error(batch["x"], recon))
         err_pod = pod.pod_relative_error(batch["x"], p)
         err_pod2 = pod.pod_relative_error(batch["x"], p2)

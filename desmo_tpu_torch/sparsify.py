@@ -1,5 +1,5 @@
-"""Term energies and threshold sweeps for the desmo variant. Port of
-``desmo_tpu/sparsify.py:54-239``.
+"""Term energies and threshold sweeps for the desmo and Fourier variants.
+Port of ``desmo_tpu/sparsify.py:46-239``.
 
 Every candidate term contributes a rank-1 space-time field
 ``c_t * theta_t(x) z_t(s)ᵀ``, whose Frobenius norm factorizes into
@@ -19,6 +19,7 @@ import torch
 
 from desmo_tpu_torch import library, losses
 from desmo_tpu_torch.models import desmo as desmo_model
+from desmo_tpu_torch.models import fourier as fourier_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,25 +35,35 @@ class SweepEntry:
     nonzero_terms: int
 
 
+def _is_fourier(params: dict) -> bool:
+    return "period" in params
+
+
 @torch.no_grad()
 def term_energies(params: dict, spec) -> TermEnergies:
     """Energy of every candidate term of a trained model.
 
     Kept from the reference: the library and trig bases are evaluated on the
     RAW phi masks, not on the POD-scaled modes of the forward pass; the
-    reference's sweep tables are defined by this convention."""
+    reference's sweep tables are defined by this convention. For the Fourier
+    variant the series are materialized on ``t_points``, and the reference's
+    column-slice bug is kept too (``desmo_tpu/sparsify.py:71-78``): term i's
+    temporal factor is the time slice ``z[:, i]``, not series i."""
     latent = params["phi"].T  # (n, r)
     factors = torch.as_tensor(
         library.factor_table(latent.shape[1], spec.poly_order), dtype=torch.int64, device=latent.device
     )
     theta = library.eval_library(latent, factors)  # (n, T)
-    poly = params["c"].abs() * torch.linalg.norm(theta, dim=0) * torch.linalg.norm(params["z"], dim=1)
+    if _is_fourier(params):
+        t = torch.as_tensor(fourier_model.t_points(spec.m), device=latent.device)
+        z, z_trig = fourier_model.temporal_values(params, t)
+        z_norm = torch.linalg.norm(z[:, : params["c"].shape[0]], dim=0)
+    else:
+        z, z_trig = params["z"], params["z_trig"]
+        z_norm = torch.linalg.norm(z, dim=1)
+    poly = params["c"].abs() * torch.linalg.norm(theta, dim=0) * z_norm
     basis = desmo_model.trig_basis(latent, params["omega"])  # (3, r, n)
-    trig = (
-        params["c_trig"].abs()
-        * torch.linalg.norm(basis, dim=2)
-        * torch.linalg.norm(params["z_trig"], dim=2)
-    )
+    trig = params["c_trig"].abs() * torch.linalg.norm(basis, dim=2) * torch.linalg.norm(z_trig, dim=2)
     return TermEnergies(poly=poly.cpu().numpy(), trig=trig.cpu().numpy())
 
 
@@ -90,10 +101,11 @@ def threshold_sweep(
     if energies is None:
         energies = term_energies(params, spec)
     factors = desmo_model.factor_tensor(spec, batch["pod_modes"].device)
+    apply = fourier_model.apply if _is_fourier(params) else desmo_model.apply
     results = []
     for threshold in thresholds:
         pruned = zero_below_threshold(params, energies, float(threshold))
-        recon = desmo_model.apply(pruned, batch["pod_modes"], spec, factors)[0]
+        recon = apply(pruned, batch["pod_modes"], spec, factors)[0]
         error = float(losses.relative_frobenius_error(batch["x"], recon))
         count = nonzero_terms(pruned)
         results.append(SweepEntry(float(threshold), error, count))

@@ -4,15 +4,21 @@
     git show <rev>:desmo_tpu_torch/csrc/train_chunk.cu > build/train_chunk_a.cu
     python3 scripts/torch_ab_train_chunk.py build/train_chunk_a.cu
 
-Compiles ``build/train_chunk_a.cu`` (version A) into ``build/ab/`` with the
-kernels' own nvcc flags, and builds the checkout's
-``desmo_tpu_torch/csrc/train_chunk.cu`` (version B) as the package does.
-Then, on the cylinder preset at full width (n=3961, m=1001, r=4, P=3;
-synthetic data, the preset's init), runs one 2,000-epoch chunk of each in the
-order A, B, B, A and prints each launch's µs per epoch and its phase split
-from the kernel's own clock; then how far B's metrics trace and params lie
-from A's after 200 epochs at omega_init=1 and lr_omega=1. Prints the card's
-name and power limit first. Version A must have the checkout's C interface.
+    mkdir -p build/parent && git archive <rev> | tar -x -C build/parent
+    python3 scripts/torch_ab_train_chunk.py build/parent [--preset fourier_cylinder]
+
+Version B is this checkout. Version A is either a kernel source with the
+checkout's C interface, compiled by the script itself into ``build/ab/``
+with the kernels' own nvcc flags, or a directory holding another checkout,
+whose package builds and launches its own kernel (any C interface; the
+preset must be one that checkout runs).
+
+On a preset at full width (default cylinder: n=3961, m=1001, r=4, P=3;
+synthetic data, the preset's init), the script runs one 2,000-epoch chunk of
+each version in the order A, B, B, A and prints each launch's µs per epoch
+and its phase split from the kernel's own clock. For a kernel source it then
+prints how far B's metrics trace and params lie from A's after 200 epochs at
+omega_init=1 and lr_omega=1. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,7 +35,7 @@ from unittest import mock
 
 STEPS = 2000
 PARITY_STEPS = 200
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def build_other(src: str) -> ctypes.CDLL:
@@ -53,40 +60,81 @@ def launching(lib: ctypes.CDLL):
     train_chunk._grid.cache_clear()
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("other", help="the source of version A")
-    parser.add_argument("--steps", type=int, default=STEPS)
-    args = parser.parse_args(argv)
-
-    import torch
-
+def problem(preset: str, **over):
+    """``(cfg, spec, batch, state)`` of ``preset`` at full width on the card,
+    through the package on ``sys.path``."""
     from desmo_tpu_torch import configs, device as device_mod, pod, runner, train
-    from desmo_tpu_torch.kernels import train_chunk
     from desmo_tpu_torch.models import desmo
 
     dev = device_mod.resolve("cuda")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
-    libs = {"A": train_chunk._bind(build_other(args.other)), "B": train_chunk._lib()}
-    cfg = configs.get("cylinder")
+    cfg = dataclasses.replace(configs.get(preset), **over)
     x, _ = runner.load_data(cfg, synthetic=True)
     batch = runner.prepare_batch(x, pod.pod_host(x, cfg.r, dev).modes, dev)
-    spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
-    state = train.init_state(desmo.Desmo(spec, device=dev).params(), cfg)
+    if cfg.variant == "fourier":
+        from desmo_tpu_torch.models import fourier
 
+        spec = fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier,
+                                   cfg.period_init)
+        params = fourier.Fourier(spec, device=dev).params()
+    else:
+        spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+        params = desmo.Desmo(spec, device=dev).params()
+    return cfg, spec, batch, train.init_state(params, cfg)
+
+
+def split_line(name: str, split: dict, steps: int) -> str:
+    total = sum(split.values())
+    return (f"{name}: {total * 1e6 / steps:.1f} us/epoch over {steps} epochs; "
+            + ", ".join(f"{k} {v * 1e6 / steps:.1f}" for k, v in split.items() if k != "prologue")
+            + f" us/epoch; prologue {split['prologue'] * 1e6:.1f} us")
+
+
+def time_tree(name: str, tree: str, preset: str, steps: int) -> None:
+    """One chunk of the checkout at ``tree`` (this process imports its package)."""
+    sys.path.insert(0, tree)
+    from desmo_tpu_torch.kernels import train_chunk
+
+    if not train_chunk.__file__.startswith(tree):
+        raise RuntimeError(f"imported {train_chunk.__file__}, not the package under {tree}")
+    cfg, spec, batch, state = problem(preset)
+    print(split_line(name, train_chunk.phase_split(state, batch, steps, spec, cfg), steps), flush=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("other", help="version A: a kernel source, or a directory holding another checkout")
+    parser.add_argument("--steps", type=int, default=STEPS)
+    parser.add_argument("--preset", default="cylinder")
+    parser.add_argument("--as", dest="name", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+
+    if args.name is not None:  # one turn of the directory mode, in a process of its own
+        time_tree(args.name, os.path.abspath(args.other), args.preset, args.steps)
+        return 0
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    if os.path.isdir(args.other):
+        trees = {"A": os.path.abspath(args.other), "B": str(ROOT)}
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        for name in ("A", "B", "B", "A"):
+            subprocess.run([sys.executable, __file__, trees[name], "--as", name, "--preset", args.preset,
+                            "--steps", str(args.steps)], check=True, env=env)
+        return 0
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from desmo_tpu_torch.kernels import train_chunk
+
+    libs = {"A": train_chunk._bind(build_other(args.other)), "B": train_chunk._lib()}
+    cfg, spec, batch, state = problem(args.preset)
     for name in ("A", "B", "B", "A"):
         with launching(libs[name]):
-            split = train_chunk.phase_split(state, batch, args.steps, spec, cfg)
-        total = sum(split.values())
-        print(f"{name}: {total * 1e6 / args.steps:.1f} us/epoch over {args.steps} epochs; "
-              + ", ".join(f"{k} {v * 1e6 / args.steps:.1f}" for k, v in split.items() if k != "prologue")
-              + f" us/epoch; prologue {split['prologue'] * 1e6:.1f} us")
+            print(split_line(name, train_chunk.phase_split(state, batch, args.steps, spec, cfg), args.steps))
 
     # B against A where the dynamics are tame: omega_init=1, lr_omega=1
-    unit = dataclasses.replace(cfg, omega_init=1.0, lr_omega=1.0)
-    unit_spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, 1.0)
-    unit_state = train.init_state(desmo.Desmo(unit_spec, device=dev).params(), unit)
+    unit, unit_spec, _, unit_state = problem(args.preset, omega_init=1.0, lr_omega=1.0)
     out = {}
     for name in ("A", "B"):
         with launching(libs[name]):

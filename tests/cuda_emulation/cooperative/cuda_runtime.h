@@ -49,6 +49,7 @@ inline unsigned long long globaltimer_ns() {
              std::chrono::steady_clock::now().time_since_epoch()).count();
 }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }

@@ -18,7 +18,7 @@ import numpy as np  # noqa: E402
 from desmo_tpu_torch import configs, losses, pod, runner, train  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
 from desmo_tpu_torch.kernels import dual_gemm, train_chunk  # noqa: E402
-from desmo_tpu_torch.models import desmo  # noqa: E402
+from desmo_tpu_torch.models import desmo, fourier  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -143,3 +143,71 @@ def test_phase_split_and_runner_path(cuda, tmp_path):
     art = runner.run(small, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda)
     assert train_chunk.fused_train_chunk.launches == 3 and dual_gemm.dual_contractions.launches == 0
     assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14
+
+
+def _fourier_problem(device, preset, **over):
+    """A Fourier preset at full width on the cylinder's synthetic data at its
+    (n, m), POD init and all-ones params, with ``over`` applied."""
+    cfg = dataclasses.replace(configs.get(preset), **over)
+    x = synthetic.cylinder_wake(cfg.n, cfg.m, seed=cfg.seed)
+    batch = runner.prepare_batch(x, pod.pod_host(x, cfg.r, device).modes, device)
+    spec = fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier, cfg.period_init)
+    return cfg, spec, batch, train.init_state(fourier.Fourier(spec, device=device).params(), cfg)
+
+
+@pytest.mark.parametrize("preset, steps", [("fourier_cylinder", 30), ("fourier_aneurysm", 10)])
+def test_fourier_mega_kernel_matches_plain_chunk(cuda, preset, steps):
+    """The Fourier form at fourier_cylinder's shape (n=3961, m=1001, nF=10,
+    K=12) and fourier_aneurysm's (n=27000, m=1000, nF=30), omega_init=1 and
+    lr_omega=1: the trace (rec, l1, total) to 2e-4; one epoch from the
+    kernel's state: every metric to 2e-4 (ortho plus 1e-5 absolute) and
+    every parameter to 1e-5 of its largest entry; two launches
+    bit-identical. Along the trajectory the parameters are held to 1e-2
+    only: the series row of the lat1*lat2 term has near-zero gradients,
+    which Adamax steps by +-lr on rounding alone, so two plain chunks, one on
+    the GPU and one on the CPU, part there by 4e-3 after 30 epochs
+    (``PERF.md``, Findings)."""
+    cfg, spec, batch, state = _fourier_problem(cuda, preset, omega_init=1.0, lr_omega=1.0)
+    launches = train_chunk.fused_train_chunk.launches
+    sk, mk = train_chunk.fused_train_chunk(state, batch, steps, spec, cfg)
+    torch.cuda.synchronize()
+    assert train_chunk.fused_train_chunk.launches == launches + 1
+    sp, mp = train_chunk.train_chunk_plain(state, batch, steps, spec, cfg)
+    for key in ("rec", "l1", "total"):
+        assert ((mk[key] - mp[key]).abs() / mp[key].abs()).max() <= 2e-4, key
+    sk1, mk1 = train_chunk.fused_train_chunk(sk, batch, 1, spec, cfg)
+    sp1, mp1 = train_chunk.train_chunk_plain(sk, batch, 1, spec, cfg)
+    for key in train_chunk.METRICS:
+        atol = 1e-5 if key == "ortho" else 0.0
+        assert (mk1[key] - mp1[key]).abs() <= 2e-4 * mp1[key].abs() + atol, key
+    for key in sk.params:
+        assert (sk1.params[key] - sp1.params[key]).abs().max() <= 1e-5 * sp1.params[key].abs().max(), key
+        assert (sk.params[key] - sp.params[key]).abs().max() <= 1e-2 * sp.params[key].abs().max(), key
+    sk2, mk2 = train_chunk.fused_train_chunk(state, batch, steps, spec, cfg)
+    assert all(torch.equal(mk[k], mk2[k]) for k in mk)
+    assert all(torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
+
+
+def test_fourier_mega_kernel_plateau_drops_match_plain_chunk(cuda):
+    cfg, spec, batch, state = _fourier_problem(
+        cuda, "fourier_cylinder", n=500, m=200, omega_init=1.0, lr_omega=1.0, patience=3, sched_every=2
+    )
+    state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0, device=cuda))  # no epoch improves
+    sk, _ = train_chunk.fused_train_chunk(state, batch, 12, spec, cfg)
+    sp, _ = train_chunk.train_chunk_plain(state, batch, 12, spec, cfg)
+    assert float(sk.sched.lrs[4]) < cfg.lr_period
+    assert torch.equal(sk.sched.lrs, sp.sched.lrs) and int(sk.sched.num_bad) == int(sp.sched.num_bad)
+
+
+def test_fourier_phase_split_and_runner_path(cuda, tmp_path):
+    cfg, spec, batch, state = _fourier_problem(cuda, "fourier_cylinder")
+    split = train_chunk.phase_split(state, batch, 50, spec, cfg)
+    assert list(split) == list(train_chunk.FOURIER_PHASES) and all(v > 0 for v in split.values())
+    x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
+    small = dataclasses.replace(cfg, checkpoint_every=100)
+    dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+    art = runner.run(small, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda)
+    assert train_chunk.fused_train_chunk.launches == 3 and dual_gemm.dual_contractions.launches == 0
+    assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14
+    sd = torch.load(f"{art.out_dir}/fourier_cylinder_r2_final.pt", weights_only=True)
+    assert {"period_list.0", "trig_period_list.5"} <= set(sd)

@@ -41,6 +41,7 @@ MODULES = [
     "desmo_tpu_torch.logging_utils",
     "desmo_tpu_torch.losses",
     "desmo_tpu_torch.models.desmo",
+    "desmo_tpu_torch.models.fourier",
     "desmo_tpu_torch.optim",
     "desmo_tpu_torch.pod",
     "desmo_tpu_torch.runner",
@@ -101,19 +102,32 @@ def test_cli_run_megakernel_without_jax(tmp_path):
     _cli_run(tmp_path, "megakernel")
 
 
-def _cli_run(tmp_path, chunk_method):
+@pytest.mark.parametrize("chunk_method", [None, "megakernel"])
+def test_cli_run_fourier_without_jax(tmp_path, chunk_method):
+    """The Fourier preset at full width (n=3961, m=1001, nF=10) on the CPU,
+    through the eager loop and through the mega-kernel's plain chunk; the
+    export holds the reference's period keys."""
+    out_dir = _cli_run(tmp_path, chunk_method, preset="fourier_cylinder", r=2)
+    import torch
+
+    sd = torch.load(out_dir / "fourier_cylinder_r2_final.pt", weights_only=True)
+    assert {"period_list.0", "trig_period_list.0"} <= set(sd) and sd["z_list.0"].shape == (21,)
+
+
+def _cli_run(tmp_path, chunk_method, preset="cylinder", r=4):
     out_dir = tmp_path / "runs"
     extra = [] if chunk_method is None else ["--chunk-method", chunk_method]
     code = (
         "import runpy\n"
-        "sys.argv = ['desmo_tpu_torch', 'run', '--preset', 'cylinder', '--synthetic', "
+        f"sys.argv = ['desmo_tpu_torch', 'run', '--preset', {preset!r}, '--synthetic', "
         f"'--epochs', '3', '--device', 'cpu', '--out-dir', {str(out_dir)!r}] + {extra!r}\n"
         "runpy.run_module('desmo_tpu_torch', run_name='__main__')\n"
     )
     proc = _run(code, tmp_path)
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert summary["preset"] == "cylinder" and summary["device"] == "cpu"
+    assert summary["preset"] == preset and summary["device"] == "cpu"
     assert summary["chunk_method"] == (chunk_method or "auto")
-    files = os.listdir(out_dir / "cylinder")
-    assert "cylinder_r4_final.pt" in files and "state_final.npz" in files
+    files = os.listdir(out_dir / preset)
+    assert f"{preset}_r{r}_final.pt" in files and "state_final.npz" in files
+    return out_dir / preset

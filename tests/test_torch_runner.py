@@ -67,6 +67,29 @@ def test_run_matches_jax_runner(tmp_path, capsys, omega):
     assert {"state_final.npz", "cylinder.csv", "cylinder.jsonl"} <= files
 
 
+def test_fourier_run_matches_jax_runner(tmp_path):
+    """fourier_cylinder at a small size through the eager loop with omega
+    and lr_omega at 1: the whole trace, the relative error and the sweep
+    against ``desmo_tpu.runner.run``, and the export's keys."""
+    cfg = dataclasses.replace(
+        configs.get("fourier_cylinder"), num_epochs=60, loss_method="factored", chunk_method="scan",
+        omega_init=1.0, lr_omega=1.0, period_init=40.0,
+    )
+    x = synthetic.cylinder_wake(300, 120, period_steps=40.0)
+    ref = jrunner.run(cfg, x, out_dir=str(tmp_path / "jax"), make_figures=False, echo=False)
+    ours = runner.run(cfg, x, out_dir=str(tmp_path / "torch"), echo=False, device="cpu")
+    for key in ("rec", "ortho", "l1", "total"):
+        np.testing.assert_allclose(ours.history[key], ref.history[key], rtol=1e-4, atol=1e-8, err_msg=key)
+    np.testing.assert_allclose(ours.relative_error, ref.relative_error, rtol=1e-4)
+    assert [e.nonzero_terms for e in ours.sweep] == [e.nonzero_terms for e in ref.sweep]
+    np.testing.assert_allclose([e.error for e in ours.sweep], [e.error for e in ref.sweep], rtol=1e-4)
+    pt = jckpt.load_pt(os.path.join(ours.out_dir, "fourier_cylinder_r2_final.pt"))
+    ref_pt = jckpt.load_pt(os.path.join(ref.out_dir, "fourier_cylinder_r2_final.pt"))
+    assert sorted(pt) == sorted(ref_pt) and "period_list.0" in pt
+    for k in ref_pt:
+        assert pt[k].shape == ref_pt[k].shape, k
+
+
 def test_state_dict_matches_jax_key_scheme(tmp_path):
     rng = np.random.default_rng(0)
     np_params = {
@@ -100,7 +123,8 @@ def test_state_dict_matches_jax_key_scheme(tmp_path):
     "override, item",
     [
         ({"run_greedy_prune": True}, "queue 1, item 3"),
-        ({"variant": "fourier"}, "queue 1, items 5 and 7"),
+        ({"variant": "ae"}, "queue 1, item 7"),
+        ({"variant": "fourier", "n_fourier": 3, "period_init": 20.0, "period_multistart": 4}, "queue 1, item 5b"),
         ({"n_seeds": 2}, "queue 1, item 6"),
         ({"pod_method": "snapshots"}, "queue 1, item 9"),
     ],
@@ -110,6 +134,11 @@ def test_unsupported_configs_raise(tmp_path, override, item):
     x = synthetic.cylinder_wake(40, 20)
     with pytest.raises(NotImplementedError, match=item):
         runner.run(cfg, x, out_dir=str(tmp_path), device="cpu")
+
+
+def test_holdout_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
+        runner.run(_slice_cfg(), synthetic.cylinder_wake(40, 20), out_dir=str(tmp_path), device="cpu", holdout=0.2)
 
 
 def test_cli_refuses_a_mesh(tmp_path):

@@ -32,11 +32,12 @@ from desmo_tpu import pod as jpod  # noqa: E402
 from desmo_tpu import train as jtrain  # noqa: E402
 from desmo_tpu.io import synthetic as jsynthetic  # noqa: E402
 from desmo_tpu.models import desmo as jdesmo  # noqa: E402
+from desmo_tpu.models import fourier as jfourier  # noqa: E402
 from desmo_tpu.pallas import train_chunk as jtc  # noqa: E402
 from desmo_tpu_torch import checkpoint, configs, runner, train  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
 from desmo_tpu_torch.kernels import _build, train_chunk  # noqa: E402
-from desmo_tpu_torch.models import desmo  # noqa: E402
+from desmo_tpu_torch.models import desmo, fourier  # noqa: E402
 
 
 def problem(n=96, m=40, r=2, P=2, patience=300, sched_every=1, omega_init=1.0):
@@ -53,10 +54,15 @@ def problem(n=96, m=40, r=2, P=2, patience=300, sched_every=1, omega_init=1.0):
 
 
 def jax_start(cfg):
-    """The JAX package's spec, init params and fresh state for ``cfg``."""
+    """The JAX package's spec and fresh state for ``cfg`` (desmo or Fourier)."""
     jcfg = jconfigs.RunConfig(**dataclasses.asdict(cfg))
-    spec = jdesmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
-    params = jdesmo.init_params(spec)
+    if cfg.variant == "fourier":
+        spec = jfourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier,
+                                    cfg.period_init)
+        params = jfourier.init_params(spec)
+    else:
+        spec = jdesmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+        params = jdesmo.init_params(spec)
     return jcfg, spec, jtrain.init_state(params, jcfg)
 
 
@@ -71,7 +77,11 @@ def run_jax(cfg, x, modes, steps):
 def port_start(cfg, x, modes):
     """The port's spec, batch and the JAX package's fresh state, carried over."""
     _, _, jstate = jax_start(cfg)
-    spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+    if cfg.variant == "fourier":
+        spec = fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier,
+                                   cfg.period_init)
+    else:
+        spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
     xt = torch.as_tensor(x)
     batch = {"x": xt, "x_sq": torch.sum(xt * xt), "pod_modes": torch.as_tensor(modes)}
     return spec, batch, checkpoint.state_from_jax(jax.tree.map(np.asarray, jstate), "cpu")
@@ -190,12 +200,104 @@ def test_fit_resumes_from_a_state():
     )
 
 
+def fourier_problem(n=96, m=40, r=2, P=2, nf=3, patience=300, sched_every=1):
+    """``tests/test_train_chunk_kernel.py::fourier_problem``: the same
+    configuration, data and POD modes."""
+    cfg, x, modes = problem(n=n, m=m, r=r, P=P, patience=patience, sched_every=sched_every)
+    cfg = dataclasses.replace(cfg, name="mkf", variant="fourier", n_fourier=nf, period_init=float(m))
+    return cfg, x, modes
+
+
+def test_fourier_plain_chunk_matches_jax_mega_kernel():
+    """The JAX suite's Fourier problem (nF=3) over 30 epochs: the trace to
+    2e-4 (``test_fourier_metrics_trace_matches_reference_chunk``) and the
+    final state, periods included, to its bounds
+    (``test_fourier_final_state_matches_reference_chunk``)."""
+    cfg, x, modes = fourier_problem()
+    ref_state, ref_m = run_jax(cfg, x, modes, 30)
+    state, mets = run_plain(cfg, x, modes, [30])
+    for key in ("rec", "ortho", "l1", "total", "max_arg"):
+        np.testing.assert_allclose(mets[key], ref_m[key], rtol=2e-4, atol=1e-6, err_msg=key)
+    assert set(state.params) == set(ref_state.params) >= {"period", "trig_period"}
+    assert_state_close(state, ref_state)
+
+
+def test_fourier_aneurysm_coefficient_regime_matches_jax():
+    """fourier_aneurysm's series length (nF=30, 61 coefficients) at n=64,
+    m=24, 10 epochs (``test_fourier_aneurysm_shape_regime``): both build the
+    harmonics by the same recurrence, so the first total agrees to 1e-6 and
+    the trace to 2e-4 (the JAX suite allows its scan 2e-3). The
+    coefficients are not compared: at this length many of their gradients
+    are near zero, and Adamax steps such an entry by +-lr on rounding alone."""
+    cfg, x, modes = fourier_problem(n=64, m=24, nf=30)
+    _, ref_m = run_jax(cfg, x, modes, 10)
+    _, mets = run_plain(cfg, x, modes, [10])
+    np.testing.assert_allclose(mets["total"][0], ref_m["total"][0], rtol=1e-6)
+    for key in ("rec", "l1", "total", "max_arg"):
+        np.testing.assert_allclose(mets[key], ref_m[key], rtol=2e-4, atol=1e-6, err_msg=key)
+
+
+def test_fourier_resume_mid_chunk():
+    """chunk(15) then chunk(15) against the JAX kernel's 30
+    (``test_fourier_resume_from_mid_chunk_state``)."""
+    cfg, x, modes = fourier_problem()
+    ref_state, _ = run_jax(cfg, x, modes, 30)
+    split, _ = run_plain(cfg, x, modes, [15, 15])
+    assert split.epoch == 30 and split.count == 30
+    assert_state_close(split, ref_state)
+
+
+def test_fourier_plateau_lr_drops_match_jax_mega_kernel():
+    """The scheduler steps the period group's LR with the others, on the
+    same epochs as the JAX kernel."""
+    cfg, x, modes = fourier_problem(patience=3, sched_every=2)
+    ref_state, ref_m = run_jax(cfg, x, modes, 40)
+    state, mets = run_plain(cfg, x, modes, [40])
+    assert float(state.sched.lrs[4]) < cfg.lr_period  # a drop happened, the period LR's too
+    np.testing.assert_allclose(state.sched.lrs.numpy(), ref_state.sched.lrs, rtol=1e-6)
+    assert int(state.sched.num_bad) == int(ref_state.sched.num_bad)
+    np.testing.assert_allclose(mets["total"], ref_m["total"], rtol=5e-4, atol=1e-6)
+
+
+def test_fourier_plain_chunk_matches_eager_fit():
+    """``train.fit`` through the plain Fourier chunk against the eager
+    autograd loop from the same params: the chunk builds the harmonics by the
+    recurrence, the eager loop evaluates cos(h th) directly, so they agree to
+    1e-4 over 20 epochs."""
+    cfg, x, modes = fourier_problem(patience=5, sched_every=3)
+    spec, batch, _ = port_start(cfg, x, modes)
+    params = fourier.Fourier(spec).params()
+    loss_fn = fourier.build_loss(spec, cfg.beta, cfg.l1_lambda, method="factored")
+    groups = fourier.param_groups(params)
+    eager = train.fit(loss_fn, groups, cfg, params, batch, num_epochs=20, chunk_size=8, log=None)
+    fused = train.fit(loss_fn, groups, cfg, params, batch, num_epochs=20, chunk_size=8, log=None,
+                      chunk=train_chunk.make_chunk(spec, cfg))
+    for key in train.METRICS:
+        np.testing.assert_allclose(fused.history[key], eager.history[key], rtol=1e-4, atol=1e-7, err_msg=key)
+    for key in params:
+        np.testing.assert_allclose(
+            fused.state.params[key].numpy(), eager.state.params[key].numpy(), rtol=1e-4, atol=1e-5, err_msg=key
+        )
+
+
 @pytest.mark.parametrize("r, P", [(2, 2), (4, 3), (4, 4), (8, 2), (8, 3), (9, 1)])
 def test_supports_matches_jax(r, P):
     cfg = dataclasses.replace(configs.get("cylinder"), r=r, poly_order=P)
     spec = desmo.DesmoSpec(cfg.n, cfg.m, r, P)
     jspec = jdesmo.DesmoSpec(cfg.n, cfg.m, r, P)
     assert train_chunk.supports(spec, cfg) == jtc.supports(jspec, jconfigs.RunConfig(**dataclasses.asdict(cfg)))
+
+
+@pytest.mark.parametrize("nf", [0, 1, 10, 63, 64])
+def test_fourier_supports_matches_jax(nf):
+    cfg = dataclasses.replace(configs.get("fourier_cylinder"), n_fourier=nf)
+    spec = fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, nf, cfg.period_init)
+    jspec = jfourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, nf, cfg.period_init)
+    jcfg = jconfigs.RunConfig(**dataclasses.asdict(cfg))
+    assert train_chunk.supports(spec, cfg) == jtc.supports(jspec, jcfg) == (1 <= nf <= 63)
+    cuda = torch.device("cuda")
+    assert (train_chunk.select_chunk(spec, cfg, cuda) is not None) == (jtc.supports(jspec, jcfg))
+    assert train_chunk.select_chunk(spec, cfg, torch.device("cpu")) is None
 
 
 def test_select_chunk_policy():
@@ -229,6 +331,22 @@ def test_cpu_takes_the_plain_chunk_and_counts_no_launch():
         assert torch.equal(s1.params[key], s2.params[key])
     # the input state is not trained in place
     assert torch.equal(state.params["phi"], torch.ones_like(state.params["phi"]))
+
+
+def test_cpu_takes_the_plain_fourier_chunk_and_counts_no_launch():
+    cfg, x, modes = fourier_problem()
+    spec, batch, state = port_start(cfg, x, modes)
+    before = train_chunk.fused_train_chunk.launches
+    s1, m1 = train_chunk.fused_train_chunk(state, batch, 3, spec, cfg)
+    s2, m2 = train_chunk.train_chunk_plain(state, batch, 3, spec, cfg)
+    assert train_chunk.fused_train_chunk.launches == before == 0
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    assert list(s1.params) == list(state.params) and all(torch.equal(s1.params[k], s2.params[k]) for k in s1.params)
+    assert not torch.equal(s1.params["period"], state.params["period"])
+    # a state whose series length is not the spec's is refused
+    short = dataclasses.replace(spec, n_fourier=2)
+    with pytest.raises(ValueError, match="series length"):
+        train_chunk.fused_train_chunk(state, batch, 1, short, dataclasses.replace(cfg, n_fourier=2))
 
 
 @pytest.mark.parametrize(
@@ -273,6 +391,32 @@ def test_runner_runs_the_mega_kernel_chunk(tmp_path, omega):
     assert len(kern.sweep) == len(eager.sweep)
 
 
+def test_runner_runs_the_fourier_preset(tmp_path):
+    """``runner.run`` of fourier_cylinder on the CPU at a small size through
+    the mega-kernel's plain chunk and through the eager loop, at
+    omega_init=1: the two agree to 1e-4 in the first 10 epochs (the chunk's
+    recurrence against the eager loop's direct cos(h th)) and both export the
+    reference's Fourier keys."""
+    base = dataclasses.replace(
+        configs.get("fourier_cylinder"), num_epochs=30, checkpoint_every=10, omega_init=1.0, lr_omega=1.0
+    )
+    x = synthetic.cylinder_wake(200, 60)
+    kern = runner.run(dataclasses.replace(base, chunk_method="megakernel"), x,
+                      out_dir=str(tmp_path / "k"), echo=False, device="cpu")
+    eager = runner.run(dataclasses.replace(base, chunk_method="scan"), x,
+                       out_dir=str(tmp_path / "e"), echo=False, device="cpu")
+    for key in train.METRICS:
+        assert np.isfinite(kern.history[key]).all()
+        np.testing.assert_allclose(kern.history[key][:10], eager.history[key][:10], rtol=1e-4, err_msg=key)
+    for art in (kern, eager):
+        files = {p.name for p in Path(art.out_dir).iterdir()}
+        assert {"state_epoch10.npz", "state_final.npz", "fourier_cylinder_r2_final.pt"} <= files
+        sd = torch.load(Path(art.out_dir) / "fourier_cylinder_r2_final.pt", weights_only=True)
+        assert sd["z_list.0"].shape == (2 * base.n_fourier + 1,)
+        assert {"period_list.0", "trig_period_list.5"} <= set(sd)
+        assert 0.0 < art.relative_error < 10.0 and len(art.sweep) == 14
+
+
 EMULATION = Path(__file__).parent / "cuda_emulation" / "cooperative"
 
 
@@ -295,30 +439,57 @@ def emulated_train_chunk(tmp_path_factory):
     return exe
 
 
+def kernel_arrays(cs):
+    """The state arrays of the kernel layout in the harness's order, by name."""
+    temporal = {"b": cs.b} if cs.series is None else {"series": cs.series, "periods": cs.periods}
+    return {"phi": cs.phi, **temporal, "coef": cs.coef, "omega": cs.omega, "svec": cs.svec}
+
+
 def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid):
     """One chunk of the CUDA source on an emulated grid of ``grid`` blocks;
-    returns the state in the kernel layout and the metrics rows."""
+    returns the state arrays in the kernel layout and the metrics rows, by
+    name."""
     cs = train_chunk.pack(state)
     x = batch["x"].numpy()
     n, m = x.shape
     r, P, T = spec.r, spec.poly_order, spec.num_poly_terms
-    header = np.array([n, m, r, P, T, steps, cfg.sched_every, grid], np.int32)
+    nf = train_chunk.n_fourier(spec, cfg)
+    header = np.array([n, m, r, P, T, nf, steps, cfg.sched_every, grid], np.int32)
     floats = np.array(
         [cfg.beta, cfg.l1_lambda, cfg.patience, cfg.sched_factor, cfg.sched_min_lr, float(batch["x_sq"])],
         np.float32,
     )
-    arrays = [batch["pod_modes"].numpy(), x, spec.factor_table().astype(np.int32),
-              cs.phi.numpy(), cs.b.numpy(), cs.coef.numpy(), cs.omega.numpy(), cs.svec.numpy()]
+    state_arrays = {k: v.numpy() for k, v in kernel_arrays(cs).items()}
+    arrays = [batch["pod_modes"].numpy(), x, spec.factor_table().astype(np.int32), state_arrays["phi"]]
+    if nf:
+        arrays.append(fourier.t_points(m))
+    arrays += [v for k, v in state_arrays.items() if k != "phi"]
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
     src.write_bytes(header.tobytes() + floats.tobytes() + b"".join(np.ascontiguousarray(a).tobytes() for a in arrays))
     proc = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = np.fromfile(dst, np.float32)
-    shapes = [cs.phi.shape, cs.b.shape, cs.coef.shape, cs.omega.shape, cs.svec.shape, (steps, len(train_chunk.METRICS))]
-    sizes = [int(np.prod(s)) for s in shapes]
+    shapes = {k: v.shape for k, v in state_arrays.items()}
+    shapes["metrics"] = (steps, len(train_chunk.METRICS))
+    sizes = [int(np.prod(s)) for s in shapes.values()]
     assert out.size == sum(sizes)
     parts = np.split(out, np.cumsum(sizes)[:-1])
-    return [p.reshape(s) for p, s in zip(parts, shapes)]
+    return {k: p.reshape(s) for (k, s), p in zip(shapes.items(), parts)}
+
+
+def assert_emulated_matches_plain(got, state, batch, steps, spec, cfg):
+    """The emulated grid's arrays against the plain chunk's: the same fp32
+    arithmetic in another summation order, held to 2e-6 of each array's
+    largest entry (each metric on its own scale)."""
+    ref_state, ref_m = train_chunk.train_chunk_plain(state, batch, steps, spec, cfg)
+    want = {k: v.numpy() for k, v in kernel_arrays(train_chunk.pack(ref_state)).items()}
+    want["metrics"] = torch.stack([ref_m[k] for k in train_chunk.METRICS], dim=1).numpy()
+    assert list(got) == list(want)
+    for name, g in got.items():
+        assert np.isfinite(g).all(), name
+        axis = 0 if name == "metrics" else None
+        err, scale = np.abs(g - want[name]).max(axis=axis), np.abs(want[name]).max(axis=axis)
+        assert np.all(err <= 2e-6 * scale), (name, err, scale)
 
 
 @pytest.mark.parametrize(
@@ -351,15 +522,45 @@ def test_cuda_source_on_emulated_grid(emulated_train_chunk, tmp_path, n, m, r, P
     if patience == 1:  # a best no epoch beats: the scheduler drops the LRs within the chunk
         state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0))
     got = run_emulated(emulated_train_chunk, tmp_path, state, batch, steps, spec, cfg, grid=4)
-    ref_state, ref_m = train_chunk.train_chunk_plain(state, batch, steps, spec, cfg)
-    ref = train_chunk.pack(ref_state)
-    ref_met = torch.stack([ref_m[k] for k in train_chunk.METRICS], dim=1)
-    for name, g, want in zip(("phi", "b", "coef", "omega", "svec", "metrics"), got,
-                             (ref.phi, ref.b, ref.coef, ref.omega, ref.svec, ref_met)):
-        want = want.numpy()
-        assert np.isfinite(g).all(), name
-        axis = 0 if name == "metrics" else None  # each metric on its own scale
-        err, scale = np.abs(g - want).max(axis=axis), np.abs(want).max(axis=axis)
-        assert np.all(err <= 2e-6 * scale), (name, err, scale)
+    assert_emulated_matches_plain(got, state, batch, steps, spec, cfg)
     if patience == 1:
-        assert got[4][0] < cfg.lr_coef  # the scheduler dropped the LRs
+        assert got["svec"][0] < cfg.lr_coef  # the scheduler dropped the LRs
+
+
+@pytest.mark.parametrize(
+    "n, m, r, P, nf, steps, patience, sched_every",
+    [
+        (96, 40, 2, 2, 3, 6, 300, 1),  # the JAX suite's Fourier problem; two sub-slabs per block
+        (64, 24, 2, 2, 30, 3, 300, 1),  # fourier_aneurysm's 61 coefficients: the series table in two groups
+        (37, 9, 2, 2, 2, 8, 1, 2),  # ragged rows, a block with no columns, LR drops
+        (40, 17, 4, 3, 5, 3, 300, 1),  # K=47: the kernel built for K <= 48
+    ],
+)
+def test_fourier_cuda_source_on_emulated_grid(
+    emulated_train_chunk, tmp_path, n, m, r, P, nf, steps, patience, sched_every
+):
+    """The Fourier form on four emulated blocks against the plain chunk,
+    from random phi, series and periods and POD-like modes that are not
+    orthonormal; 2e-6 of each array's largest entry, as the desmo form."""
+    rng = np.random.default_rng(n + nf)
+    cfg = configs.RunConfig(
+        name="emuf", variant="fourier", n=n, m=m, r=r, poly_order=P, omega_init=1.0, lr_omega=1.0,
+        n_fourier=nf, period_init=float(m), patience=patience, sched_every=sched_every,
+    )
+    spec = fourier.FourierSpec(n, m, r, P, 1.0, nf, float(m))
+    xt = torch.as_tensor(rng.standard_normal((n, m)).astype(np.float32))
+    batch = {"x": xt, "x_sq": torch.sum(xt * xt),
+             "pod_modes": torch.as_tensor((0.3 * rng.standard_normal((n, r))).astype(np.float32))}
+    params = fourier.Fourier(spec).params()
+    params["phi"] = torch.as_tensor((1.0 + 0.1 * rng.standard_normal((r, n))).astype(np.float32))
+    for key in ("z", "z_trig"):
+        params[key] = torch.as_tensor((0.5 * rng.standard_normal(params[key].shape)).astype(np.float32))
+    for key in ("period", "trig_period"):
+        params[key] = torch.as_tensor((m * (0.7 + 0.6 * rng.random(params[key].shape))).astype(np.float32))
+    state = train.init_state(params, cfg)
+    if patience == 1:  # a best no epoch beats: the scheduler drops the LRs within the chunk
+        state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0))
+    got = run_emulated(emulated_train_chunk, tmp_path, state, batch, steps, spec, cfg, grid=4)
+    assert_emulated_matches_plain(got, state, batch, steps, spec, cfg)
+    if patience == 1:
+        assert got["svec"][4] < cfg.lr_period  # the period LR dropped with the others
