@@ -5,7 +5,7 @@
 
 Builds the port's two CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, started together), holds each against its plain PyTorch
-version at the main paths' shapes, and drives the training paths of two
+version at the main paths' shapes, and drives the training paths of three
 presets at full width on synthetic data through ``runner.run``:
 
 - cylinder (n=3961, m=1001, r=4, P=3): the eager loop
@@ -15,12 +15,19 @@ presets at full width on synthetic data through ``runner.run``:
 - fourier_cylinder (n=3961, m=1001, r=2, P=2, nF=10): the eager loop through
   the dual-contraction kernel, 100 epochs, and the preset as configured:
   the mega-kernel's Fourier form, one launch per 2,000-epoch chunk, 10,000
-  epochs.
+  epochs;
+- the seed-packed ensemble (``n_seeds > 1``, ``ensemble.fit``): aneurysm
+  (n=27000, m=1000, r=4, P=2) with 4 seeds through the packed eager loop
+  (``chunk_method="scan"``, the dual-contraction kernel at the packed width
+  K'=108), 100 epochs, and as configured through the packed mega-kernel,
+  10,000 epochs; fourier_cylinder with 8 seeds (K'=96) as configured
+  through the packed mega-kernel's Fourier form, 10,000 epochs.
 
 Each path runs with every launch count set to 0 just before it and read just
-after. Then it times each kernel (the mega-kernel in both forms) against its
-plain version in turns, beside its bound, and splits the mega-kernel's time
-by phase with the kernel's own clock. Each phase prints its lines; any
+after. Then it times each kernel (the mega-kernel in its four forms)
+against its plain version in turns, beside its bound, and splits the
+mega-kernel's time by phase with the kernel's own clock; the packed forms
+beside the single-seed kernel at the same preset. Each phase prints its lines; any
 failed check exits non-zero. The second-to-last line is a JSON record of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
 without printing a result when no CUDA device is available.
@@ -39,6 +46,7 @@ import time
 
 EAGER_EPOCHS = 300
 FOURIER_EAGER_EPOCHS = 100
+PACKED_EAGER_EPOCHS = 100
 CPU_EPOCHS = 10
 SLICE_EPOCHS = 10_000
 PARITY_STEPS = 200
@@ -85,15 +93,23 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def chunk_flops(n: int, m: int, k: int, nf: int = 0) -> float:
-    """Operations of one epoch: AᵀX and XBᵀ (2nmK each), A·gb (2nK²), ga·B
-    (2K²m), and the symmetric Grams AᵀA and BBᵀ, whose upper triangles need
-    nK(K+1) and mK(K+1); the Fourier form adds its series forward and
-    backward, 20 operations per row, column and harmonic (the recurrence 6
-    and the sum 4 forward; the recurrence, the two products and sums and
-    the period's term backward)."""
-    return (2 * (2 * n * m * k) + 2 * n * k * k + 2 * k * k * m + n * k * (k + 1) + m * k * (k + 1)
-            + 20 * k * m * nf)
+def chunk_flops(n: int, m: int, k: int, nf: int = 0, seeds: int = 1) -> float:
+    """Operations of one epoch of ``seeds`` packed models of K = k columns
+    each (packed width K' = seeds k): AᵀX and XBᵀ (2nmK' each), A·gb and
+    ga·B over each seed's own block (2nK'K and 2K'Km), and each seed's
+    symmetric Grams AᵀA and BBᵀ, whose upper triangles need nK(K+1) and
+    mK(K+1); the Fourier form adds its series forward and backward, 20
+    operations per row, column and harmonic (the recurrence 6 and the sum 4
+    forward; the recurrence, the two products and sums and the period's term
+    backward)."""
+    kp = seeds * k
+    return (2 * (2 * n * m * kp) + 2 * n * kp * k + 2 * kp * k * m + seeds * (n * k * (k + 1) + m * k * (k + 1))
+            + 20 * kp * m * nf)
+
+
+def reset_launches(*counters) -> None:
+    for fn in counters:
+        fn.launches = 0
 
 
 def main() -> int:
@@ -103,7 +119,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device", file=sys.stderr)
         return 1
-    from desmo_tpu_torch import configs, device as device_mod, losses, pod, runner, train
+    from desmo_tpu_torch import configs, device as device_mod, ensemble, losses, pod, runner, train
     from desmo_tpu_torch.kernels import _build, dual_gemm, train_chunk
     from desmo_tpu_torch.models import desmo, fourier
 
@@ -131,10 +147,14 @@ def main() -> int:
                   if "Used" in ln or "spill" in ln]
         print(f"[2 ptxas] {name}: {' | '.join(report)}")
 
+    counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk)
+
     # 3. the dual contraction against its plain version at the main path's shapes
     gen = torch.Generator().manual_seed(0)
     errs = {}
-    for n, m, k in ((3961, 1001, 47), (700, 333, 50)):
+    # the cylinder's width; the packed widths of the ensemble's eager loss at
+    # aneurysm S=4 (K'=108) and fourier_cylinder S=8 (K'=96)
+    for n, m, k in ((3961, 1001, 47), (700, 333, 50), (27000, 1000, 108), (3961, 1001, 96)):
         a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
         ax, xb = dual_gemm.dual_contractions(a, b, x)
         torch.cuda.synchronize()
@@ -173,7 +193,7 @@ def main() -> int:
     eager_cfg = dataclasses.replace(preset, chunk_method="scan", loss_method="fused",
                                     checkpoint_every=100, log_every=100)
     with tempfile.TemporaryDirectory() as tmp:
-        dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+        reset_launches(*counters)
         t0 = time.perf_counter()
         art = runner.run(eager_cfg, x_np, out_dir=os.path.join(tmp, "gpu"), num_epochs=EAGER_EPOCHS, device=dev)
         torch.cuda.synchronize()
@@ -214,7 +234,7 @@ def main() -> int:
     feager_cfg = dataclasses.replace(fpreset, chunk_method="scan", loss_method="fused",
                                      checkpoint_every=50, log_every=50)
     with tempfile.TemporaryDirectory() as tmp:
-        dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+        reset_launches(*counters)
         t0 = time.perf_counter()
         art = runner.run(feager_cfg, fx_np, out_dir=tmp, num_epochs=FOURIER_EAGER_EPOCHS, echo=False, device=dev)
         torch.cuda.synchronize()
@@ -234,6 +254,37 @@ def main() -> int:
               f"nF={fpreset.n_fourier}, chunk_method=scan: {FOURIER_EAGER_EPOCHS} epochs in {wall:.1f} s, "
               f"{feager_sps:.1f} steps/s over epochs 51-{FOURIER_EAGER_EPOCHS}; rec {hist['rec'][0]:.6e} -> "
               f"{hist['rec'][-1]:.6e}; dual kernel launches {dual_launches_f} = loss evaluations, mega-kernel 0")
+
+    # 4e. the seed-packed eager loop: aneurysm with 4 seeds, the packed loss
+    # through the dual kernel at K'=108
+    apreset = configs.get("aneurysm")
+    ax_np, _ = runner.load_data(apreset, synthetic=True)
+    packed_eager_cfg = dataclasses.replace(apreset, n_seeds=4, chunk_method="scan", loss_method="fused",
+                                           checkpoint_every=50, log_every=50)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        art = runner.run(packed_eager_cfg, ax_np, out_dir=tmp, num_epochs=PACKED_EAGER_EPOCHS, echo=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        packed_dual_launches = dual_gemm.dual_contractions.launches
+        hist = art.history
+        check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (PACKED_EAGER_EPOCHS,) for k in hist),
+              "packed eager history")
+        check(hist["rec"][-1] < hist["rec"][0], f"packed eager rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+        check(packed_dual_launches == PACKED_EAGER_EPOCHS,
+              f"dual kernel launched {packed_dual_launches} times in {PACKED_EAGER_EPOCHS} packed loss evaluations")
+        check(train_chunk.fused_train_chunk.launches == train_chunk.fused_ensemble_chunk.launches == 0,
+              "the packed eager path launched a mega-kernel")
+        with open(os.path.join(art.out_dir, "ensemble.json")) as fh:
+            record = json.load(fh)
+        check(record["n_seeds"] == 4 and len(record["final_totals"]) == 4, f"packed eager ensemble.json: {record}")
+        packed_eager_sps = record["seed_steps_per_sec"]
+        print(f"[4e eager] aneurysm n={art.config.n} m={art.config.m} r={apreset.r} P={apreset.poly_order}, 4 seeds "
+              f"(K'=108), chunk_method=scan: {PACKED_EAGER_EPOCHS} epochs in {wall:.1f} s, {packed_eager_sps} "
+              f"seed-steps/s over epochs 51-{PACKED_EAGER_EPOCHS}; best seed {record['best_seed']}, rec "
+              f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; dual kernel launches {packed_dual_launches} = loss "
+              "evaluations, mega-kernel 0")
 
     # 5. the mega-kernel against the plain chunk at full width
     pod_modes = pod.pod_host(x_np, preset.r, dev).modes
@@ -392,9 +443,82 @@ def main() -> int:
           "(limit 1e-4)")
     check(fe3 <= 1e-4, "Fourier mega-kernel vs plain at the preset's omega")
 
+    # 5e/5ef. the packed form against its plain chunk at the ensemble cells'
+    # full width (aneurysm S=4, K'=108; fourier_cylinder S=8, K'=96), with
+    # omega_init=1 and lr_omega=1, the seeds jittered as ensemble.fit jitters
+    # them
+    packed_checks = {}
+    for tag, preset_cfg, data, seeds, make_spec in (
+        ("5e", apreset, ax_np, 4, lambda c: desmo.DesmoSpec(c.n, c.m, c.r, c.poly_order, c.omega_init)),
+        ("5ef", fpreset, fx_np, 8, lambda c: fourier.FourierSpec(c.n, c.m, c.r, c.poly_order, c.omega_init,
+                                                                 c.n_fourier, c.period_init)),
+    ):
+        cfg = dataclasses.replace(preset_cfg, omega_init=1.0, lr_omega=1.0)
+        spec = make_spec(cfg)
+        pbatch = runner.prepare_batch(data, pod.pod_host(data, cfg.r, dev).modes, dev)
+
+        def packed_state(cfg, spec, seeds):
+            params = ensemble.init_params(spec, seeds, seed=cfg.seed, phi_sigma=cfg.seed_phi_sigma,
+                                          omega_spread=cfg.seed_omega_spread, device=dev)
+            return ensemble.init_state(params, cfg, seeds)
+
+        pst = packed_state(cfg, spec, seeds)
+        sk, mk = train_chunk.fused_ensemble_chunk(pst, pbatch, PARITY_STEPS, spec, cfg)
+        torch.cuda.synchronize()
+        sp, mp = train_chunk.train_chunk_plain_packed(pst, pbatch, PARITY_STEPS, spec, cfg)
+        sk2, mk2 = train_chunk.fused_ensemble_chunk(pst, pbatch, PARITY_STEPS, spec, cfg)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(mk[k], mk2[k]) for k in mk) and all(
+            torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
+        e_trace = {k: float(((mk[k] - mp[k]).abs() / mp[k].abs()).max()) for k in ("rec", "total_s")}
+        # every metric and parameter of one epoch from the kernel's state
+        sk1, mk1 = train_chunk.fused_ensemble_chunk(sk, pbatch, 1, spec, cfg)
+        sp1, mp1 = train_chunk.train_chunk_plain_packed(sk, pbatch, 1, spec, cfg)
+        e_one = {k: float(((mk1[k] - mp1[k]).abs() / mp1[k].abs()).max()) for k in train_chunk.SEED_METRICS}
+        one_ok = all(bool(((mk1[k] - mp1[k]).abs() <= 1e-5 * mp1[k].abs() + (ORTHO_ATOL if k == "ortho" else 0.0)).all())
+                     for k in train_chunk.SEED_METRICS)
+        e_one_params = max(rel_err(sk1.params[k], sp1.params[k]) for k in sk1.params)
+        one_max_abs = max(float((sk1.params[k] - sp1.params[k]).abs().max()) for k in sk1.params)
+        # each seed against the single-seed kernel run alone from its state
+        e_alone = 0.0
+        for s_ in range(seeds):
+            so, mo = train_chunk.fused_train_chunk(train_chunk.seed_view(pst, s_), pbatch, PARITY_STEPS, spec, cfg)
+            e_alone = max(e_alone, float(((mk["total_s"][:, s_] - mo["total"]).abs() / mo["total"].abs()).max()),
+                          max(rel_err(sk.params[k][s_], so.params[k]) for k in so.params))
+        # per-seed beta, lambda and LR scale
+        betas = np.geomspace(cfg.beta, 10.0 * cfg.beta, seeds).astype(np.float32)
+        lams = np.geomspace(cfg.l1_lambda, 10.0 * cfg.l1_lambda, seeds).astype(np.float32)
+        hst = ensemble.init_state(pst.params, cfg, seeds, lr_scales=np.where(np.arange(seeds) % 2, 0.5, 1.0))
+        _, mh = train_chunk.fused_ensemble_chunk(hst, pbatch, STATE_STEPS, spec, cfg, betas, lams)
+        _, mhp = train_chunk.train_chunk_plain_packed(hst, pbatch, STATE_STEPS, spec, cfg, betas, lams)
+        e_hyper = max(float(((mh[k] - mhp[k]).abs() / mhp[k].abs()).max()) for k in ("rec", "l1", "total_s"))
+        # seed 1 poisoned: its metrics go non-finite, every other seed's stay finite
+        bad = ensemble.init_state({**pst.params, "phi": pst.params["phi"].clone()}, cfg, seeds)
+        bad.params["phi"][1] = float("nan")
+        _, mb = train_chunk.fused_ensemble_chunk(bad, pbatch, 3, spec, cfg)
+        others = [s_ for s_ in range(seeds) if s_ != 1]
+        isolated = all(not bool(torch.isfinite(mb[k][:, 1]).any()) and bool(torch.isfinite(mb[k][:, others]).all())
+                       for k in ("rec", "ortho", "total_s"))
+        packed_checks[tag] = dict(max_abs=one_max_abs, batch=pbatch, make_spec=make_spec, start=packed_state)
+        print(f"[{tag} packed] {cfg.name} {seeds} seeds (K'={seeds * (spec.num_poly_terms + 3 * spec.r)}), "
+              f"omega_init=1 lr_omega=1, phi jitter {cfg.seed_phi_sigma}: kernel vs plain over {PARITY_STEPS} epochs, "
+              f"per-seed trace " + ", ".join(f"{k} {v:.2e}" for k, v in e_trace.items())
+              + f" (limit 2e-4); one epoch from the kernel's state: metrics "
+              + ", ".join(f"{k} {v:.2e}" for k, v in e_one.items())
+              + f" (limit 1e-5; ortho plus {ORTHO_ATOL:.0e} absolute), params {e_one_params:.2e} of max|param| "
+              f"(limit 1e-5); each seed against the single-seed kernel alone {e_alone:.2e} (limit 2e-5); per-seed "
+              f"beta, lambda and LR scale over {STATE_STEPS} epochs {e_hyper:.2e} (limit 2e-4); seed 1 poisoned: "
+              f"others finite {isolated}; two launches bit-identical {identical}")
+        check(identical, f"{tag}: two packed launches from the same state differ")
+        check(max(e_trace.values()) <= 2e-4, f"{tag}: packed trace vs plain beyond 2e-4: {e_trace}")
+        check(one_ok and e_one_params <= 1e-5, f"{tag}: one epoch from one state beyond 1e-5: {e_one}, {e_one_params}")
+        check(e_alone <= 2e-5, f"{tag}: a packed seed differs from the seed run alone by {e_alone}")
+        check(e_hyper <= 2e-4, f"{tag}: per-seed hypers vs plain beyond 2e-4: {e_hyper}")
+        check(isolated, f"{tag}: a poisoned seed reached another seed's metrics")
+
     # 6. the slice: the preset as configured, through the mega-kernel
     with tempfile.TemporaryDirectory() as tmp:
-        dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+        reset_launches(*counters)
         t0 = time.perf_counter()
         art = runner.run(preset, x_np, out_dir=tmp, num_epochs=SLICE_EPOCHS, echo=False, device=dev)
         torch.cuda.synchronize()
@@ -421,7 +545,7 @@ def main() -> int:
 
     # 6f. the Fourier preset as configured, through the mega-kernel's Fourier form
     with tempfile.TemporaryDirectory() as tmp:
-        dual_gemm.dual_contractions.launches = train_chunk.fused_train_chunk.launches = 0
+        reset_launches(*counters)
         t0 = time.perf_counter()
         art = runner.run(fpreset, fx_np, out_dir=tmp, num_epochs=SLICE_EPOCHS, echo=False, device=dev)
         torch.cuda.synchronize()
@@ -450,6 +574,44 @@ def main() -> int:
               f"{art.pod_error_r:.6f}; periods {sd['period_list.0'].item():.4f} ...; mega-kernel launches "
               f"{fourier_launches} = chunks, dual kernel 0")
 
+    # 6e/6ef. the ensemble cells: runner.run as configured with n_seeds, the
+    # packed mega-kernel one launch per 2,000-epoch chunk
+    ensemble_runs = {}
+    for tag, preset_cfg, data, seeds in (("6e", apreset, ax_np, 4), ("6ef", fpreset, fx_np, 8)):
+        cfg = dataclasses.replace(preset_cfg, n_seeds=seeds)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches(*counters)
+            t0 = time.perf_counter()
+            art = runner.run(cfg, data, out_dir=tmp, num_epochs=SLICE_EPOCHS, echo=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = train_chunk.fused_ensemble_chunk.launches
+            hist = art.history
+            n_chunks = SLICE_EPOCHS // cfg.checkpoint_every
+            check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (SLICE_EPOCHS,) for k in hist),
+                  f"{tag} history")
+            check(hist["rec"][-1] < hist["rec"][0], f"{tag} rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+            check(launches == n_chunks, f"{tag}: packed mega-kernel launched {launches} times for {n_chunks} chunks")
+            check(dual_gemm.dual_contractions.launches == train_chunk.fused_train_chunk.launches == 0,
+                  f"{tag}: the packed path launched another kernel")
+            files = set(os.listdir(art.out_dir))
+            check({"ensemble.json", "term_stability.json", "state_final.npz", f"{cfg.name}_r{cfg.r}_final.pt"} <= files,
+                  f"{tag}: missing records in {sorted(files)}")
+            with open(os.path.join(art.out_dir, "ensemble.json")) as fh:
+                record = json.load(fh)
+            finals = record["final_totals"]
+            check(len(finals) == seeds and record["diverged_seeds"] == [] and all(v is not None for v in finals),
+                  f"{tag}: ensemble.json {record}")
+            check(record["best_seed"] == int(np.argmin(finals)), f"{tag}: best seed {record['best_seed']} of {finals}")
+            check(np.isfinite(art.relative_error) and len(art.sweep) == 14, f"{tag}: error/sweep")
+            ensemble_runs[tag] = dict(launches=launches, sps=record["seed_steps_per_sec"])
+            print(f"[{tag} ensemble] {cfg.name} n={art.config.n} m={art.config.m} as configured with n_seeds={seeds} "
+                  f"(chunk_method=auto): {SLICE_EPOCHS} epochs in {wall:.1f} s (POD, sweep and exports included), "
+                  f"{record['seed_steps_per_sec']:.1f} seed-steps/s over chunks 2-{n_chunks}; best seed "
+                  f"{record['best_seed']}, final totals {', '.join(f'{v:.6e}' for v in finals)}; rec "
+                  f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; relative error {art.relative_error:.6f}, POD(r) "
+                  f"{art.pod_error_r:.6f}; packed mega-kernel launches {launches} = chunks, other kernels 0")
+
     # 7. times on the card, each kernel and its plain version in turns
     a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((cyl[0], cyl[2]), (cyl[2], cyl[1]), cyl[:2]))
     kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
@@ -461,6 +623,19 @@ def main() -> int:
     print(f"[7 time] {card}: dual_contractions at (n, m, K)={cyl}: kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, "
           f"plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (kernel, plain, plain, kernel; 200 calls each); "
           f"bound {dual_bound * 1e3:.1f} us ({dual_by})")
+
+    aneurysm_dual = (27000, 1000, 108)
+    n, m, k = aneurysm_dual
+    a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
+    kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
+    plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
+    k1, p1, p2, k2 = (time_ms(f, 50) for f in (kernel, plain, plain, kernel))
+    packed_dual_ms, packed_dual_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    packed_dual_bound, packed_dual_by = bound_ms(2 * (2 * n * m * k), 4 * (2 * n * k + 2 * k * m + n * m))
+    print(f"[7 time] {card}: dual_contractions at the packed eager loss' (n, m, K')={aneurysm_dual}: kernel "
+          f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (50 calls each, in "
+          f"turns); bound {packed_dual_bound * 1e3:.1f} us ({packed_dual_by})")
+    n, m, k = cyl
 
     spec, st = start(preset)
     kernel = lambda: train_chunk.fused_train_chunk(st, batch, TIMED_STEPS, spec, preset)  # noqa: E731
@@ -518,6 +693,49 @@ def main() -> int:
           + ", ".join(f"{k} {v * per_epoch_us:.1f} us/epoch ({v / fsplit_total:.1%})"
                       for k, v in fsplit.items() if k != "prologue") + "")
 
+    # 7e/7ef. the packed kernel and the single-seed kernel at the same preset,
+    # in turns over a 2,000-epoch chunk, with the packed form's phase split
+    packed_times = {}
+    for tag, pc_tag, cfg, seeds in (("7e", "5e", apreset, 4), ("7ef", "5ef", fpreset, 8)):
+        pc = packed_checks[pc_tag]
+        spec, pbatch = pc["make_spec"](cfg), pc["batch"]
+        pst = pc["start"](cfg, spec, seeds)
+        one = train_chunk.seed_view(pst, 0)
+        E = cfg.checkpoint_every
+        kernel = lambda: train_chunk.fused_ensemble_chunk(pst, pbatch, E, spec, cfg)  # noqa: E731
+        single = lambda: train_chunk.fused_train_chunk(one, pbatch, E, spec, cfg)  # noqa: E731
+        k1, s1, s2, k2 = (time_ms(f, 1) * 1e3 / E for f in (kernel, single, single, kernel))
+        short = lambda: train_chunk.fused_ensemble_chunk(pst, pbatch, TIMED_STEPS, spec, cfg)  # noqa: E731
+        plain = lambda: train_chunk.train_chunk_plain_packed(pst, pbatch, TIMED_STEPS, spec, cfg)  # noqa: E731
+        q1, p1, p2, q2 = (time_ms(f, 1) for f in (short, plain, plain, short))
+        split = train_chunk.phase_split(pst, pbatch, E, spec, cfg)
+        single_split = train_chunk.phase_split(one, pbatch, E, spec, cfg)
+        n, m = pbatch["x"].shape
+        ks, r, nf = spec.num_poly_terms + 3 * spec.r, spec.r, train_chunk.n_fourier(spec, cfg)
+        kp = seeds * ks
+        width = 2 * nf + 1 if nf else m
+        state_bytes = 4 * 2 * (3 * seeds * r * n + 3 * kp * width + 3 * kp * (2 if nf else 1) + 9 * seeds * r
+                               + seeds * train_chunk.SVEC)
+        nbytes = 4 * (n * m + n * r + (m if nf else 0) + TIMED_STEPS * seeds * len(train_chunk.METRICS)) + state_bytes
+        bound, by = bound_ms(TIMED_STEPS * chunk_flops(n, m, ks, nf, seeds), nbytes)
+        single_bound, _ = bound_ms(TIMED_STEPS * chunk_flops(n, m, ks, nf), 4 * n * m)
+        packed_us, single_us = (k1 + k2) / 2, (s1 + s2) / 2
+        # the record's times are of one TIMED_STEPS-epoch chunk, as phases 7 and 7f's
+        packed_times[tag] = dict(ms=(q1 + q2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by)
+        print(f"[{tag} time] {card}: {cfg.name} {seeds} seeds (K'={kp}) as configured: packed kernel "
+              f"{k1:.1f}/{k2:.1f} us/epoch, single-seed kernel {s1:.1f}/{s2:.1f} us/epoch (packed, single, single, "
+              f"packed; {E}-epoch chunks); bounds {bound * 1e3 / TIMED_STEPS:.1f} us/epoch packed ({by}), "
+              f"{single_bound * 1e3 / TIMED_STEPS:.1f} single; over {TIMED_STEPS}-epoch chunks in turns: packed "
+              f"kernel {q1 * 1e3 / TIMED_STEPS:.1f}/{q2 * 1e3 / TIMED_STEPS:.1f} us/epoch, plain packed chunk "
+              f"{p1 * 1e3 / TIMED_STEPS:.1f}/{p2 * 1e3 / TIMED_STEPS:.1f} us/epoch; cost_vs_single_x "
+              f"{packed_us / single_us:.3f}, seed_throughput_x {seeds * single_us / packed_us:.3f}; end to end "
+              f"{ensemble_runs['6e' if tag == '7e' else '6ef']['sps']:.1f} seed-steps/s")
+        for name, sp in (("packed", split), ("single-seed", single_split)):
+            sp_total = sum(sp.values())
+            print(f"[{tag} split] {card}: {name} kernel over a {E}-epoch chunk (kernel clock, block 0): "
+                  + ", ".join(f"{k} {v * 1e6 / E:.1f} us/epoch ({v / sp_total:.1%})"
+                              for k, v in sp.items() if k != "prologue"))
+
     # 8. the records
     print(json.dumps({"kernels": [
         {
@@ -559,6 +777,34 @@ def main() -> int:
             "bound_by": fourier_by,
             "library_ms": None,
         },
+        {
+            "name": "dual_contractions (packed eager loss, K'=108)",
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/dual_gemm.cu",
+            "replaces": "desmo_tpu/pallas/dual_gemm.py:71",
+            "launches": packed_dual_launches,
+            "max_abs_err": errs[aneurysm_dual],
+            "ms": packed_dual_ms,
+            "plain_ms": packed_dual_plain_ms,
+            "bound_ms": packed_dual_bound,
+            "bound_by": packed_dual_by,
+            "library_ms": None,
+        },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/train_chunk.cu",
+            "replaces": "desmo_tpu/pallas/train_chunk.py:356 (n_seeds>1, make_fused_ensemble_chunk :1801)",
+            "launches": ensemble_runs[run]["launches"],
+            "max_abs_err": packed_checks[check_tag]["max_abs"],
+            **packed_times[time_tag],
+            "library_ms": None,
+        }
+        for name, run, check_tag, time_tag in (
+            ("fused_ensemble_chunk (aneurysm, 4 seeds)", "6e", "5e", "7e"),
+            ("fused_ensemble_chunk (Fourier form, fourier_cylinder, 8 seeds)", "6ef", "5ef", "7ef"),
+        )
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -5,11 +5,16 @@
     python -m desmo_tpu_torch run --preset cylinder --npz snapshots.npz --device cpu
     python -m desmo_tpu_torch run --preset cylinder --synthetic --chunk-method scan
     python -m desmo_tpu_torch run --preset fourier_cylinder --synthetic --epochs 2000
+    python -m desmo_tpu_torch run --preset aneurysm --synthetic --seeds 4
+    python -m desmo_tpu_torch run --preset cylinder --synthetic --sweep-beta 1e-3,1e-2
 
 ``run`` trains on the GPU by default and raises when there is none; the plain
 PyTorch path runs only with ``--device cpu``. ``--chunk-method`` sets the
 preset's ``chunk_method``: ``auto`` runs the mega-kernel on a GPU and the
-eager loop on the CPU.
+eager loop on the CPU. ``--seeds S`` trains S seed-packed models at once
+and keeps the best (the packed mega-kernel on a GPU); ``--sweep-beta``,
+``--sweep-lam`` and ``--sweep-lr-scale`` give the seeds a grid of
+(beta, lambda, LR scale), whose size is the default ``--seeds``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import argparse
 import dataclasses
 import json
 import math
+import sys
 
 
 def cmd_presets(_args) -> int:
@@ -40,10 +46,34 @@ def cmd_run(args) -> int:
             "desmo_tpu_torch does not run a device mesh (--mesh) yet (ROADMAP queue 1, item 8)"
         )
     cfg = configs.get(args.preset)
+    overrides = {}
     if args.epochs is not None:
-        cfg = dataclasses.replace(cfg, num_epochs=args.epochs)
+        overrides["num_epochs"] = args.epochs
     if args.chunk_method is not None:
-        cfg = dataclasses.replace(cfg, chunk_method=args.chunk_method)
+        overrides["chunk_method"] = args.chunk_method
+    if args.seeds:
+        overrides["n_seeds"] = args.seeds
+    if args.seed_phi_sigma is not None:
+        overrides["seed_phi_sigma"] = args.seed_phi_sigma
+    if args.seed_omega_spread is not None:
+        overrides["seed_omega_spread"] = args.seed_omega_spread
+    for flag in ("sweep_beta", "sweep_lam", "sweep_lr_scale"):
+        vals = getattr(args, flag)
+        if vals:
+            try:
+                overrides[flag] = tuple(float(v) for v in vals.split(",") if v.strip())
+            except ValueError:
+                print(f"error: --{flag.replace('_', '-')} expects a comma-separated list of numbers, got {vals!r}",
+                      file=sys.stderr)
+                return 2
+    if any(k.startswith("sweep_") for k in overrides):
+        # one packed seed per combo unless --seeds was given (an explicit
+        # --seeds, even 1, is kept; runner.run refuses what cannot run)
+        n_combo = math.prod(len(overrides.get(k) or (0,)) for k in ("sweep_beta", "sweep_lam", "sweep_lr_scale"))
+        if args.seeds is None and cfg.n_seeds <= 1 and n_combo > 1:
+            overrides["n_seeds"] = n_combo
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     x, _mesh = runner.load_data(
         cfg,
         data_dir=args.data_dir,
@@ -62,6 +92,7 @@ def cmd_run(args) -> int:
         "preset": cfg.name,
         "device": args.device,
         "chunk_method": cfg.chunk_method,
+        "n_seeds": cfg.n_seeds,
         "relative_error": artifacts.relative_error,
         "pod_error_r": artifacts.pod_error_r,
         "pod_error_2r": artifacts.pod_error_2r,
@@ -105,6 +136,27 @@ def main(argv=None) -> int:
         help="override the preset's RunConfig.chunk_method: auto (the mega-kernel on a GPU), "
         "scan (the eager loop) or megakernel",
     )
+
+    p_run.add_argument(
+        "--seeds", type=int, default=None, metavar="S",
+        help="desmo/fourier: train S independently initialized models at once, packed (one read of X serves "
+        "them all; the packed mega-kernel on a GPU), and keep the best; with a preset's period_multistart the "
+        "Fourier seeds train the FFT period candidates",
+    )
+    p_run.add_argument("--seed-phi-sigma", type=float, default=None, metavar="SIGMA",
+                       help="multi-seed: relative phi init jitter for seeds > 0 (default 0.02)")
+    p_run.add_argument("--seed-omega-spread", type=float, default=None, metavar="DECADES",
+                       help="multi-seed: omega init log-spread in decades for seeds > 0 (default 0)")
+    p_run.add_argument(
+        "--sweep-beta", default=None, metavar="B1,B2,...",
+        help="hyperparameter multi-start: per-seed ortho weights; the cartesian product with --sweep-lam and "
+        "--sweep-lr-scale is the combo grid, seed s trains combo s mod #combos (--seeds defaults to the grid "
+        "size) and the winner is picked by rec",
+    )
+    p_run.add_argument("--sweep-lam", default=None, metavar="L1,L2,...",
+                       help="hyperparameter multi-start: per-seed L1 sparsity weights")
+    p_run.add_argument("--sweep-lr-scale", default=None, metavar="S1,S2,...",
+                       help="hyperparameter multi-start: per-seed factors on the whole group-LR row")
 
     args = parser.parse_args(argv)
     return {"presets": cmd_presets, "run": cmd_run}[args.command](args)

@@ -98,8 +98,9 @@ def params_from_state_dict(
 
 def params_from_jax(np_params: Mapping[str, np.ndarray], device: torch.device | str) -> dict[str, torch.Tensor]:
     """The JAX package's parameters (as numpy arrays, same keys and shapes,
-    the Fourier variant's ``period`` and ``trig_period`` included) as the
-    port's float32 tensors on ``device``."""
+    the Fourier variant's ``period`` and ``trig_period`` included, with or
+    without a leading seed axis) as the port's float32 tensors on
+    ``device``."""
     return {
         k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
         for k, v in np_params.items()
@@ -110,7 +111,10 @@ def state_from_jax(np_state, device: torch.device | str) -> TrainState:
     """The JAX package's ``train.TrainState`` (``params``, ``opt.count``,
     ``opt.mu``, ``opt.nu``, ``sched.lrs``, ``sched.best``, ``sched.num_bad``,
     ``epoch``; leaves as numpy arrays) as the port's :class:`TrainState` on
-    ``device``, so both packages can start from the same mid-run state."""
+    ``device``, so both packages can start from the same mid-run state. A
+    stacked ensemble state (``desmo_tpu.ensemble.init_state``: a leading
+    seed axis on every leaf, ``sched.lrs`` (S, G), ``best`` and ``num_bad``
+    (S,)) keeps its shapes."""
     opt, sched = np_state.opt, np_state.sched
 
     def f32(v):
@@ -123,8 +127,8 @@ def state_from_jax(np_state, device: torch.device | str) -> TrainState:
         count=int(np.asarray(opt.count)),
         sched=optim.PlateauState(
             lrs=f32(sched.lrs),
-            best=f32(sched.best).reshape(()),
-            num_bad=torch.as_tensor(np.array(sched.num_bad, dtype=np.int32), device=device).reshape(()),
+            best=f32(sched.best),
+            num_bad=torch.as_tensor(np.array(sched.num_bad, dtype=np.int32), device=device),
         ),
         epoch=int(np.asarray(np_state.epoch)),
     )

@@ -42,10 +42,13 @@ namespace {
 constexpr int kRows = 32;     // rows of X per block
 constexpr int kCols = 32;     // columns of X per staged chunk
 constexpr int kThreads = 128; // 8 x 16 thread grid
-constexpr int kMaxK = 64;
+constexpr int kMaxK = 128;  // the packed width the TPU kernel serves in one 128-lane block
 constexpr int kBlocksPerSM = 4;
 
-// kKP: K padded to a multiple of 16 (16, 32, 48 or 64).
+// kKP: K padded to 16, 32, 48, 64 or 128 (128: the packed width of the
+// seed-packed loss). At 128 a thread carries 4 x 8 xb and 16 x 2 ax
+// accumulators; ptxas reports 79 registers, no spill and 37,504 bytes of
+// shared memory for sm_90a (chip_smoke.py phase 2 prints its report).
 template <int kKP>
 __global__ void __launch_bounds__(kThreads)
 dual_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -213,8 +216,10 @@ int desmo_dual_contractions(const float* a, const float* b, const float* x,
     launch_tiles<32>(a, b, x, ax_part, xb_part, n, m, k, grid, split_cols, s);
   } else if (k <= 48) {
     launch_tiles<48>(a, b, x, ax_part, xb_part, n, m, k, grid, split_cols, s);
-  } else {
+  } else if (k <= 64) {
     launch_tiles<64>(a, b, x, ax_part, xb_part, n, m, k, grid, split_cols, s);
+  } else {
+    launch_tiles<128>(a, b, x, ax_part, xb_part, n, m, k, grid, split_cols, s);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -1,13 +1,14 @@
-// A whole training chunk of single-seed DESMO in one cooperative launch:
-// num_steps Adamax epochs of the dictionary, the contractions with X, the
-// analytic gradients, the plateau scheduler and one metrics row per epoch.
+// A whole training chunk of DESMO in one cooperative launch: num_steps
+// Adamax epochs of the dictionary, the contractions with X, the analytic
+// gradients, the plateau scheduler and one metrics row per epoch, for S
+// seed-packed models at once (S = 1: one model).
 //
 // Replaces the TPU kernel desmo_tpu/pallas/train_chunk.py:356 _make_kernel in
-// its single-seed forms: desmo (resident or streamed transport) and Fourier
-// (nf > 0; the seed-packed form is not ported yet). The per-epoch semantics
-// are those of the eager training step, as
-// desmo_tpu_torch/kernels/train_chunk.py sets them out beside its plain
-// PyTorch version.
+// its forms: desmo (resident or streamed transport), Fourier (nf > 0) and
+// seed-packed (n_seeds > 1, make_fused_ensemble_chunk), each of the last two
+// with the other. The per-epoch semantics are those of the eager training
+// step, as desmo_tpu_torch/kernels/train_chunk.py sets them out beside its
+// plain PyTorch version.
 //
 // Bound on an H100 SXM at the cylinder shape (n=3961, m=1001, r=4, P=3, so
 // T=35, K=47): an epoch needs about 0.78 GFLOP (AᵀX and XBᵀ 2nmK each, A·gb
@@ -73,6 +74,22 @@
 // of B (K m series values) and B Bᵀ (K² m) in every block would save two of
 // them but multiply that work by the grid size, so each block rebuilds only
 // its own slab and the Gram goes through partials as in the desmo form.
+//
+// Seed packing (runtime S, 1 <= S <= kMaxSeeds). S models of Ks = T + 3r
+// columns each share one read of X: the kernel's K is the packed width
+// S * Ks, seed s owning columns [s Ks, (s + 1) Ks) of A and rows of B, latent
+// lanes 1 + s r + j of [1 | lat], phi rows s r + j and omega slots
+// s 3r + q. A host-built column table (seed, kind, latent lane, omega slot,
+// then the P factor lanes of a polynomial column) replaces the single-seed
+// rule "columns [0, T) polynomial, [T, K) trig"; at S = 1 it reproduces that
+// layout. Only the seeds' diagonal blocks of the Grams exist (S Ks² entries,
+// not K²): A gb, ga B, AᵀA and BBᵀ run over the seed's own block, so one
+// seed's NaN reaches no other seed (no mask multiplies; off-block entries
+// are never formed). rec, the r x r latent Gram, l1 and sum(ax * B) have
+// per-seed partials, so total_s = rec_s + beta_s ortho_s + lam_s l1_s. Each
+// seed has its scheduler-vector row (its group LRs, best, num_bad, beta,
+// lam); the Adamax count, b1^count and the epoch are shared and kept equal
+// in every row. Block 0 steps the S scheduler rows.
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -98,8 +115,10 @@ __host__ __device__ constexpr int padded_k(int K) { return K <= 32 ? 32 : K <= 4
 __host__ __device__ constexpr int ax_tile_rows(int KP) { return KP <= 64 ? 128 : 64; }
 constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
-constexpr int kAugW = kMaxR + 1;  // [1 | lat] per row
-constexpr int kMetrics = 5;       // rec, ortho, l1, total, max |omega * lat|
+constexpr int kMaxSeeds = 8;
+constexpr int kCT = 4;            // column table: seed, kind (0 polynomial, 1 sin, 2 cos, 3 tanh),
+                                  // latent lane, omega slot, then the P factor lanes
+constexpr int kMetrics = 5;       // per seed: rec, ortho, l1, total, max |omega * lat|
 constexpr int kMaxNf = 63;        // Fourier harmonics
 constexpr int kSerTab = 4096;     // shared floats of the columns phase's series table
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -115,28 +134,30 @@ enum Phase {
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
 constexpr float kImproved = (float)(1.0 - 1e-4);  // plateau threshold, relative
-// scheduler-vector slots
-constexpr int kLr0 = 0, kBest = 5, kPow = 6, kCount = 7, kNumBad = 8, kEpoch = 9;
+// scheduler-vector slots, one row of kSvec floats per seed
+constexpr int kSvec = 16;
+constexpr int kLr0 = 0, kBest = 5, kPow = 6, kCount = 7, kNumBad = 8, kEpoch = 9, kBeta = 10, kLam = 11;
 
 struct Args {
-  const float* pod;   // (n, r)
+  const float* pod;   // (n, r), shared by the seeds
   const float* x;     // (n, m)
   const float* x_sq;  // sum(X * X)
-  const int* ftab;    // (T, P) factor indices into [1 | lat]
-  float* phi;         // (3, r, n): phi, mu, nu
+  const int* ctab;    // (K, kCT + P) column table
+  float* phi;         // (3, S r, n): phi, mu, nu
   float* b;           // desmo: (3, K, m): B, mu, nu; Fourier: B (K, m) in the scratch
   float* coef;        // (3, K)
-  float* omega;       // (3, 3r)
-  float* svec;        // scheduler vector
-  float* met;         // (num_steps, kMetrics)
+  float* omega;       // (3, 3 S r)
+  float* svec;        // (S, kSvec) scheduler vectors
+  float* met;         // (num_steps, S, kMetrics)
   float* work;        // scratch, make_layout(...).total floats
-  int n, m, r, P, T, K, num_steps, sched_every;
-  float beta, lam, patience, factor, min_lr;
+  int n, m, r, P, K, num_steps, sched_every;  // K = S Ks, the packed width
+  float patience, factor, min_lr;
   // the Fourier form's (nf > 0; nf = 0 is the desmo form)
   const float* tpts;  // (m,) t_points
   float* ser;         // (3, K, nc) series coefficients, mu, nu
   float* per;         // (3, K) periods, mu, nu
   int nf;
+  int S, Ks;          // seeds, and columns per seed
 };
 
 // Offsets (in floats) into the scratch buffer for a grid of G blocks; nc is
@@ -144,22 +165,26 @@ struct Args {
 struct Layout {
   long long a, dl, part, part_max, part_cross, part_gb, sums, gb;
   long long bw, part_ser, sums_ser, ser_next, timer, total;
-  int kk, es;  // K*K; entries of the summed partials: ga, latᵀlat, gcoef, gomega
+  int kk;      // entries of the seeds' diagonal Gram blocks, S Ks²
+  int lg;      // entries of the seeds' latent Grams, S r²
+  int es;      // entries of the summed partials: ga, latᵀlat, gcoef, gomega
   int es_ser;  // Fourier: entries of a series partial, K (nc + 1)
 };
 
-__host__ __device__ inline Layout make_layout(int n, int m, int r, int K, int nc, int G) {
+__host__ __device__ inline Layout make_layout(int n, int m, int r, int Ks, int S, int nc, int G) {
   Layout L;
-  L.kk = K * K;
-  L.es = K * K + r * r + K + 3 * r;
+  const int K = S * Ks, R = S * r;
+  L.kk = S * Ks * Ks;
+  L.lg = S * r * r;
+  L.es = L.kk + L.lg + K + 3 * R;
   L.es_ser = nc > 0 ? K * (nc + 1) : 0;
   const long long fourier = nc > 0;
   long long o = 0;
   L.a = o;          o += (long long)n * K;
-  L.dl = o;         o += (long long)n * r;
+  L.dl = o;         o += (long long)n * R;
   L.part = o;       o += (long long)G * L.es;
   L.part_max = o;   o += G;
-  L.part_cross = o; o += G;
+  L.part_cross = o; o += (long long)G * S;
   L.part_gb = o;    o += (long long)G * L.kk;
   L.sums = o;       o += L.es;
   L.gb = o;         o += 2LL * L.kk;  // by epoch parity
@@ -175,23 +200,28 @@ __host__ __device__ inline Layout make_layout(int n, int m, int r, int K, int nc
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 
-// Shared memory that lives through the launch: the factor table (T, P) and,
-// for each mode j, the (t, p) entries of the table that hold factor j + 1
-// (offsets and entries), for the polynomial backward.
-__host__ __device__ inline int table_floats(int T) { return 2 * round4(T * kMaxP) + round4(kMaxR + 1); }
+// Shared memory that lives through the launch: the column table (K, kCT + P)
+// and, for each latent lane j (of S r), the (column, factor) entries of the
+// table that hold lane j + 1 (offsets and entries), for the polynomial
+// backward; then the Fourier form's series LRs of the epoch, per seed.
+__host__ __device__ inline int table_floats(int K, int P, int R) {
+  return round4(K * (kCT + P)) + round4(R + 1) + round4(K * P) + 2 * kMaxSeeds;
+}
 
 // Shared floats: the tables, then the largest of the phases' own.
-__host__ __device__ inline int smem_floats(int r, int T, int K, int nc) {
-  const int S = K + 1, KP = padded_k(K);
-  const int rows = round4(K) + round4(3 * r) + K * K + kRT * kAugW +
-                   4 * kRT * S + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
-                   round4(3 * r);
+__host__ __device__ inline int smem_floats(int r, int Ks, int S, int P, int nc) {
+  const int K = S * Ks, R = S * r, ld = K + 1, KP = padded_k(K), kk = S * Ks * Ks;
+  const int rows = round4(K) + round4(3 * R) + round4(kk) + kRT * (R + 1) +
+                   4 * kRT * ld + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
+                   round4(3 * R);
   const int rt3 = ax_tile_rows(KP);
-  const int columns = round4(K * K) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads +
-                      (nc > 0 ? kSerTab : 0);
+  const int columns = round4(kk) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads +
+                      S * kThreads + (nc > 0 ? kSerTab : 0);
+  const int finalize = kThreads + 4 * kMaxSeeds + kMaxSeeds;
   const int series = nc > 0 ? round4(K * kSW) + round4(K * nc) + round4(K) : 0;
-  const int most = rows > columns ? rows : columns;
-  return table_floats(T) + (most > series ? most : series);
+  int most = rows > columns ? rows : columns;
+  most = most > finalize ? most : finalize;
+  return table_floats(K, P, R) + (most > series ? most : series);
 }
 
 #ifndef DESMO_EMULATED_GRID
@@ -278,40 +308,56 @@ __device__ float block_max(float v, float* red) {
 
 constexpr int kGroup = 8;  // entries a thread carries side by side in dA and the Gram partials
 
-// The factor table and, for each mode j, the entries t * P + p of the table
-// that hold factor j + 1 (d_tp[d_off[j]] .. d_tp[d_off[j + 1] - 1], in
-// ascending order), in shared memory for the whole launch.
+// The column table and, for each latent lane j, the entries k * P + p of
+// the table whose factor p of column k is lane j + 1 (d_tp[d_off[j]] ..
+// d_tp[d_off[j + 1] - 1], in ascending order), in shared memory for the
+// whole launch; lr_ep holds the Fourier form's series LRs of the epoch.
 struct Tables {
-  int* f;
+  int* ct;
   int* d_off;
   int* d_tp;
+  float* lr_ep;  // lr_z of seed s at [s], lr_period at [kMaxSeeds + s]
 };
 
 __device__ Tables build_tables(const Args& a, float* smem) {
   Tables tb;
-  tb.f = reinterpret_cast<int*>(smem);
-  tb.d_off = tb.f + round4(a.T * kMaxP);
-  tb.d_tp = tb.d_off + round4(kMaxR + 1);
-  const int TP = a.T * a.P;
-  for (int e = threadIdx.x; e < TP; e += kThreads) tb.f[e] = a.ftab[e];
+  const int K = a.K, P = a.P, CT = kCT + P, R = a.S * a.r;
+  tb.ct = reinterpret_cast<int*>(smem);
+  tb.d_off = tb.ct + round4(K * CT);
+  tb.d_tp = tb.d_off + round4(R + 1);
+  tb.lr_ep = reinterpret_cast<float*>(tb.d_tp + round4(K * P));
+  for (int e = threadIdx.x; e < K * CT; e += kThreads) tb.ct[e] = a.ctab[e];
   __syncthreads();
-  if (threadIdx.x == 0) {  // r * T * P steps, once per launch
-    int o = 0;
-    for (int j = 0; j < a.r; ++j) {
-      tb.d_off[j] = o;
-      for (int e = 0; e < TP; ++e)
-        if (tb.f[e] == j + 1) tb.d_tp[o++] = e;
-    }
-    tb.d_off[a.r] = o;
+  // lane j's count, then the offsets in order, then its entries: K P steps
+  // for each of the S r lanes, once per launch
+  for (int j = threadIdx.x; j < R; j += kThreads) {
+    int c = 0;
+    for (int e = 0; e < K * P; ++e)
+      if (tb.ct[(e / P) * CT + 1] == 0 && tb.ct[(e / P) * CT + kCT + e % P] == j + 1) ++c;
+    tb.d_off[j + 1] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    tb.d_off[0] = 0;
+    for (int j = 0; j < R; ++j) tb.d_off[j + 1] += tb.d_off[j];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < R; j += kThreads) {
+    int o = tb.d_off[j];
+    for (int e = 0; e < K * P; ++e)
+      if (tb.ct[(e / P) * CT + 1] == 0 && tb.ct[(e / P) * CT + kCT + e % P] == j + 1) tb.d_tp[o++] = e;
   }
   __syncthreads();
   return tb;
 }
 
-// part_gb[e] += sum over the sub-slab's w columns of Bn[k1][jj] * Bn[k2][jj]
-__device__ void accumulate_gb(const float* bn, int w, int K, float* part_gb) {
-  for (int e = threadIdx.x; e < K * K; e += kThreads) {
-    const int k1 = e / K, k2 = e % K;
+// part_gb[e] += sum over the sub-slab's w columns of Bn[k1][jj] * Bn[k2][jj],
+// for the entries e = (s Ks + k1') Ks + k2' of the seeds' diagonal blocks
+// (k1 = s Ks + k1', k2 = s Ks + k2')
+__device__ void accumulate_gb(const float* bn, int w, int Ks, int kk, float* part_gb) {
+  for (int e = threadIdx.x; e < kk; e += kThreads) {
+    const int s = e / (Ks * Ks), q = e - s * Ks * Ks;
+    const int k1 = s * Ks + q / Ks, k2 = s * Ks + q % Ks;
     float g = part_gb[e];
     for (int jj = 0; jj < w; ++jj) g = fmaf(bn[k1 * kSW + jj], bn[k2 * kSW + jj], g);
     part_gb[e] = g;
@@ -333,7 +379,7 @@ __device__ void gb_partial(const Args& a, const Layout& L, float* smem) {
       bn[e] = jj < w ? a.b[(long long)k * m + j0 + jj] : 0.f;
     }
     __syncthreads();
-    accumulate_gb(bn, w, K, part_gb);
+    accumulate_gb(bn, w, a.Ks, L.kk, part_gb);
   }
 }
 
@@ -445,25 +491,21 @@ __device__ void series_partial(const Args& a, const float* gb_s, int j0, int w, 
   }
 }
 
-// The learning rates and bias of the series update, read from the scheduler
-// vector before block 0's finalize steps it.
-struct SeriesStep {
-  float lr_z, lr_per, bias;
-};
-
 // Fourier, series phase: the series and period Adamax from the reduced
 // gradients and the old state, into shared memory in every block (zc_s (K,
-// nc), per_s (K)); block 0 also writes the new state with its moments to the
+// nc), per_s (K)), with each row's seed's LRs of the epoch (lr_ep) and the
+// epoch's bias; block 0 also writes the new state with its moments to the
 // scratch (ser_next), which the next phase stores.
-__device__ void series_update(const Args& a, const Layout& L, const SeriesStep& st, float* zc_s, float* per_s) {
-  const int K = a.K, nc = 2 * a.nf + 1, NC = nc + 1;
+__device__ void series_update(const Args& a, const Layout& L, const float* lr_ep, float bias, float* zc_s,
+                              float* per_s) {
+  const int K = a.K, Ks = a.Ks, nc = 2 * a.nf + 1, NC = nc + 1;
   const float* sums = a.work + L.sums_ser;
   float* next = a.work + L.ser_next;
   const long long kn = (long long)K * nc;
   const bool store = blockIdx.x == 0;
   for (int e = threadIdx.x; e < K * nc; e += kThreads) {
     float p = a.ser[e], mu = a.ser[kn + e], nu = a.ser[2 * kn + e];
-    adamax(&p, &mu, &nu, sums[(e / nc) * NC + e % nc], st.lr_z, st.bias);
+    adamax(&p, &mu, &nu, sums[(e / nc) * NC + e % nc], lr_ep[(e / nc) / Ks], bias);
     zc_s[e] = p;
     if (store) {
       next[e] = p;
@@ -474,7 +516,7 @@ __device__ void series_update(const Args& a, const Layout& L, const SeriesStep& 
   for (int k = threadIdx.x; k < K; k += kThreads) {
     const float g = -(1.f / a.per[k]) * sums[k * NC + nc];
     float p = a.per[k], mu = a.per[K + k], nu = a.per[2 * K + k];
-    adamax(&p, &mu, &nu, g, st.lr_per, st.bias);
+    adamax(&p, &mu, &nu, g, lr_ep[kMaxSeeds + k / Ks], bias);
     per_s[k] = p;
     if (store) {
       next[3 * kn + k] = p;
@@ -500,18 +542,19 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
   constexpr int kXC = KP / 16;                   // xb: k = tx + 16c, c < kXC
   constexpr int kPrefB1 = KP * kCW / kThreads;   // B values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
-  const int n = a.n, m = a.m, r = a.r, P = a.P, T = a.T, K = a.K, S = K + 1;
+  const int n = a.n, m = a.m, r = a.r, P = a.P, K = a.K, Ks = a.Ks, ld = K + 1;
+  const int R = a.S * r, AW = R + 1, CT = kCT + P, T = Ks - 3 * r;
   const float two_nm = (float)(2.0 / ((double)n * m));
-  const int* f_s = tb.f;
+  const int* ct = tb.ct;
   float* p = smem;
   float* c_s = p;   p += round4(K);
-  float* om_s = p;  p += round4(3 * r);
-  float* gb_s = p;  p += K * K;
-  float* aug_s = p; p += kRT * kAugW;
-  float* D_s = p;   p += kRT * S;
-  float* A_s = p;   p += kRT * S;
-  float* V_s = p;   p += kRT * S;  // d D / d arg on the trig columns, 0 on the polynomial ones
-  float* Y_s = p;   p += kRT * S;  // xb, then dA
+  float* om_s = p;  p += round4(3 * R);
+  float* gb_s = p;  p += round4(L.kk);
+  float* aug_s = p; p += kRT * AW;
+  float* D_s = p;   p += kRT * ld;
+  float* A_s = p;   p += kRT * ld;
+  float* V_s = p;   p += kRT * ld;  // d D / d arg on the trig columns, 0 on the polynomial ones
+  float* Y_s = p;   p += kRT * ld;  // xb, then dA
   float* X_s = p;   p += kRT * (kCW + 1);
   float* B_s = p;   p += KP * (kCW + 1);  // rows K..KP-1 stay zero
   float* red = p;   p += kThreads;
@@ -526,54 +569,56 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
   const float* gb = a.work + L.gb + (long long)(step & 1) * L.kk;
 
   for (int k = t; k < K; k += kThreads) { c_s[k] = a.coef[k]; cacc[k] = 0.f; }
-  for (int q = t; q < 3 * r; q += kThreads) { om_s[q] = a.omega[q]; oacc[q] = 0.f; }
+  for (int q = t; q < 3 * R; q += kThreads) { om_s[q] = a.omega[q]; oacc[q] = 0.f; }
   for (int e = t; e < L.kk; e += kThreads) gb_s[e] = gb[e];
-  for (int e = t; e < L.kk + r * r; e += kThreads) part[e] = 0.f;
+  for (int e = t; e < L.kk + L.lg; e += kThreads) part[e] = 0.f;
   float vmax = 0.f;
 
-  const int R = (n + G - 1) / G, row_begin = b * R, row_end = min(n, row_begin + R);
+  const int Rw = (n + G - 1) / G, row_begin = b * Rw, row_end = min(n, row_begin + Rw);
   for (int r0 = row_begin; r0 < row_end; r0 += kRT) {
     const int rows = min(kRT, row_end - r0);
     __syncthreads();  // the tables are loaded and the previous tile is consumed
-    for (int e = t; e < kRT * (r + 1); e += kThreads) {
-      const int i = e / (r + 1), j = e % (r + 1), row = r0 + i;
+    // [1 | lat]: lane 1 + s r + j holds pod[row][j] * phi[s r + j][row]
+    for (int e = t; e < kRT * AW; e += kThreads) {
+      const int i = e / AW, j = e % AW, row = r0 + i;
       float v = 0.f;
-      if (i < rows) v = j == 0 ? 1.f : a.pod[(long long)row * r + j - 1] * a.phi[(long long)(j - 1) * n + row];
-      aug_s[i * kAugW + j] = v;
+      if (i < rows) v = j == 0 ? 1.f : a.pod[(long long)row * r + (j - 1) % r] * a.phi[(long long)(j - 1) * n + row];
+      aug_s[i * AW + j] = v;
     }
     __syncthreads();
     // the dictionary D, its trig derivative V and A = D * c
     for (int e = t; e < kRT * K; e += kThreads) {
       const int i = e / K, k = e % K;
+      const int* ck = ct + k * CT;
       float d = 0.f, v = 0.f;
       if (i < rows) {
-        const float* ag = aug_s + i * kAugW;
-        if (k < T) {
-          d = ag[f_s[k * P]];
-          for (int q = 1; q < P; ++q) d *= ag[f_s[k * P + q]];
+        const float* ag = aug_s + i * AW;
+        const int kind = ck[1];
+        if (kind == 0) {
+          d = ag[ck[kCT]];
+          for (int q = 1; q < P; ++q) d *= ag[ck[kCT + q]];
         } else {
-          const int q = k - T, kind = q / r, j = q % r;
-          const float arg = ag[1 + j] * om_s[q];
+          const float arg = ag[ck[2]] * om_s[ck[3]];
           vmax = max_nan(vmax, fabsf(arg));
-          if (kind == 2) {
+          if (kind == 3) {
             d = tanhf(arg);
             v = 1.f - d * d;
           } else {
             float sn, cs;
             sincosf(arg, &sn, &cs);
-            d = kind == 0 ? sn : cs;
-            v = kind == 0 ? cs : -sn;
+            d = kind == 1 ? sn : cs;
+            v = kind == 1 ? cs : -sn;
           }
         }
       }
-      D_s[i * S + k] = d;
-      V_s[i * S + k] = v;
-      A_s[i * S + k] = d * c_s[k];
+      D_s[i * ld + k] = d;
+      V_s[i * ld + k] = v;
+      A_s[i * ld + k] = d * c_s[k];
     }
     __syncthreads();
     for (int e = t; e < rows * K; e += kThreads) {
       const int i = e / K, k = e % K;
-      A_g[(long long)(r0 + i) * K + k] = A_s[i * S + k];
+      A_g[(long long)(r0 + i) * K + k] = A_s[i * ld + k];
     }
     __syncthreads();
     clock.mark(kRowsDictionary);
@@ -626,95 +671,104 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
       for (int c = 0; c < kXC; ++c) {
         const int k = tx + 16 * c;
         if (k < K) {
-          Y_s[ty * S + k] = acc[0][c];
-          Y_s[(ty + 16) * S + k] = acc[1][c];
+          Y_s[ty * ld + k] = acc[0][c];
+          Y_s[(ty + 16) * ld + k] = acc[1][c];
         }
       }
     }
     __syncthreads();
     clock.mark(kRowsXb);
-    // dA = 2/nm (A gb - xb), in place of xb; each thread carries kGroup
-    // entries side by side
+    // dA = 2/nm (A gb - xb), in place of xb, over each column's seed block
+    // of gb; each thread carries kGroup entries side by side
     for (int e0 = 0; e0 < kRT * K; e0 += kGroup * kThreads) {
-      int ia[kGroup], ka[kGroup];
+      int ia[kGroup], ka[kGroup], ga[kGroup];
       float acc[kGroup];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
-        const int e = min(e0 + t + kThreads * u, kRT * K - 1);
-        ia[u] = (e / K) * S;
-        ka[u] = e % K;
+        const int e = min(e0 + t + kThreads * u, kRT * K - 1), k = e % K, s = ct[k * CT];
+        ia[u] = (e / K) * ld + s * Ks;  // the row's first column of the seed
+        ka[u] = k;
+        ga[u] = s * Ks * Ks + (k - s * Ks);  // gb block s, column k - s Ks
         acc[u] = 0.f;
       }
-      for (int l = 0; l < K; ++l)
+      for (int l = 0; l < Ks; ++l)
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) acc[u] = fmaf(A_s[ia[u] + l], gb_s[l * K + ka[u]], acc[u]);
+        for (int u = 0; u < kGroup; ++u) acc[u] = fmaf(A_s[ia[u] + l], gb_s[ga[u] + l * Ks], acc[u]);
 #pragma unroll
-      for (int u = 0; u < kGroup; ++u)
-        if (e0 + t + kThreads * u < kRT * K) Y_s[ia[u] + ka[u]] = two_nm * (acc[u] - Y_s[ia[u] + ka[u]]);
+      for (int u = 0; u < kGroup; ++u) {
+        const int e = e0 + t + kThreads * u;
+        if (e < kRT * K) {
+          const int o = (e / K) * ld + ka[u];
+          Y_s[o] = two_nm * (acc[u] - Y_s[o]);
+        }
+      }
     }
     __syncthreads();
     // coefficient and omega gradients: thread k owns column k
     for (int k = t; k < K; k += kThreads) {
+      const int* ck = ct + k * CT;
+      const bool trig = ck[1] != 0;
+      const int lane = ck[2], q = ck[3];
       float gc = cacc[k];
-      float go = k >= T ? oacc[k - T] : 0.f;
-      const int j = k >= T ? (k - T) % r : 0;
+      float go = trig ? oacc[q] : 0.f;
       for (int i = 0; i < rows; ++i) {
-        const float da = Y_s[i * S + k];
-        gc = fmaf(da, D_s[i * S + k], gc);
-        if (k >= T) go = fmaf(da * c_s[k] * V_s[i * S + k], aug_s[i * kAugW + 1 + j], go);
+        const float da = Y_s[i * ld + k];
+        gc = fmaf(da, D_s[i * ld + k], gc);
+        if (trig) go = fmaf(da * c_s[k] * V_s[i * ld + k], aug_s[i * AW + lane], go);
       }
       cacc[k] = gc;
-      if (k >= T) oacc[k - T] = go;
+      if (trig) oacc[q] = go;
     }
-    // dl[row][j]: the trig part through omega, the polynomial part by the product rule
-    for (int e = t; e < rows * r; e += kThreads) {
-      const int i = e / r, j = e % r;
-      const float* ag = aug_s + i * kAugW;
+    // dl[row][jl] for latent lane jl = s r + j: the trig part through omega,
+    // the polynomial part by the product rule
+    for (int e = t; e < rows * R; e += kThreads) {
+      const int i = e / R, jl = e % R, s = jl / r, j = jl % r;
+      const float* ag = aug_s + i * AW;
       float trig = 0.f;
       for (int kind = 0; kind < 3; ++kind) {
-        const int q = kind * r + j, k = T + q;
-        trig += Y_s[i * S + k] * c_s[k] * V_s[i * S + k] * om_s[q];
+        const int q = s * 3 * r + kind * r + j, k = s * Ks + T + kind * r + j;
+        trig += Y_s[i * ld + k] * c_s[k] * V_s[i * ld + k] * om_s[q];
       }
       float poly = 0.f;
-      for (int d = tb.d_off[j]; d < tb.d_off[j + 1]; ++d) {
+      for (int d = tb.d_off[jl]; d < tb.d_off[jl + 1]; ++d) {
         const int tt = tb.d_tp[d] / P, q = tb.d_tp[d] % P;
-        float prod = Y_s[i * S + tt] * c_s[tt];
+        float prod = Y_s[i * ld + tt] * c_s[tt];
         for (int u = 0; u < P; ++u)
-          if (u != q) prod *= ag[f_s[tt * P + u]];
+          if (u != q) prod *= ag[ct[tt * CT + kCT + u]];
         poly += prod;
       }
-      dl_g[(long long)(r0 + i) * r + j] = trig + poly;
+      dl_g[(long long)(r0 + i) * R + jl] = trig + poly;
     }
-    // Gram partials AᵀA and latᵀlat over the tile's rows, kGroup entries of
-    // AᵀA side by side
+    // Gram partials over the tile's rows: the seeds' diagonal blocks of AᵀA,
+    // kGroup entries side by side, and their latent Grams latᵀlat
     for (int e0 = 0; e0 < L.kk; e0 += kGroup * kThreads) {
       int k1[kGroup], k2[kGroup];
       float g[kGroup];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
-        const int e = min(e0 + t + kThreads * u, L.kk - 1);
-        k1[u] = e / K;
-        k2[u] = e % K;
+        const int e = min(e0 + t + kThreads * u, L.kk - 1), s = e / (Ks * Ks), q = e - s * Ks * Ks;
+        k1[u] = s * Ks + q / Ks;
+        k2[u] = s * Ks + q % Ks;
         g[u] = part_ga[e];
       }
       for (int i = 0; i < rows; ++i)
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) g[u] = fmaf(A_s[i * S + k1[u]], A_s[i * S + k2[u]], g[u]);
+        for (int u = 0; u < kGroup; ++u) g[u] = fmaf(A_s[i * ld + k1[u]], A_s[i * ld + k2[u]], g[u]);
 #pragma unroll
       for (int u = 0; u < kGroup; ++u)
         if (e0 + t + kThreads * u < L.kk) part_ga[e0 + t + kThreads * u] = g[u];
     }
-    for (int e = t; e < r * r; e += kThreads) {
-      const int j1 = e / r, j2 = e % r;
+    for (int e = t; e < L.lg; e += kThreads) {
+      const int s = e / (r * r), j1 = (e / r) % r, j2 = e % r;
       float g = part_lat[e];
-      for (int i = 0; i < rows; ++i) g = fmaf(aug_s[i * kAugW + 1 + j1], aug_s[i * kAugW + 1 + j2], g);
+      for (int i = 0; i < rows; ++i) g = fmaf(aug_s[i * AW + 1 + s * r + j1], aug_s[i * AW + 1 + s * r + j2], g);
       part_lat[e] = g;
     }
     __syncthreads();
     clock.mark(kRowsGradients);
   }
-  for (int k = t; k < K; k += kThreads) part[L.kk + r * r + k] = cacc[k];
-  for (int q = t; q < 3 * r; q += kThreads) part[L.kk + r * r + K + q] = oacc[q];
+  for (int k = t; k < K; k += kThreads) part[L.kk + L.lg + k] = cacc[k];
+  for (int q = t; q < 3 * R; q += kThreads) part[L.kk + L.lg + K + q] = oacc[q];
   vmax = block_max(vmax, red);
   if (t == 0) a.work[L.part_max + b] = vmax;
 }
@@ -734,30 +788,32 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
   constexpr int kPrefA3 = kRT3 * KP / kThreads;    // A values prefetched per thread
   constexpr int kPrefX3 = kRT3 * kSW / kThreads;   // X values prefetched per thread
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
-  const int n = a.n, m = a.m, r = a.r, K = a.K;
+  const int n = a.n, m = a.m, r = a.r, K = a.K, Ks = a.Ks, S = a.S, R = S * r;
   const float two_nm = (float)(2.0 / ((double)n * m));
   const float bias = 1.f - a.svec[kPow] * kB1;
-  const float lr_phi = a.svec[kLr0 + 1], lr_z = a.svec[kLr0 + 2];
   const float* sums = a.work + L.sums;
   const float* latg = sums + L.kk;
   const float* dl_g = a.work + L.dl;
   const float* A_g = a.work + L.a;
 
-  // phi: one thread per row; lat is read in full before the row's update
-  const int R = (n + G - 1) / G, row_begin = b * R, row_end = min(n, row_begin + R);
+  // phi: one thread per row, each seed in turn; lat is read in full before
+  // the seed's update of the row
+  const int Rw = (n + G - 1) / G, row_begin = b * Rw, row_end = min(n, row_begin + Rw);
   for (int row = row_begin + t; row < row_end; row += kThreads) {
     float lat[kMaxR], pd[kMaxR];
-    for (int j = 0; j < r; ++j) {
-      pd[j] = a.pod[(long long)row * r + j];
-      lat[j] = pd[j] * a.phi[(long long)j * n + row];
-    }
-    for (int j = 0; j < r; ++j) {
-      float dlo = 0.f;
-      for (int l = 0; l < r; ++l)
-        if (l != j) dlo = fmaf(lat[l], sgn(latg[l * r + j]), dlo);
-      const float g = (dl_g[(long long)row * r + j] + a.beta * dlo) * pd[j];
-      const long long o = (long long)j * n + row, rn = (long long)r * n;
-      adamax(a.phi + o, a.phi + rn + o, a.phi + 2 * rn + o, g, lr_phi, bias);
+    for (int j = 0; j < r; ++j) pd[j] = a.pod[(long long)row * r + j];
+    for (int s = 0; s < S; ++s) {
+      const float lr_phi = a.svec[s * kSvec + kLr0 + 1], beta = a.svec[s * kSvec + kBeta];
+      const float* lg = latg + s * r * r;
+      for (int j = 0; j < r; ++j) lat[j] = pd[j] * a.phi[(long long)(s * r + j) * n + row];
+      for (int j = 0; j < r; ++j) {
+        float dlo = 0.f;
+        for (int l = 0; l < r; ++l)
+          if (l != j) dlo = fmaf(lat[l], sgn(lg[l * r + j]), dlo);
+        const float g = (dl_g[(long long)row * R + s * r + j] + beta * dlo) * pd[j];
+        const long long o = (long long)(s * r + j) * n + row, rn = (long long)R * n;
+        adamax(a.phi + o, a.phi + rn + o, a.phi + 2 * rn + o, g, lr_phi, bias);
+      }
     }
   }
   __syncthreads();
@@ -772,8 +828,10 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
   float* ax_s = p; p += K * kSW;
   float* wred = p; p += kWarps * K * kSW;
   float* red = p;  p += kThreads;
+  float* crs = p;  p += S * kThreads;    // each thread's sum(ax * B) by seed
   float* tab = p;  // Fourier: kSerTab floats
   for (int e = t; e < L.kk; e += kThreads) ga_s[e] = sums[e];
+  for (int s = 0; s < S; ++s) crs[s * kThreads + t] = 0.f;
   float* part_gb = a.work + L.part_gb + (long long)b * L.kk;
   float* part_ser = a.work + L.part_ser + (long long)b * L.es_ser;
   if (kFourier) {
@@ -781,7 +839,6 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
   } else {
     for (int e = t; e < L.kk; e += kThreads) part_gb[e] = 0.f;
   }
-  float cross = 0.f;
   const long long km = (long long)K * m;
   const int W = (m + G - 1) / G, col_begin = b * W, col_end = min(m, col_begin + W);
   const int lane = t % 32, warp = t / 32;
@@ -855,75 +912,111 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
     }
     __syncthreads();
     clock.mark(kColumnsAx);
-    // sum(ax * B), gB = 2/nm (ga B - ax) and the B Adamax (desmo; Bn the new
-    // B) or gB alone (Fourier; Bn holds gB)
-    for (int o = t; o < K * kSW; o += kThreads) {
-      const int k = o / kSW, jj = o % kSW;
-      float nb = 0.f;
-      if (jj < w) {
-        cross = fmaf(ax_s[o], Bo[o], cross);
-        float s = 0.f;
-        for (int l = 0; l < K; ++l) s = fmaf(ga_s[k * K + l], Bo[l * kSW + jj], s);
-        const float g = two_nm * (s - ax_s[o]);
-        if (kFourier) {
-          nb = g;
-        } else {
-          const long long gi = (long long)k * m + j0 + jj;
-          adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
-          nb = a.b[gi];
+    // sum(ax * B) by seed, gB = 2/nm (ga B - ax) over the row's seed block
+    // of ga, and the B Adamax (desmo; Bn the new B) or gB alone (Fourier;
+    // Bn holds gB); seed s owns the entries [s Ks kSW, (s + 1) Ks kSW)
+    for (int s = 0; s < S; ++s) {
+      const float lr_z = a.svec[s * kSvec + kLr0 + 2];
+      const float* gas = ga_s + s * Ks * Ks;
+      const float* bos = Bo + s * Ks * kSW;
+      float cross = crs[s * kThreads + t];
+      for (int o = s * Ks * kSW + t; o < (s + 1) * Ks * kSW; o += kThreads) {
+        const int k = o / kSW, jj = o % kSW, kl = k - s * Ks;
+        float nb = 0.f;
+        if (jj < w) {
+          cross = fmaf(ax_s[o], Bo[o], cross);
+          float sm = 0.f;
+          for (int l = 0; l < Ks; ++l) sm = fmaf(gas[kl * Ks + l], bos[l * kSW + jj], sm);
+          const float g = two_nm * (sm - ax_s[o]);
+          if (kFourier) {
+            nb = g;
+          } else {
+            const long long gi = (long long)k * m + j0 + jj;
+            adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
+            nb = a.b[gi];
+          }
         }
+        Bn[o] = nb;
       }
-      Bn[o] = nb;
+      crs[s * kThreads + t] = cross;
     }
     __syncthreads();
     if (kFourier)
       series_partial(a, Bn, j0, w, tab, part_ser);
     else
-      accumulate_gb(Bn, w, K, part_gb);
+      accumulate_gb(Bn, w, Ks, L.kk, part_gb);
   }
-  cross = block_sum(cross, red);
-  if (t == 0) a.work[L.part_cross + b] = cross;
+  for (int s = 0; s < S; ++s) {
+    const float cross = block_sum(crs[s * kThreads + t], red);
+    if (t == 0) a.work[L.part_cross + (long long)b * S + s] = cross;
+  }
 }
 
-// Phase 4, block 0: the metrics row, the coefficient and omega Adamax and the
-// plateau scheduler.
-__device__ void finalize(const Args& a, const Layout& L, float* smem, int step) {
+// Block 0: out[4 s + w] for seed s = sum(ga * gb) over its block (w = 0),
+// sum(ax * B) over the grid's partials (1), the sum of |latᵀlat| off the
+// diagonal (2) and sum |c| over its columns (3). One warp per entry, lanes
+// strided over its terms, the 32 lane sums added in lane order.
+__device__ void seed_sums(const Args& a, const Layout& L, const float* ga, const float* gb, const float* latg,
+                          float* out, float* red) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int S = a.S, Ks = a.Ks, r = a.r, G = gridDim.x, kb = Ks * Ks;
+  for (int i0 = 0; i0 < 4 * S; i0 += kWarps) {
+    const int it = i0 + warp, s = it / 4, w = it % 4;
+    float v = 0.f;
+    if (it < 4 * S) {
+      if (w == 0) {
+        for (int e = lane; e < kb; e += 32) v = fmaf(ga[s * kb + e], gb[s * kb + e], v);
+      } else if (w == 1) {
+        for (int bb = lane; bb < G; bb += 32) v += a.work[L.part_cross + (long long)bb * S + s];
+      } else if (w == 2) {
+        for (int e = lane; e < r * r; e += 32)
+          if (e / r != e % r) v += fabsf(latg[s * r * r + e]);
+      } else {
+        for (int k = lane; k < Ks; k += 32) v += fabsf(a.coef[s * Ks + k]);
+      }
+    }
+    __syncthreads();
+    red[t] = v;
+    __syncthreads();
+    if (lane == 0 && it < 4 * S) {
+      float u = 0.f;
+      for (int l = 0; l < 32; ++l) u += red[t + l];
+      out[it] = u;
+    }
+  }
+  __syncthreads();
+}
+
+// Phase 4, block 0: the metrics rows, the coefficient and omega Adamax and
+// the plateau schedulers, each seed with its own LRs, beta and lambda.
+__device__ void finalize(const Args& a, const Layout& L, const Tables& tb, float* smem, int step) {
   const int t = threadIdx.x, G = gridDim.x;
-  const int r = a.r, K = a.K;
+  const int r = a.r, K = a.K, S = a.S, R = S * r, CT = kCT + a.P;
   float* red = smem;
+  float* ss = smem + kThreads;         // seed_sums' out
+  float* tot = ss + 4 * kMaxSeeds;     // total of each seed
   const float* sums = a.work + L.sums;
   const float* ga = sums;
-  const float* latg = sums + L.kk;
-  const float* gcoef = latg + r * r;
+  const float* latg = ga + L.kk;
+  const float* gcoef = latg + L.lg;
   const float* gom = gcoef + K;
   const float* gb = a.work + L.gb + (long long)(step & 1) * L.kk;
   float* sv = a.svec;
-  float lrs[5];
-  for (int g = 0; g < 5; ++g) lrs[g] = sv[kLr0 + g];
   const float powb = sv[kPow] * kB1;
   const float bias = 1.f - powb;
 
   float v = 0.f;
-  for (int e = t; e < L.kk; e += kThreads) v = fmaf(ga[e], gb[e], v);
-  const float gagb = block_sum(v, red);
-  v = 0.f;
-  for (int bb = t; bb < G; bb += kThreads) v += a.work[L.part_cross + bb];
-  const float cross = block_sum(v, red);
-  v = 0.f;
-  for (int e = t; e < r * r; e += kThreads)
-    if (e / r != e % r) v += fabsf(latg[e]);
-  const float ortho = 0.5f * block_sum(v, red);
-  v = 0.f;
   for (int bb = t; bb < G; bb += kThreads) v = max_nan(v, a.work[L.part_max + bb]);
   const float maxarg = block_max(v, red);
-  v = 0.f;
-  for (int k = t; k < K; k += kThreads) v += fabsf(a.coef[k]);
-  const float l1 = block_sum(v, red);  // its barriers order the reads of c before the updates
+  seed_sums(a, L, ga, gb, latg, ss, red);  // its barriers order the reads of c before the updates
   const float nm = (float)((double)a.n * a.m);
-  const float rec = (gagb - 2.f * cross + *a.x_sq) / nm;
-  const float total = rec + a.beta * ortho + a.lam * l1;
-  if (t == 0) {
-    float* row = a.met + (long long)step * kMetrics;
+  if (t < S) {
+    const int s = t;
+    const float rec = (ss[4 * s] - 2.f * ss[4 * s + 1] + *a.x_sq) / nm;
+    const float ortho = 0.5f * ss[4 * s + 2], l1 = ss[4 * s + 3];
+    const float total = rec + sv[s * kSvec + kBeta] * ortho + sv[s * kSvec + kLam] * l1;
+    tot[s] = total;
+    float* row = a.met + ((long long)step * S + s) * kMetrics;
     row[0] = rec;
     row[1] = ortho;
     row[2] = l1;
@@ -931,27 +1024,33 @@ __device__ void finalize(const Args& a, const Layout& L, float* smem, int step) 
     row[4] = maxarg;
   }
   for (int k = t; k < K; k += kThreads) {
-    const float g = gcoef[k] + a.lam * sgn(a.coef[k]);
-    adamax(a.coef + k, a.coef + K + k, a.coef + 2 * K + k, g, lrs[0], bias);
+    const float* svs = sv + tb.ct[k * CT] * kSvec;
+    const float g = gcoef[k] + svs[kLam] * sgn(a.coef[k]);
+    adamax(a.coef + k, a.coef + K + k, a.coef + 2 * K + k, g, svs[kLr0], bias);
   }
-  for (int q = t; q < 3 * r; q += kThreads)
-    adamax(a.omega + q, a.omega + 3 * r + q, a.omega + 6 * r + q, gom[q], lrs[3], bias);
-  __syncthreads();  // every thread has read the scheduler vector
-  if (t == 0) {
-    const float best = sv[kBest], num_bad = sv[kNumBad], epoch = sv[kEpoch];
+  for (int q = t; q < 3 * R; q += kThreads)
+    adamax(a.omega + q, a.omega + 3 * R + q, a.omega + 6 * R + q, gom[q], sv[(q / (3 * r)) * kSvec + kLr0 + 3], bias);
+  __syncthreads();  // every thread has read the scheduler vectors, and tot is written
+  if (t < S) {
+    float* svs = sv + t * kSvec;
+    const float total = tot[t];
+    const float best = svs[kBest], num_bad = svs[kNumBad], epoch = svs[kEpoch];
     const bool improved = total < best * kImproved;
     const float best_n = improved ? total : best;
     float nb = improved ? 0.f : num_bad + 1.f;
     const bool reduce = nb > a.patience;
     if (reduce) nb = 0.f;
     if (fmodf(epoch, (float)a.sched_every) == 0.f) {
-      for (int g = 0; g < 5; ++g) sv[kLr0 + g] = reduce ? fmaxf(lrs[g] * a.factor, a.min_lr) : lrs[g];
-      sv[kBest] = best_n;
-      sv[kNumBad] = nb;
+      for (int g = 0; g < 5; ++g) {
+        const float lr = svs[kLr0 + g];
+        svs[kLr0 + g] = reduce ? fmaxf(lr * a.factor, a.min_lr) : lr;
+      }
+      svs[kBest] = best_n;
+      svs[kNumBad] = nb;
     }
-    sv[kPow] = powb;
-    sv[kCount] = sv[kCount] + 1.f;
-    sv[kEpoch] = epoch + 1.f;
+    svs[kPow] = powb;
+    svs[kCount] = svs[kCount] + 1.f;
+    svs[kEpoch] = epoch + 1.f;
   }
 }
 
@@ -959,11 +1058,11 @@ template <int KP, bool kFourier>
 __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int nc = kFourier ? 2 * a.nf + 1 : 0;
-  const Layout L = make_layout(a.n, a.m, a.r, a.K, nc, gridDim.x);
+  const Layout L = make_layout(a.n, a.m, a.r, a.Ks, a.S, nc, gridDim.x);
   if (kFourier) a.b = a.work + L.bw;
   PhaseClock<kFourier ? kPhases : kSeries> clock;
   const Tables tb = build_tables(a, shared_base());
-  float* smem = shared_base() + table_floats(a.T);  // each phase's own shared memory
+  float* smem = shared_base() + table_floats(a.K, a.P, a.S * a.r);  // each phase's own shared memory
   float* zc_s = smem + round4(a.K * kSW);           // Fourier, series phase
   float* per_s = zc_s + round4(a.K * nc);
   if (kFourier)
@@ -975,9 +1074,15 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   grid.sync();
   clock.mark(kPrologue);
   for (int step = 0; step < a.num_steps; ++step) {
-    // read before block 0's finalize of this epoch steps the scheduler
-    const SeriesStep st = kFourier ? SeriesStep{a.svec[kLr0 + 2], a.svec[kLr0 + 4], 1.f - a.svec[kPow] * kB1}
-                                   : SeriesStep{};
+    // read before block 0's finalize of this epoch steps the schedulers
+    float bias = 0.f;
+    if (kFourier) {
+      bias = 1.f - a.svec[kPow] * kB1;
+      for (int s = threadIdx.x; s < a.S; s += kThreads) {
+        tb.lr_ep[s] = a.svec[s * kSvec + kLr0 + 2];
+        tb.lr_ep[kMaxSeeds + s] = a.svec[s * kSvec + kLr0 + 4];
+      }
+    }
     row_phase<KP>(a, L, tb, smem, step, clock);
     grid.sync();
     clock.mark(kRowsBarrier);
@@ -989,10 +1094,10 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
     clock.mark(kColumnsBarrier);
     if constexpr (kFourier) {
       reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem);
-      if (blockIdx.x == 0) finalize(a, L, smem, step);
+      if (blockIdx.x == 0) finalize(a, L, tb, smem, step);
       grid.sync();
       clock.mark(kFinalize);
-      series_update(a, L, st, zc_s, per_s);
+      series_update(a, L, tb.lr_ep, bias, zc_s, per_s);
       series_slab(a, L, zc_s, per_s, smem);
       grid.sync();
       clock.mark(kSeries);
@@ -1002,7 +1107,7 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
       clock.mark(kSeriesGram);
     } else {
       reduce_gb(a, L, (step + 1) & 1, smem);
-      if (blockIdx.x == 0) finalize(a, L, smem, step);
+      if (blockIdx.x == 0) finalize(a, L, tb, smem, step);
       grid.sync();
       clock.mark(kFinalize);
     }
@@ -1010,7 +1115,9 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   clock.store(a.work + L.timer);
 }
 
-size_t smem_bytes(int r, int T, int K, int nc) { return sizeof(float) * (size_t)smem_floats(r, T, K, nc); }
+size_t smem_bytes(int r, int Ks, int S, int P, int nc) {
+  return sizeof(float) * (size_t)smem_floats(r, Ks, S, P, nc);
+}
 
 using KernelFn = void (*)(Args);
 
@@ -1026,24 +1133,29 @@ KernelFn kernel_for_k(int K) {
 
 KernelFn kernel_for(int K, int nf) { return nf > 0 ? kernel_for_k<true>(K) : kernel_for_k<false>(K); }
 
+bool valid_shape(int r, int P, int Ks, int S, int nf) {
+  return r >= 1 && r <= kMaxR && P >= 1 && P <= kMaxP && S >= 1 && S <= kMaxSeeds && Ks > 3 * r &&
+         S * Ks <= kMaxK && nf >= 0 && nf <= kMaxNf;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Blocks of the cooperative launch on the current device (one per SM), or a
 // negative cudaError_t: cooperative launch unsupported, or no block fits.
-// nf is the number of Fourier harmonics, 0 for the desmo form.
-int desmo_chunk_grid(int r, int K, int nf) {
-  if (r < 1 || r > kMaxR || K < 1 || K > kMaxK || K <= 3 * r || nf < 0 || nf > kMaxNf)
-    return -(int)cudaErrorInvalidValue;
+// Ks = T + 3r columns per seed, S seeds; nf is the number of Fourier
+// harmonics, 0 for the desmo form.
+int desmo_chunk_grid(int r, int P, int Ks, int S, int nf) {
+  if (!valid_shape(r, P, Ks, S, nf)) return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return -(int)err;
   if (!coop) return -(int)cudaErrorNotSupported;
-  const size_t bytes = smem_bytes(r, K - 3 * r, K, nf > 0 ? 2 * nf + 1 : 0);
-  const void* kernel = (const void*)kernel_for(K, nf);
+  const size_t bytes = smem_bytes(r, Ks, S, P, nf > 0 ? 2 * nf + 1 : 0);
+  const void* kernel = (const void*)kernel_for(S * Ks, nf);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
@@ -1053,34 +1165,34 @@ int desmo_chunk_grid(int r, int K, int nf) {
 }
 
 // Floats of scratch the launch needs for a grid of `grid` blocks.
-long long desmo_chunk_workspace(int n, int m, int r, int K, int nf, int grid) {
-  return make_layout(n, m, r, K, nf > 0 ? 2 * nf + 1 : 0, grid).total;
+long long desmo_chunk_workspace(int n, int m, int r, int Ks, int S, int nf, int grid) {
+  return make_layout(n, m, r, Ks, S, nf > 0 ? 2 * nf + 1 : 0, grid).total;
 }
 
 // Offset (in floats) in the scratch of the launch's kPhases 64-bit
 // nanosecond counters (enum Phase), summed over the epochs.
-long long desmo_chunk_timer_offset(int n, int m, int r, int K, int nf, int grid) {
-  return make_layout(n, m, r, K, nf > 0 ? 2 * nf + 1 : 0, grid).timer;
+long long desmo_chunk_timer_offset(int n, int m, int r, int Ks, int S, int nf, int grid) {
+  return make_layout(n, m, r, Ks, S, nf > 0 ? 2 * nf + 1 : 0, grid).timer;
 }
 
-// Runs num_steps epochs in place on phi, coef, omega, svec and either b
-// (desmo, nf = 0; tpts, ser and per unused) or ser and per (Fourier, nf > 0;
-// b unused); writes the metrics rows. Returns a cudaError_t.
-int desmo_train_chunk(const float* pod, const float* x, const float* x_sq, const int* ftab,
+// Runs num_steps epochs of S packed seeds in place on phi, coef, omega,
+// svec and either b (desmo, nf = 0; tpts, ser and per unused) or ser and per
+// (Fourier, nf > 0; b unused); writes the metrics rows. ctab is the (S Ks,
+// kCT + P) column table. Returns a cudaError_t.
+int desmo_train_chunk(const float* pod, const float* x, const float* x_sq, const int* ctab,
                       const float* tpts, float* phi, float* b, float* ser, float* per,
                       float* coef, float* omega, float* svec, float* met, float* work,
-                      int n, int m, int r, int P, int T, int nf, int num_steps,
-                      int sched_every, int grid, float beta, float lam, float patience,
-                      float factor, float min_lr, void* stream) {
-  const int K = T + 3 * r;
-  if (n < 1 || m < 1 || r < 1 || r > kMaxR || P < 1 || P > kMaxP || T < 1 || K > kMaxK ||
-      nf < 0 || nf > kMaxNf || num_steps < 1 || sched_every < 1 || grid < 1 ||
-      (nf > 0 ? (!tpts || !ser || !per) : !b))
+                      int n, int m, int r, int P, int Ks, int S, int nf, int num_steps,
+                      int sched_every, int grid, float patience, float factor, float min_lr,
+                      void* stream) {
+  if (!valid_shape(r, P, Ks, S, nf) || n < 1 || m < 1 || num_steps < 1 || sched_every < 1 || grid < 1 ||
+      !ctab || (nf > 0 ? (!tpts || !ser || !per) : !b))
     return (int)cudaErrorInvalidValue;
-  Args args{pod, x, x_sq, ftab, phi, b, coef, omega, svec, met, work,
-            n, m, r, P, T, K, num_steps, sched_every, beta, lam, patience, factor, min_lr,
-            tpts, ser, per, nf};
-  const size_t bytes = smem_bytes(r, T, K, nf > 0 ? 2 * nf + 1 : 0);
+  const int K = S * Ks;
+  Args args{pod, x, x_sq, ctab, phi, b, coef, omega, svec, met, work,
+            n, m, r, P, K, num_steps, sched_every, patience, factor, min_lr,
+            tpts, ser, per, nf, S, Ks};
+  const size_t bytes = smem_bytes(r, Ks, S, P, nf > 0 ? 2 * nf + 1 : 0);
   const void* kernel = (const void*)kernel_for(K, nf);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;

@@ -11,6 +11,11 @@ so both X-dependent products are known at forward time: the CUDA kernel
 optimizer step. X stays fp32: the bf16 hi/lo split of the TPU kernel does not
 carry over (see the note in the CUDA source).
 
+``FactoredMSEFusedBlocks`` is the seed-packed form (``ensemble.py``): A (n,
+S K) and B (S K, m) hold S models side by side, one read of X serves them
+all, and the per-seed values (S,) come from each seed's own diagonal block of
+the Grams.
+
 ``dual_contractions`` takes its plain twin (``dual_contractions_plain``) for
 CPU tensors only. On a CUDA tensor it launches the kernel or raises; every
 launch adds one to ``dual_contractions.launches``.
@@ -146,3 +151,59 @@ class FactoredMSEFused(torch.autograd.Function):
 def factored_mse_fused(a, b, x, x_sq):
     """Functional form of :class:`FactoredMSEFused`."""
     return FactoredMSEFused.apply(a, b, x, x_sq)
+
+
+def mse_blocks_value(a, b, ax, x_sq, nm, n_blocks):
+    """Per-seed ``mean((A_s B_s - X)^2)`` (S,) from the packed A (n, S K), B
+    (S K, m) and ``ax = AᵀX``, with each seed's Grams (S, K, K): a batched
+    product over the seeds' own blocks, so no entry couples two seeds.
+    Returns ``(values, ga, gb)``. Port of
+    ``desmo_tpu.pallas.dual_gemm._mse_blocks_value``."""
+    S = n_blocks
+    n, k = a.shape
+    K, m = k // S, b.shape[1]
+    a3 = a.view(n, S, K).transpose(0, 1)  # (S, n, K)
+    b3 = b.view(S, K, m)
+    ga = a3.transpose(1, 2) @ a3
+    gb = b3 @ b3.transpose(1, 2)
+    cross = (ax * b).view(S, K, m).sum((1, 2))
+    return (torch.sum(ga * gb, (1, 2)) - 2.0 * cross + x_sq) / nm, ga, gb
+
+
+class FactoredMSEFusedBlocks(torch.autograd.Function):
+    """Per-seed ``mean((A_s @ B_s - x)^2) -> (S,)`` with one fused read of x
+    shared by the S packed seeds and an x-free backward, in which each
+    seed's block is scaled by its own cotangent. Port of
+    ``desmo_tpu.pallas.dual_gemm.factored_mse_fused_blocks``."""
+
+    @staticmethod
+    def forward(ctx, a, b, x, x_sq, n_blocks):
+        device_mod.fp32_matmul()
+        ax, xb = dual_contractions(a, b, x)
+        nm = a.shape[0] * b.shape[1]
+        vals, ga, gb = mse_blocks_value(a, b, ax, x_sq, nm, n_blocks)
+        ctx.save_for_backward(a, b, ax, xb, ga, gb)
+        ctx.nm, ctx.n_blocks = nm, n_blocks
+        return vals
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, ax, xb, ga, gb = ctx.saved_tensors
+        S = ctx.n_blocks
+        n, k = a.shape
+        K, m = k // S, b.shape[1]
+        scale = 2.0 / ctx.nm
+        g_lane = torch.repeat_interleave(g, K)  # (S K,)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            a3 = a.view(n, S, K).transpose(0, 1)
+            da = scale * ((a3 @ (gb * g[:, None, None])).transpose(0, 1).reshape(n, k) - xb * g_lane)
+        if ctx.needs_input_grad[1]:
+            db = scale * (((ga * g[:, None, None]) @ b.view(S, K, m)).reshape(k, m) - ax * g_lane[:, None])
+        dx_sq = g.sum() / ctx.nm if ctx.needs_input_grad[3] else None
+        return da, db, None, dx_sq, None
+
+
+def factored_mse_fused_blocks(a, b, x, x_sq, n_blocks: int):
+    """Functional form of :class:`FactoredMSEFusedBlocks`."""
+    return FactoredMSEFusedBlocks.apply(a, b, x, x_sq, n_blocks)

@@ -24,6 +24,7 @@ __all__ = [
     "eval_library",
     "poly_term_names",
     "trig_term_names",
+    "ref_interleaved_trig_names",
     "TRIG_KINDS",
 ]
 
@@ -99,6 +100,13 @@ def poly_term_names(n_vars: int, poly_order: int, var: str = "phi") -> list[str]
             parts.append(base if count == 1 else f"{base}^{count}")
         names.append("*".join(parts))
     return names
+
+
+def ref_interleaved_trig_names(n_vars: int, var: str = "phi") -> list[str]:
+    """Nonlinear-term names in the reference's interleaved (mode-major)
+    order: sin(phi1), cos(phi1), tanh(phi1), sin(phi2), ... (the order of
+    the reference's ``nonlinear_norm``)."""
+    return [f"{kind}({var}{i + 1})" for i in range(n_vars) for kind in TRIG_KINDS]
 
 
 def trig_term_names(n_vars: int, var: str = "phi") -> list[str]:

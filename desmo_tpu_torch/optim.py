@@ -58,9 +58,9 @@ def adamax_update(
 class PlateauState:
     """ReduceLROnPlateau state over the per-group learning rates."""
 
-    lrs: torch.Tensor  # (num_groups,) in configs.GROUP_ORDER
-    best: torch.Tensor  # best metric seen (0-d)
-    num_bad: torch.Tensor  # int32 epochs since the last improvement (0-d)
+    lrs: torch.Tensor  # (num_groups,) in configs.GROUP_ORDER; (S, num_groups) per seed
+    best: torch.Tensor  # best metric seen (0-d; (S,) per seed)
+    num_bad: torch.Tensor  # int32 epochs since the last improvement (0-d; (S,) per seed)
 
 
 def plateau_init(group_lrs, device: torch.device | str) -> PlateauState:
@@ -83,12 +83,15 @@ def plateau_step(
 
     Improvement means ``metric < best * (1 - threshold)``; after more than
     ``patience`` epochs without one, every group LR is multiplied by
-    ``factor`` (clamped at ``min_lr``) and the counter resets."""
+    ``factor`` (clamped at ``min_lr``) and the counter resets. Over a seed
+    axis (``lrs`` (S, G), ``best`` and ``num_bad`` (S,), ``metric`` (S,))
+    each seed's row steps by its own metric, as the JAX package's
+    ``jax.vmap`` of this step does (``desmo_tpu/ensemble.py:425-430``)."""
     metric = metric.detach().to(torch.float32)
     improved = metric < state.best * (1.0 - threshold)
     best = torch.where(improved, metric, state.best)
     num_bad = torch.where(improved, torch.zeros_like(state.num_bad), state.num_bad + 1)
     reduce = num_bad > patience
-    lrs = torch.where(reduce, torch.clamp(state.lrs * factor, min=min_lr), state.lrs)
+    lrs = torch.where(reduce.unsqueeze(-1), torch.clamp(state.lrs * factor, min=min_lr), state.lrs)
     num_bad = torch.where(reduce, torch.zeros_like(num_bad), num_bad)
     return PlateauState(lrs, best, num_bad)

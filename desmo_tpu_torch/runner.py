@@ -1,6 +1,7 @@
 """End-to-end pipeline: load -> preprocess -> POD -> train -> error ->
 sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo and Fourier
-variants on one device, one seed, with no holdout and no figures.
+variants on one device, one seed or a seed-packed ensemble (``n_seeds > 1``,
+``ensemble.fit``), with no holdout and no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -9,13 +10,14 @@ What the port does not run yet raises ``NotImplementedError`` naming its
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from desmo_tpu_torch import checkpoint, configs, losses, pod, sparsify, train
+from desmo_tpu_torch import checkpoint, configs, ensemble, losses, pod, sparsify, train
 from desmo_tpu_torch import data as data_mod
 from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch.kernels import train_chunk
@@ -109,16 +111,120 @@ def check_supported(cfg: configs.RunConfig) -> None:
     todo = []
     if cfg.variant not in ("desmo", "fourier"):
         todo.append(f"variant {cfg.variant!r} (ROADMAP queue 1, item 7)")
-    if cfg.variant == "fourier" and cfg.period_multistart > 1:
-        todo.append("the Fourier period multi-start, period_multistart > 1 (ROADMAP queue 1, item 5b)")
-    if cfg.n_seeds > 1 or cfg.sweep_beta or cfg.sweep_lam or cfg.sweep_lr_scale:
-        todo.append("multi-seed and hyperparameter multi-start (ROADMAP queue 1, item 6)")
+    if cfg.variant == "fourier" and cfg.period_multistart > 1 and cfg.n_seeds <= 1:
+        # with n_seeds > 1 the period candidates train as per-seed inits
+        todo.append("the Fourier period multi-start of one seed, period_multistart > 1 (ROADMAP queue 1, item 5b)")
     if cfg.pod_method != "host":
         todo.append(f"pod_method={cfg.pod_method!r} (ROADMAP queue 1, item 9)")
     if cfg.run_greedy_prune:
         todo.append("greedy pruning, run_greedy_prune=True (ROADMAP queue 1, item 3)")
     if todo:
         raise NotImplementedError("desmo_tpu_torch does not run " + "; ".join(todo) + " yet")
+
+
+def single_seed_sweep(cfg: configs.RunConfig) -> configs.RunConfig:
+    """Sweep lists on a one-seed config (``desmo_tpu/runner.py:324-349``): a
+    grid of more than one combo needs ``n_seeds > 1`` and raises; a single
+    combo away from the config's values is an override of beta, lambda and
+    the LRs."""
+    if cfg.n_seeds > 1:
+        return cfg
+    hyp = ensemble.resolve_hypers(cfg, 1, warn=False)
+    if hyp is None:
+        return cfg
+    if len(hyp["combos"]) > 1:
+        raise ValueError(
+            "a hyperparameter sweep (sweep_beta/sweep_lam/sweep_lr_scale with more than one combo) needs "
+            "n_seeds > 1 — pass --seeds, or omit it and the CLI defaults n_seeds to the combo-grid size"
+        )
+    beta, lam, scale = hyp["combos"][0]
+    return dataclasses.replace(
+        cfg, beta=beta, l1_lambda=lam, lr_coef=cfg.lr_coef * scale, lr_phi=cfg.lr_phi * scale,
+        lr_z=cfg.lr_z * scale, lr_omega=cfg.lr_omega * scale, lr_period=cfg.lr_period * scale,
+        sweep_beta=(), sweep_lam=(), sweep_lr_scale=(),
+    )
+
+
+def _finite_or_none(v) -> float | None:
+    return float(v) if np.isfinite(v) else None
+
+
+def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log) -> train.TrainResult:
+    """The ``n_seeds > 1`` branch of ``desmo_tpu/runner.py:509-684``:
+    ``ensemble.fit``, then ``ensemble.json`` (the winner, every seed's final
+    total and rec, the diverged seeds, seed-steps/s, the jitter and the
+    hyperparameter grid) and, with two or more live seeds,
+    ``term_stability.json``; the best seed's state is exported at the last
+    epoch. The per-seed rec figure is not drawn (figures are not ported)."""
+    method = resolve_loss_method(cfg, device)
+    if method not in ("factored", "fused"):
+        if log is not None:
+            log(f"[ensemble] loss_method={method!r} has no packed form; using the factored loss")
+        method = "factored"
+    report: dict = {}
+    result, best_seed, finals = ensemble.fit(
+        cfg, spec, batch, n_seeds=cfg.n_seeds, num_epochs=n_epochs, seed=cfg.seed,
+        phi_sigma=cfg.seed_phi_sigma, omega_spread=cfg.seed_omega_spread, method=method, log=log,
+        checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"), report=report,
+    )
+    sps = result.steps_per_sec
+    if log is not None:
+        rate = f"; {sps:.1f} seed-steps/s" if np.isfinite(sps) else ""
+        log(f"[ensemble] kept seed {best_seed}/{cfg.n_seeds} (finals: {finals}){rate}")
+    hyp = report.get("hypers")
+    with open(os.path.join(out_dir, "ensemble.json"), "w") as fh:
+        json.dump({
+            "n_seeds": int(cfg.n_seeds),
+            "best_seed": int(best_seed),
+            # diverged (frozen) seeds report inf: null here, with their indices
+            "final_totals": [_finite_or_none(v) for v in finals],
+            "final_recs": [_finite_or_none(v) for v in report.get("final_recs", [])],
+            "diverged_seeds": [int(i) for i in np.nonzero(~np.isfinite(finals))[0]],
+            "seed_steps_per_sec": _finite_or_none(sps),
+            "seed_phi_sigma": float(cfg.seed_phi_sigma),
+            "seed_omega_spread": float(cfg.seed_omega_spread),
+            "hypers": None if hyp is None else {
+                "combos": [list(c) for c in hyp["combos"]],
+                "betas": hyp["betas"].tolist(),
+                "lams": hyp["lams"].tolist(),
+                "lr_scales": hyp["lr_scales"].tolist(),
+                "best_combo": [float(hyp["betas"][best_seed]), float(hyp["lams"][best_seed]),
+                               float(hyp["lr_scales"][best_seed])],
+            },
+        }, fh, indent=1)
+    live_params, live_idx = report.get("seed_params", []), list(report.get("live_seeds", []))
+    hyper_group = None
+    if hyp is not None and live_params:
+        # under a sweep the seeds' objectives differ: the stability report
+        # pools only the live seeds of the winner's (beta, lambda)
+        bw, lw = float(hyp["betas"][best_seed]), float(hyp["lams"][best_seed])
+        keep = [k for k, i in enumerate(live_idx) if float(hyp["betas"][i]) == bw and float(hyp["lams"][i]) == lw]
+        live_params, live_idx = [live_params[k] for k in keep], [live_idx[k] for k in keep]
+        hyper_group = {"beta": bw, "l1_lambda": lw}
+    if len(live_params) >= 2:
+        stab = ensemble.term_stability(live_params, spec)
+        with open(os.path.join(out_dir, "term_stability.json"), "w") as fh:
+            json.dump({
+                "threshold": stab["threshold"],
+                "live_seeds": live_idx,
+                "hyper_group": hyper_group,
+                "names": stab["names"],
+                "frequency": stab["frequency"].tolist(),
+                "energy_mean": stab["mean"].tolist(),
+                "energy_std": stab["std"].tolist(),
+            }, fh, indent=1)
+        if log is not None:
+            grp = (f" (winning hyper group beta={hyper_group['beta']:g}, lambda={hyper_group['l1_lambda']:g})"
+                   if hyper_group is not None else "")
+            unstable = [(nm, f) for nm, f in zip(stab["names"], stab["frequency"]) if 0.0 < f < 1.0]
+            if unstable:
+                log(f"[ensemble] init-sensitive terms (selection frequency < 1 at threshold "
+                    f"{stab['threshold']:g}{grp}): " + ", ".join(f"{nm}={f:.2f}" for nm, f in unstable))
+            else:
+                log(f"[ensemble] term selection is stable across all {len(live_idx)} seeds "
+                    f"(threshold {stab['threshold']:g}{grp})")
+    export(result.state, f"epoch{result.state.epoch}")
+    return result
 
 
 def build_model(cfg: configs.RunConfig, device: torch.device):
@@ -170,7 +276,10 @@ def run(
     ``<name>_r<r>_final.pt`` and, every ``checkpoint_every`` epochs,
     ``state_epoch<N>.npz`` and ``<name>_r<r>_epoch<N>.pt``. The chunks run
     through the mega-kernel or the eager loop as
-    ``kernels.train_chunk.select_chunk`` decides. ``ga_single_pass`` is a
+    ``kernels.train_chunk.select_chunk`` decides. With ``cfg.n_seeds > 1``
+    the seeds train packed (:func:`run_ensemble`), the exports hold the best
+    live seed, and ``ensemble.json`` and ``term_stability.json`` are
+    written. ``ga_single_pass`` is a
     TPU shortcut of the mega-kernel's Gram and is ignored: the port's kernel
     computes the exact Gram. ``holdout`` (forecasting at held-out times) is
     not ported yet and raises when set."""
@@ -179,7 +288,7 @@ def run(
             "desmo_tpu_torch does not run holdout forecasting (ROADMAP queue 1, item 5b) yet"
         )
     dev = device_mod.resolve(device)
-    cfg = dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1])
+    cfg = single_seed_sweep(dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1]))
     check_supported(cfg)
     out_dir = os.path.join(out_dir, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
@@ -197,13 +306,17 @@ def run(
         )
 
     n_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
-    result = train.fit(
-        loss_fn, groups, cfg, params, batch,
-        num_epochs=n_epochs,
-        log=(lambda line: print(line, flush=True)) if echo else None,
-        checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
-        chunk=train_chunk.select_chunk(spec, cfg, dev),
-    )
+    log = (lambda line: print(line, flush=True)) if echo else None
+    if cfg.n_seeds > 1:
+        result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log)
+    else:
+        result = train.fit(
+            loss_fn, groups, cfg, params, batch,
+            num_epochs=n_epochs,
+            log=log,
+            checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
+            chunk=train_chunk.select_chunk(spec, cfg, dev),
+        )
     for i in range(0, result.state.epoch, cfg.log_every):
         logger.log_epoch(i, n_epochs, {k: v[i] for k, v in result.history.items()})
     logger.close()

@@ -27,6 +27,11 @@ class TermEnergies:
     poly: np.ndarray  # (T,)
     trig: np.ndarray  # (3, r) kind-major (sin, cos, tanh)
 
+    def interleaved_trig(self) -> np.ndarray:
+        """The trig energies in the reference's order: sin(phi1), cos(phi1),
+        tanh(phi1), sin(phi2), ..."""
+        return np.asarray(self.trig).T.reshape(-1)
+
 
 @dataclasses.dataclass
 class SweepEntry:

@@ -5,7 +5,7 @@
     python3 scripts/torch_ab_train_chunk.py build/train_chunk_a.cu
 
     mkdir -p build/parent && git archive <rev> | tar -x -C build/parent
-    python3 scripts/torch_ab_train_chunk.py build/parent [--preset fourier_cylinder]
+    python3 scripts/torch_ab_train_chunk.py build/parent [--preset fourier_cylinder] [--eager]
 
 Version B is this checkout. Version A is either a kernel source with the
 checkout's C interface, compiled by the script itself into ``build/ab/``
@@ -18,7 +18,11 @@ synthetic data, the preset's init), the script runs one 2,000-epoch chunk of
 each version in the order A, B, B, A and prints each launch's µs per epoch
 and its phase split from the kernel's own clock. For a kernel source it then
 prints how far B's metrics trace and params lie from A's after 200 epochs at
-omega_init=1 and lr_omega=1. Prints the card's name and power limit first.
+omega_init=1 and lr_omega=1. With ``--eager`` (directory mode only) each
+turn times the eager loop instead (``chunk_method="scan"``, the fused loss
+through the dual-contraction kernel): µs per step on the host's clock over
+``--steps`` epochs, after 10 warm-up epochs. Prints the card's name and
+power limit first.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 from unittest import mock
 
@@ -100,16 +105,44 @@ def time_tree(name: str, tree: str, preset: str, steps: int) -> None:
     print(split_line(name, train_chunk.phase_split(state, batch, steps, spec, cfg), steps), flush=True)
 
 
+def time_eager(name: str, tree: str, preset: str, steps: int) -> None:
+    """The eager loop of the checkout at ``tree`` (this process imports its
+    package), timed on the host's clock: the loop is bound by the host's
+    issue of its operations."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from desmo_tpu_torch import configs, device as device_mod, pod, runner, train
+
+    if not train.__file__.startswith(tree):
+        raise RuntimeError(f"imported {train.__file__}, not the package under {tree}")
+    dev = device_mod.resolve("cuda")
+    cfg = dataclasses.replace(configs.get(preset), chunk_method="scan", loss_method="fused")
+    x, _ = runner.load_data(cfg, synthetic=True)
+    batch = runner.prepare_batch(x, pod.pod_host(x, cfg.r, dev).modes, dev)
+    _, params, loss_fn, groups = runner.build_model(cfg, dev)
+    chunk = train.make_train_chunk(loss_fn, groups, cfg)
+    state = train.init_state(params, cfg)
+    chunk(state, batch, 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(state, batch, steps)
+    torch.cuda.synchronize()
+    print(f"{name}: eager loop {(time.perf_counter() - t0) * 1e6 / steps:.1f} us/step over {steps} epochs",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("other", help="version A: a kernel source, or a directory holding another checkout")
     parser.add_argument("--steps", type=int, default=STEPS)
     parser.add_argument("--preset", default="cylinder")
+    parser.add_argument("--eager", action="store_true", help="time the eager loop (directory mode)")
     parser.add_argument("--as", dest="name", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     if args.name is not None:  # one turn of the directory mode, in a process of its own
-        time_tree(args.name, os.path.abspath(args.other), args.preset, args.steps)
+        (time_eager if args.eager else time_tree)(args.name, os.path.abspath(args.other), args.preset, args.steps)
         return 0
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -119,8 +152,10 @@ def main(argv=None) -> int:
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         for name in ("A", "B", "B", "A"):
             subprocess.run([sys.executable, __file__, trees[name], "--as", name, "--preset", args.preset,
-                            "--steps", str(args.steps)], check=True, env=env)
+                            "--steps", str(args.steps)] + ["--eager"] * args.eager, check=True, env=env)
         return 0
+    if args.eager:
+        parser.error("--eager needs a directory holding another checkout")
 
     sys.path.insert(0, str(ROOT))
     import torch

@@ -147,9 +147,11 @@ def emulated_dual_gemm(tmp_path_factory):
 
 @pytest.mark.parametrize(
     "n,m,k",
-    # every K template (16/32/48/64), ragged rows and columns, one tile and
-    # many column splits
-    [(5, 3, 1), (64, 33, 16), (33, 257, 32), (130, 70, 47), (97, 40, 64), (700, 333, 50)],
+    # every K template (16/32/48/64/128), ragged rows and columns, one tile
+    # and many column splits; the packed widths of the ensemble's eager loss
+    # (fourier_cylinder S=8: K'=96; aneurysm S=4: K'=108) and K'=128
+    [(5, 3, 1), (64, 33, 16), (33, 257, 32), (130, 70, 47), (97, 40, 64), (700, 333, 50),
+     (70, 45, 96), (65, 40, 108), (40, 33, 128)],
 )
 def test_cuda_source_on_emulated_grid(emulated_dual_gemm, n, m, k):
     proc = subprocess.run(

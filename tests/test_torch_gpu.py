@@ -15,15 +15,18 @@ import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from desmo_tpu_torch import configs, losses, pod, runner, train  # noqa: E402
+from desmo_tpu_torch import configs, ensemble, losses, pod, runner, train  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
 from desmo_tpu_torch.kernels import dual_gemm, train_chunk  # noqa: E402
 from desmo_tpu_torch.models import desmo, fourier  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
-# the shapes of tests/test_torch_dual_gemm.py and the cylinder preset's
-SHAPES = [(100, 7, 50), (512, 47, 128), (700, 50, 333), (3961, 47, 1001)]
+# the shapes of tests/test_torch_dual_gemm.py, the cylinder preset's, and the
+# packed widths of the ensemble's eager loss: fourier_cylinder S=8 (K'=96)
+# and aneurysm S=4 (K'=108); and K'=128, the largest
+SHAPES = [(100, 7, 50), (512, 47, 128), (700, 50, 333), (3961, 47, 1001), (3961, 96, 1001),
+          (27000, 108, 1000), (600, 128, 77)]
 
 
 @pytest.fixture
@@ -72,8 +75,8 @@ def test_fused_loss_grads_match_autograd_of_factored_mse(cuda):
 
 
 def test_kernel_rejects_k_above_its_limit(cuda):
-    a, b, x = _inputs(64, 65, 32, cuda)
-    with pytest.raises(ValueError, match="K=65"):
+    a, b, x = _inputs(64, 129, 32, cuda)
+    with pytest.raises(ValueError, match="K=129"):
         dual_gemm.dual_contractions(a, b, x)
 
 
@@ -211,3 +214,93 @@ def test_fourier_phase_split_and_runner_path(cuda, tmp_path):
     assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14
     sd = torch.load(f"{art.out_dir}/fourier_cylinder_r2_final.pt", weights_only=True)
     assert {"period_list.0", "trig_period_list.5"} <= set(sd)
+
+
+def _packed_problem(device, preset, S, **over):
+    """A preset at full width on the cylinder's synthetic data at its (n, m),
+    POD init, and S seeds from ``ensemble.init_params`` with the preset's
+    jitter (phi by 2%), as ``ensemble.fit`` starts them, with ``over``
+    applied. (At fourier_cylinder, seeds jittered by 10% in phi and 0.2
+    decades in omega part from the plain chunk by percents of rec within 30
+    epochs, while each equals the single-seed kernel run alone bit for bit:
+    the series' near-zero gradients, which Adamax steps by +-lr on rounding,
+    amplify the rounding of the two implementations.)"""
+    cfg = dataclasses.replace(configs.get(preset), **over)
+    x = synthetic.cylinder_wake(cfg.n, cfg.m, seed=cfg.seed)
+    batch = runner.prepare_batch(x, pod.pod_host(x, cfg.r, device).modes, device)
+    if cfg.variant == "fourier":
+        spec = fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier,
+                                   cfg.period_init)
+    else:
+        spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+    params = ensemble.init_params(spec, S, seed=cfg.seed, phi_sigma=cfg.seed_phi_sigma,
+                                  omega_spread=cfg.seed_omega_spread, device=device)
+    return cfg, spec, batch, params
+
+
+@pytest.mark.parametrize("preset, S, steps", [("aneurysm", 4, 20), ("fourier_cylinder", 8, 30)])
+def test_packed_mega_kernel_matches_plain_chunk(cuda, preset, S, steps):
+    """The packed form at the ensemble cells' shapes (aneurysm S=4: n=27000,
+    m=1000, K'=108; fourier_cylinder S=8: K'=96), omega_init=1 and
+    lr_omega=1, with per-seed beta, lambda and LR scale: the
+    per-seed trace (rec, l1, total_s) to 2e-4; one epoch from the kernel's
+    state: every metric to 2e-4 (ortho plus 1e-5 absolute); each seed
+    against the single-seed kernel run alone from that seed's state, trace
+    to 2e-5 (the tolerance of tests/test_ensemble_kernel.py); two launches
+    bit-identical."""
+    cfg, spec, batch, params = _packed_problem(cuda, preset, S, omega_init=1.0, lr_omega=1.0)
+    betas = np.geomspace(1e-3, 1e-2, S).astype(np.float32)
+    lams = np.geomspace(1e-5, 1e-3, S).astype(np.float32)
+    state = ensemble.init_state(params, cfg, S, lr_scales=np.where(np.arange(S) % 2, 0.5, 1.0))
+    launches = train_chunk.fused_ensemble_chunk.launches
+    sk, mk = train_chunk.fused_ensemble_chunk(state, batch, steps, spec, cfg, betas, lams)
+    torch.cuda.synchronize()
+    assert train_chunk.fused_ensemble_chunk.launches == launches + 1
+    sp, mp = train_chunk.train_chunk_plain_packed(state, batch, steps, spec, cfg, betas, lams)
+    for key in ("rec", "l1", "total_s"):
+        assert ((mk[key] - mp[key]).abs() / mp[key].abs()).max() <= 2e-4, key
+    assert mk["total_s"].shape == (steps, S) and (mk["max_arg"] > 0).all()
+    _, mk1 = train_chunk.fused_ensemble_chunk(sk, batch, 1, spec, cfg, betas, lams)
+    _, mp1 = train_chunk.train_chunk_plain_packed(sk, batch, 1, spec, cfg, betas, lams)
+    for key in train_chunk.SEED_METRICS:
+        atol = 1e-5 if key == "ortho" else 0.0
+        assert ((mk1[key] - mp1[key]).abs() <= 2e-4 * mp1[key].abs() + atol).all(), key
+    sk2, mk2 = train_chunk.fused_ensemble_chunk(state, batch, steps, spec, cfg, betas, lams)
+    assert all(torch.equal(mk[k], mk2[k]) for k in mk)
+    assert all(torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
+    for s in range(S):
+        one_cfg = dataclasses.replace(cfg, beta=float(betas[s]), l1_lambda=float(lams[s]))
+        so, mo = train_chunk.fused_train_chunk(train_chunk.seed_view(state, s), batch, steps, spec, one_cfg)
+        assert ((mk["total_s"][:, s] - mo["total"]).abs() <= 2e-5 * mo["total"].abs() + 1e-7).all(), s
+        for key in so.params:
+            ref = so.params[key]
+            assert ((sk.params[key][s] - ref).abs() <= 1e-4 * ref.abs() + 1e-6).all(), (s, key)
+
+
+def test_packed_mega_kernel_isolates_a_diverged_seed(cuda):
+    """Seed 1's phi is NaN: its metrics are non-finite from the first epoch,
+    every other seed's stay finite."""
+    cfg, spec, batch, params = _packed_problem(cuda, "fourier_cylinder", 4, omega_init=1.0, lr_omega=1.0)
+    params["phi"][1] = float("nan")
+    state = ensemble.init_state(params, cfg, 4)
+    _, mk = train_chunk.fused_ensemble_chunk(state, batch, 3, spec, cfg)
+    for key in ("rec", "ortho", "total_s"):
+        assert not torch.isfinite(mk[key][:, 1]).any(), key
+        assert torch.isfinite(mk[key][:, [0, 2, 3]]).all(), key
+
+
+def test_packed_phase_split_and_runner_path(cuda, tmp_path):
+    """The packed form's phase split, and ``runner.run`` with n_seeds=4 at a
+    small size: one packed launch per chunk, ensemble.json and
+    term_stability.json written."""
+    pcfg, spec, batch, params = _packed_problem(cuda, "fourier_cylinder", 8)
+    split = train_chunk.phase_split(ensemble.init_state(params, pcfg, 8), batch, 50, spec, pcfg)
+    assert list(split) == list(train_chunk.FOURIER_PHASES) and all(v > 0 for v in split.values())
+    cfg = dataclasses.replace(configs.get("aneurysm"), checkpoint_every=100, n_seeds=4)
+    x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
+    dual_gemm.dual_contractions.launches = train_chunk.fused_ensemble_chunk.launches = 0
+    art = runner.run(cfg, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda)
+    assert train_chunk.fused_ensemble_chunk.launches == 3 and dual_gemm.dual_contractions.launches == 0
+    assert np.isfinite(art.history["total"]).all() and len(art.history["total"]) == 300
+    files = set(tmp_path.joinpath(cfg.name).iterdir())
+    assert {tmp_path / cfg.name / "ensemble.json", tmp_path / cfg.name / "term_stability.json"} <= files

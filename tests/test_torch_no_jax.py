@@ -31,6 +31,7 @@ MODULES = [
     "desmo_tpu_torch.configs",
     "desmo_tpu_torch.data",
     "desmo_tpu_torch.device",
+    "desmo_tpu_torch.ensemble",
     "desmo_tpu_torch.io.native",
     "desmo_tpu_torch.io.synthetic",
     "desmo_tpu_torch.io.vtk",
@@ -114,9 +115,16 @@ def test_cli_run_fourier_without_jax(tmp_path, chunk_method):
     assert {"period_list.0", "trig_period_list.0"} <= set(sd) and sd["z_list.0"].shape == (21,)
 
 
-def _cli_run(tmp_path, chunk_method, preset="cylinder", r=4):
+def test_cli_run_seeds_without_jax(tmp_path):
+    """Two packed seeds of the cylinder preset at full width on the CPU (the
+    packed eager loop); the run writes ensemble.json."""
+    out_dir = _cli_run(tmp_path, None, extra=["--seeds", "2"])
+    assert "ensemble.json" in os.listdir(out_dir)
+
+
+def _cli_run(tmp_path, chunk_method, preset="cylinder", r=4, extra=()):
     out_dir = tmp_path / "runs"
-    extra = [] if chunk_method is None else ["--chunk-method", chunk_method]
+    extra = list(extra) + ([] if chunk_method is None else ["--chunk-method", chunk_method])
     code = (
         "import runpy\n"
         f"sys.argv = ['desmo_tpu_torch', 'run', '--preset', {preset!r}, '--synthetic', "

@@ -125,7 +125,8 @@ def test_state_dict_matches_jax_key_scheme(tmp_path):
         ({"run_greedy_prune": True}, "queue 1, item 3"),
         ({"variant": "ae"}, "queue 1, item 7"),
         ({"variant": "fourier", "n_fourier": 3, "period_init": 20.0, "period_multistart": 4}, "queue 1, item 5b"),
-        ({"n_seeds": 2}, "queue 1, item 6"),
+        # a seed-packed run refuses what one seed refuses
+        ({"n_seeds": 2, "variant": "ae"}, "queue 1, item 7"),
         ({"pod_method": "snapshots"}, "queue 1, item 9"),
     ],
 )
@@ -134,6 +135,21 @@ def test_unsupported_configs_raise(tmp_path, override, item):
     x = synthetic.cylinder_wake(40, 20)
     with pytest.raises(NotImplementedError, match=item):
         runner.run(cfg, x, out_dir=str(tmp_path), device="cpu")
+
+
+def test_n_seeds_runs_the_packed_ensemble(tmp_path):
+    """``n_seeds=2``, which the port refused before it had the ensemble, now
+    trains two packed seeds and writes ``ensemble.json`` beside the best
+    seed's exports."""
+    import json
+
+    cfg = dataclasses.replace(_slice_cfg(), n_seeds=2, num_epochs=4, checkpoint_every=2)
+    art = runner.run(cfg, synthetic.cylinder_wake(40, 20), out_dir=str(tmp_path), echo=False, device="cpu")
+    with open(os.path.join(art.out_dir, "ensemble.json")) as fh:
+        record = json.load(fh)
+    assert record["n_seeds"] == 2 and len(record["final_totals"]) == 2 and record["best_seed"] in (0, 1)
+    assert art.state.params["phi"].shape == (2, 40) and len(art.history["total"]) == 4
+    assert {"state_epoch2.npz", "state_final.npz", "cylinder_r2_final.pt"} <= set(os.listdir(art.out_dir))
 
 
 def test_holdout_raises(tmp_path):

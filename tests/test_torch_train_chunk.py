@@ -445,22 +445,20 @@ def kernel_arrays(cs):
     return {"phi": cs.phi, **temporal, "coef": cs.coef, "omega": cs.omega, "svec": cs.svec}
 
 
-def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid):
-    """One chunk of the CUDA source on an emulated grid of ``grid`` blocks;
-    returns the state arrays in the kernel layout and the metrics rows, by
-    name."""
-    cs = train_chunk.pack(state)
+def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid, betas=None, lams=None):
+    """One chunk of the CUDA source on an emulated grid of ``grid`` blocks,
+    from a stacked state of S seeds; returns the state arrays in the kernel
+    layout and the metrics rows (steps, S, 5), by name."""
+    S = state.params["phi"].shape[0]
+    cs = train_chunk.pack_seeds(state, *train_chunk.seed_hypers(cfg, S, betas, lams))
     x = batch["x"].numpy()
     n, m = x.shape
-    r, P, T = spec.r, spec.poly_order, spec.num_poly_terms
+    r, P, K = spec.r, spec.poly_order, spec.num_poly_terms + 3 * spec.r
     nf = train_chunk.n_fourier(spec, cfg)
-    header = np.array([n, m, r, P, T, nf, steps, cfg.sched_every, grid], np.int32)
-    floats = np.array(
-        [cfg.beta, cfg.l1_lambda, cfg.patience, cfg.sched_factor, cfg.sched_min_lr, float(batch["x_sq"])],
-        np.float32,
-    )
+    header = np.array([n, m, r, P, K, S, nf, steps, cfg.sched_every, grid], np.int32)
+    floats = np.array([cfg.patience, cfg.sched_factor, cfg.sched_min_lr, float(batch["x_sq"])], np.float32)
     state_arrays = {k: v.numpy() for k, v in kernel_arrays(cs).items()}
-    arrays = [batch["pod_modes"].numpy(), x, spec.factor_table().astype(np.int32), state_arrays["phi"]]
+    arrays = [batch["pod_modes"].numpy(), x, train_chunk.column_table(spec, S), state_arrays["phi"]]
     if nf:
         arrays.append(fourier.t_points(m))
     arrays += [v for k, v in state_arrays.items() if k != "phi"]
@@ -470,20 +468,24 @@ def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = np.fromfile(dst, np.float32)
     shapes = {k: v.shape for k, v in state_arrays.items()}
-    shapes["metrics"] = (steps, len(train_chunk.METRICS))
+    shapes["metrics"] = (steps, S, len(train_chunk.METRICS))
     sizes = [int(np.prod(s)) for s in shapes.values()]
     assert out.size == sum(sizes)
     parts = np.split(out, np.cumsum(sizes)[:-1])
     return {k: p.reshape(s) for (k, s), p in zip(shapes.items(), parts)}
 
 
-def assert_emulated_matches_plain(got, state, batch, steps, spec, cfg):
-    """The emulated grid's arrays against the plain chunk's: the same fp32
-    arithmetic in another summation order, held to 2e-6 of each array's
-    largest entry (each metric on its own scale)."""
-    ref_state, ref_m = train_chunk.train_chunk_plain(state, batch, steps, spec, cfg)
-    want = {k: v.numpy() for k, v in kernel_arrays(train_chunk.pack(ref_state)).items()}
-    want["metrics"] = torch.stack([ref_m[k] for k in train_chunk.METRICS], dim=1).numpy()
+def assert_emulated_matches_plain(got, state, batch, steps, spec, cfg, betas=None, lams=None):
+    """The emulated grid's arrays against the plain packed chunk's from the
+    same stacked state: the same fp32 arithmetic in another summation order,
+    held to 2e-6 of each array's largest entry (each metric of each seed on
+    its own scale)."""
+    S = state.params["phi"].shape[0]
+    hypers = train_chunk.seed_hypers(cfg, S, betas, lams)
+    ref_state, ref_m = train_chunk.train_chunk_plain_packed(state, batch, steps, spec, cfg, *hypers)
+    want = {k: v.numpy() for k, v in kernel_arrays(train_chunk.pack_seeds(ref_state, *hypers)).items()}
+    per_seed = [ref_m[k] for k in train_chunk.SEED_METRICS] + [ref_m["max_arg"][:, None].expand(steps, S)]
+    want["metrics"] = torch.stack(per_seed, dim=2).numpy()
     assert list(got) == list(want)
     for name, g in got.items():
         assert np.isfinite(g).all(), name
@@ -521,10 +523,11 @@ def test_cuda_source_on_emulated_grid(emulated_train_chunk, tmp_path, n, m, r, P
     state = train.init_state(params, cfg)
     if patience == 1:  # a best no epoch beats: the scheduler drops the LRs within the chunk
         state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0))
+    state = train_chunk.stack_seed(state)
     got = run_emulated(emulated_train_chunk, tmp_path, state, batch, steps, spec, cfg, grid=4)
     assert_emulated_matches_plain(got, state, batch, steps, spec, cfg)
     if patience == 1:
-        assert got["svec"][0] < cfg.lr_coef  # the scheduler dropped the LRs
+        assert got["svec"][0, 0] < cfg.lr_coef  # the scheduler dropped the LRs
 
 
 @pytest.mark.parametrize(
@@ -560,7 +563,8 @@ def test_fourier_cuda_source_on_emulated_grid(
     state = train.init_state(params, cfg)
     if patience == 1:  # a best no epoch beats: the scheduler drops the LRs within the chunk
         state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0))
+    state = train_chunk.stack_seed(state)
     got = run_emulated(emulated_train_chunk, tmp_path, state, batch, steps, spec, cfg, grid=4)
     assert_emulated_matches_plain(got, state, batch, steps, spec, cfg)
     if patience == 1:
-        assert got["svec"][4] < cfg.lr_period  # the period LR dropped with the others
+        assert got["svec"][0, 4] < cfg.lr_period  # the period LR dropped with the others
