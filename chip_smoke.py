@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from the sources in this checkout (one
+Builds the port's three CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, started together), holds each against its plain PyTorch
-version at the main paths' shapes, and drives the training paths of three
+version at the main paths' shapes, and drives the training paths of four
 presets at full width on synthetic data through ``runner.run``:
 
 - cylinder (n=3961, m=1001, r=4, P=3): the eager loop
@@ -21,10 +21,15 @@ presets at full width on synthetic data through ``runner.run``:
   (``chunk_method="scan"``, the dual-contraction kernel at the packed width
   K'=108), 100 epochs, and as configured through the packed mega-kernel,
   10,000 epochs; fourier_cylinder with 8 seeds (K'=96) as configured
-  through the packed mega-kernel's Fourier form, 10,000 epochs.
+  through the packed mega-kernel's Fourier form, 10,000 epochs;
+- ae_cylinder (n=3961, m=1001, r=2, P=2, ae_beta=1e-3): as configured
+  (``chunk_method="auto"``: the eager loop, its loss through the
+  dual-contraction kernel), 100 epochs, and with ``chunk_method="megakernel"``
+  through the AE kernel, one launch per 2,000-epoch chunk, 10,000 epochs.
 
 Each path runs with every launch count set to 0 just before it and read just
-after. Then it times each kernel (the mega-kernel in its four forms)
+after. Then it times each kernel (the mega-kernel in its four forms, the AE
+kernel)
 against its plain version in turns, beside its bound, and splits the
 mega-kernel's time by phase with the kernel's own clock; the packed forms
 beside the single-seed kernel at the same preset. Each phase prints its lines; any
@@ -52,6 +57,7 @@ SLICE_EPOCHS = 10_000
 PARITY_STEPS = 200
 STATE_STEPS = 30
 TIMED_STEPS = 50
+AE_EAGER_EPOCHS = 100
 # kernel vs plain: fp32 FMA against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
 GRAD_RTOL = 2e-4
@@ -107,6 +113,20 @@ def chunk_flops(n: int, m: int, k: int, nf: int = 0, seeds: int = 1) -> float:
             + 20 * kp * m * nf)
 
 
+def ae_flops(n: int, m: int, k: int) -> float:
+    """Operations of one epoch of the AE kernel (r=2, the reference funnel,
+    K = k dictionary columns): the four products with X (X·W0, X·V6ᵀ, D6ᵀX,
+    Xᵀ·dpre1), 2nm·256 each; the narrow layers (256->...->2 and 2->...->256,
+    84,304 weights a row) forward, backward and for their weight gradients,
+    3 · 2n · 84,304; the symmetric D6ᵀD6 (n·256·257) and D6·VV (2n·256²);
+    the symmetric V6V6ᵀ (m·256·257) and S_dd·V6 (2·256²·m); the dictionary's
+    X·Bᵀ and AᵀX (2nmK each), A·gb (2nK²) and the symmetric Grams AᵀA and
+    BBᵀ (nK(K+1) and mK(K+1))."""
+    narrow = 84_304
+    return (4 * 2 * n * m * 256 + 3 * 2 * n * narrow + n * 256 * 257 + 2 * n * 256 * 256 + m * 256 * 257
+            + 2 * 256 * 256 * m + 4 * n * m * k + 2 * n * k * k + n * k * (k + 1) + m * k * (k + 1))
+
+
 def reset_launches(*counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -120,8 +140,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device", file=sys.stderr)
         return 1
     from desmo_tpu_torch import configs, device as device_mod, ensemble, losses, pod, runner, train
-    from desmo_tpu_torch.kernels import _build, dual_gemm, train_chunk
-    from desmo_tpu_torch.models import desmo, fourier
+    from desmo_tpu_torch.kernels import _build, ae_chunk, dual_gemm, train_chunk
+    from desmo_tpu_torch.models import autoencoder, desmo, fourier
 
     # 1. the card
     dev = device_mod.resolve("cuda")
@@ -134,9 +154,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(dev)
     print(f"[1 card] {kind} | nvidia-smi: {card} | torch {torch.__version__} CUDA {torch.version.cuda}")
 
-    # 2. build both kernels from this checkout's sources, one nvcc each, at once
+    # 2. build the kernels from this checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
-    names = ("dual_gemm", "train_chunk")
+    names = ("dual_gemm", "train_chunk", "ae_chunk")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
     for name in libs:
@@ -147,14 +167,16 @@ def main() -> int:
                   if "Used" in ln or "spill" in ln]
         print(f"[2 ptxas] {name}: {' | '.join(report)}")
 
-    counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk)
+    counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk,
+                ae_chunk.fused_ae_chunk)
 
     # 3. the dual contraction against its plain version at the main path's shapes
     gen = torch.Generator().manual_seed(0)
     errs = {}
     # the cylinder's width; the packed widths of the ensemble's eager loss at
-    # aneurysm S=4 (K'=108) and fourier_cylinder S=8 (K'=96)
-    for n, m, k in ((3961, 1001, 47), (700, 333, 50), (27000, 1000, 108), (3961, 1001, 96)):
+    # aneurysm S=4 (K'=108) and fourier_cylinder S=8 (K'=96); the eager loss
+    # of fourier_cylinder and ae_cylinder (K=12, the KP=16 build)
+    for n, m, k in ((3961, 1001, 47), (700, 333, 50), (27000, 1000, 108), (3961, 1001, 96), (3961, 1001, 12)):
         a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
         ax, xb = dual_gemm.dual_contractions(a, b, x)
         torch.cuda.synchronize()
@@ -169,22 +191,25 @@ def main() -> int:
         errs[(n, m, k)] = max(float((ax - pax).abs().max()), float((xb - pxb).abs().max()))
         print(f"[3 dual] (n, m, K)={(n, m, k)}: max|err|/max|ref| ax {e_ax:.2e}, xb {e_xb:.2e} "
               f"(limit {CONTRACTION_RTOL:.0e}); repeat launch bit-identical")
-    cyl = (3961, 1001, 47)
-    a, b, x = (torch.randn(shape, generator=gen).to(dev) * s
-               for shape, s in (((cyl[0], cyl[2]), 0.3), ((cyl[2], cyl[1]), 0.3), ((cyl[0], cyl[1]), 1.0)))
-    grads = []
-    for fn in (lambda a_, b_: dual_gemm.factored_mse_fused(a_, b_, x, torch.sum(x * x)),
-               lambda a_, b_: losses.factored_mse(a_, b_, x)):
-        a_, b_ = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
-        val = fn(a_, b_)
-        grads.append((val.detach(),) + torch.autograd.grad(val, (a_, b_)))
-        torch.cuda.synchronize()
-    e_val = abs(float(grads[0][0] - grads[1][0])) / abs(float(grads[1][0]))
-    e_da, e_db = rel_err(grads[0][1], grads[1][1]), rel_err(grads[0][2], grads[1][2])
-    check(e_val <= 1e-4 and e_da <= GRAD_RTOL and e_db <= GRAD_RTOL,
-          f"FactoredMSEFused vs autograd of factored_mse: value {e_val:.2e}, dA {e_da:.2e}, dB {e_db:.2e}")
-    print(f"[3 grad] FactoredMSEFused vs autograd(factored_mse) at {cyl}: value {e_val:.2e}, "
-          f"dA {e_da:.2e}, dB {e_db:.2e} (limit {GRAD_RTOL:.0e} of max|g|)")
+    cyl, k12 = (3961, 1001, 47), (3961, 1001, 12)
+    for shape3 in (cyl, k12):
+        a, b, x = (torch.randn(shape, generator=gen).to(dev) * s
+                   for shape, s in (((shape3[0], shape3[2]), 0.3), ((shape3[2], shape3[1]), 0.3),
+                                    ((shape3[0], shape3[1]), 1.0)))
+        grads = []
+        for fn in (lambda a_, b_: dual_gemm.factored_mse_fused(a_, b_, x, torch.sum(x * x)),
+                   lambda a_, b_: losses.factored_mse(a_, b_, x)):
+            a_, b_ = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            val = fn(a_, b_)
+            grads.append((val.detach(),) + torch.autograd.grad(val, (a_, b_)))
+            torch.cuda.synchronize()
+        e_val = abs(float(grads[0][0] - grads[1][0])) / abs(float(grads[1][0]))
+        e_da, e_db = rel_err(grads[0][1], grads[1][1]), rel_err(grads[0][2], grads[1][2])
+        check(e_val <= 1e-4 and e_da <= GRAD_RTOL and e_db <= GRAD_RTOL,
+              f"FactoredMSEFused vs autograd of factored_mse at {shape3}: value {e_val:.2e}, dA {e_da:.2e}, "
+              f"dB {e_db:.2e}")
+        print(f"[3 grad] FactoredMSEFused vs autograd(factored_mse) at {shape3}: value {e_val:.2e}, "
+              f"dA {e_da:.2e}, dB {e_db:.2e} (limit {GRAD_RTOL:.0e} of max|g|)")
 
     preset = configs.get("cylinder")
     x_np, _ = runner.load_data(preset, synthetic=True)
@@ -285,6 +310,35 @@ def main() -> int:
               f"seed-steps/s over epochs 51-{PACKED_EAGER_EPOCHS}; best seed {record['best_seed']}, rec "
               f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; dual kernel launches {packed_dual_launches} = loss "
               "evaluations, mega-kernel 0")
+
+    # 4a. the AE preset as configured: chunk_method="auto" keeps the eager
+    # loop for the AE variant, its loss through the dual kernel at K=12
+    aepreset = configs.get("ae_cylinder")
+    aex_np, _ = runner.load_data(aepreset, synthetic=True)
+    ae_eager_cfg = dataclasses.replace(aepreset, checkpoint_every=50, log_every=50)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        art = runner.run(ae_eager_cfg, aex_np, out_dir=tmp, num_epochs=AE_EAGER_EPOCHS, echo=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ae_dual_launches = dual_gemm.dual_contractions.launches
+        hist = art.history
+        check(set(hist) == {"rec", "ortho", "l1", "ae", "total"}, f"AE eager history keys {sorted(hist)}")
+        check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (AE_EAGER_EPOCHS,) for k in hist),
+              "AE eager history")
+        check(hist["rec"][-1] < hist["rec"][0], f"AE eager rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+        check(ae_dual_launches == AE_EAGER_EPOCHS,
+              f"dual kernel launched {ae_dual_launches} times in {AE_EAGER_EPOCHS} AE loss evaluations")
+        check(ae_chunk.fused_ae_chunk.launches == train_chunk.fused_train_chunk.launches == 0,
+              "the AE eager path launched a chunk kernel")
+        check("ae_cylinder_r2_final.pt" in os.listdir(art.out_dir), "AE eager export")
+        ae_eager_sps = art.steps_per_sec
+        print(f"[4a eager] ae_cylinder n={art.config.n} m={art.config.m} r={aepreset.r} P={aepreset.poly_order} "
+              f"as configured (chunk_method=auto: the eager loop): {AE_EAGER_EPOCHS} epochs in {wall:.1f} s, "
+              f"{ae_eager_sps:.1f} steps/s over epochs 51-{AE_EAGER_EPOCHS}; rec {hist['rec'][0]:.6e} -> "
+              f"{hist['rec'][-1]:.6e}, ae {hist['ae'][0]:.6e} -> {hist['ae'][-1]:.6e}; dual kernel launches "
+              f"{ae_dual_launches} = loss evaluations, AE kernel 0")
 
     # 5. the mega-kernel against the plain chunk at full width
     pod_modes = pod.pod_host(x_np, preset.r, dev).modes
@@ -516,6 +570,55 @@ def main() -> int:
         check(e_hyper <= 2e-4, f"{tag}: per-seed hypers vs plain beyond 2e-4: {e_hyper}")
         check(isolated, f"{tag}: a poisoned seed reached another seed's metrics")
 
+    # 5a. the AE kernel against its plain chunk at ae_cylinder's full width,
+    # from the live init (the reference init's decoder is dead: every MLP
+    # weight's gradient is 0.0), omega_init=1 and tame LRs (at 1e4 a 1-ulp
+    # latent difference flips the signs of sin)
+    ae_batch = runner.prepare_batch(aex_np, None, dev)
+    aeK = autoencoder.AESpec(aepreset.n, aepreset.m, aepreset.r, aepreset.poly_order).num_poly_terms + 3 * aepreset.r
+
+    def ae_start(cfg, live=True):
+        spec = autoencoder.AESpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+        init = autoencoder.init_params_live if live else autoencoder.init_params
+        return spec, train.init_state(init(spec, seed=cfg.seed, device=dev), cfg)
+
+    ae_unit = dataclasses.replace(aepreset, omega_init=1.0, lr_coef=1e-3, lr_z=1e-3, lr_omega=1e-2)
+    aspec, ast = ae_start(ae_unit)
+    sk, mk = ae_chunk.fused_ae_chunk(ast, ae_batch, STATE_STEPS, aspec, ae_unit)
+    torch.cuda.synchronize()
+    sp, mp = ae_chunk.ae_chunk_plain(ast, ae_batch, STATE_STEPS, aspec, ae_unit)
+    sk2, mk2 = ae_chunk.fused_ae_chunk(ast, ae_batch, STATE_STEPS, aspec, ae_unit)
+    torch.cuda.synchronize()
+    ae_identical = all(torch.equal(mk[k], mk2[k]) for k in mk) and all(
+        torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
+    ae_trace = {k: trace_rel(mk, mp, k, STATE_STEPS) for k in ae_chunk.METRICS}
+    ae_params = max(rel_err(sk.params[k], sp.params[k]) for k in sk.params)
+    print(f"[5a unit] AE kernel vs plain chunk, live init, omega_init=1, {STATE_STEPS} epochs at (n, m, K)="
+          f"({aepreset.n}, {aepreset.m}, {aeK}): trace " + ", ".join(f"{k} {v:.2e}" for k, v in ae_trace.items())
+          + f"; params {ae_params:.2e} of max|param|; two launches bit-identical {ae_identical}")
+    print("[5a unit] metrics over the epochs, kernel: " + "; ".join(
+        f"{k} " + " ".join(f"{v:.6e}" for v in mk[k][::6].tolist()) for k in ("rec", "ae", "total")))
+    sk1, mk1 = ae_chunk.fused_ae_chunk(sk, ae_batch, 1, aspec, ae_unit)
+    sp1, mp1 = ae_chunk.ae_chunk_plain(sk, ae_batch, 1, aspec, ae_unit)
+    ae_one = {k: ((mk1[k] - mp1[k]).abs() / mp1[k].abs()).item() for k in ae_chunk.METRICS}
+    ae_one_params = {k: rel_err(sk1.params[k], sp1.params[k]) for k in sk1.params}
+    ae_max_abs = max(float((sk1.params[k] - sp1.params[k]).abs().max()) for k in sk1.params)
+    worst = sorted(ae_one_params.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[5a unit] one epoch from the kernel's state after {STATE_STEPS}, kernel vs plain: metrics "
+          + ", ".join(f"{k} {v:.2e}" for k, v in ae_one.items()) + " (limit 2e-4); params: largest "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst) + " of max|param| (limit 1e-5)")
+    aspec_p, ast_p = ae_start(aepreset, live=False)
+    _, mkp = ae_chunk.fused_ae_chunk(ast_p, ae_batch, 3, aspec_p, aepreset)
+    _, mpp = ae_chunk.ae_chunk_plain(ast_p, ae_batch, 3, aspec_p, aepreset)
+    ae_e0, ae_e3 = trace_rel(mkp, mpp, "total", 1), trace_rel(mkp, mpp, "total", 3)
+    print(f"[5a preset] AE kernel vs plain chunk, the preset's init and omega_init=1e4: total at epoch 0 "
+          f"{ae_e0:.2e}, over epochs 0-2 {ae_e3:.2e} (unchecked: at 1e4 a 1-ulp latent difference flips the "
+          "signs of sin)")
+    check(ae_identical, "two AE kernel launches from the same state differ")
+    check(max(ae_one.values()) <= 2e-4, f"AE kernel metrics of one state vs plain beyond 2e-4: {ae_one}")
+    check(max(ae_one_params.values()) <= 1e-5, f"AE params of one epoch from one state beyond 1e-5: {worst}")
+    check(max(ae_trace.values()) <= 5e-4, f"AE kernel trace vs plain beyond 5e-4: {ae_trace}")
+
     # 6. the slice: the preset as configured, through the mega-kernel
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches(*counters)
@@ -612,6 +715,40 @@ def main() -> int:
                   f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; relative error {art.relative_error:.6f}, POD(r) "
                   f"{art.pod_error_r:.6f}; packed mega-kernel launches {launches} = chunks, other kernels 0")
 
+    # 6a. the AE slice: runner.run on ae_cylinder through the AE kernel, one
+    # launch per 2,000-epoch chunk
+    ae_slice_cfg = dataclasses.replace(aepreset, chunk_method="megakernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches(*counters)
+        t0 = time.perf_counter()
+        art = runner.run(ae_slice_cfg, aex_np, out_dir=tmp, num_epochs=SLICE_EPOCHS, echo=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ae_launches = ae_chunk.fused_ae_chunk.launches
+        hist = art.history
+        n_chunks = SLICE_EPOCHS // aepreset.checkpoint_every
+        check(set(hist) == {"rec", "ortho", "l1", "total", "ae"}, f"AE slice history keys {sorted(hist)}")
+        check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (SLICE_EPOCHS,) for k in hist),
+              "AE slice history")
+        check(hist["rec"][-1] < hist["rec"][0], f"AE slice rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+        check(ae_launches == n_chunks, f"AE kernel launched {ae_launches} times for {n_chunks} chunks")
+        check(sum(fn.launches for fn in counters) == ae_launches, "the AE kernel path launched another kernel")
+        files = set(os.listdir(art.out_dir))
+        want = {"ae_cylinder_r2_final.pt", "state_final.npz"} | {
+            f"state_epoch{e}.npz" for e in range(aepreset.checkpoint_every, SLICE_EPOCHS + 1, aepreset.checkpoint_every)}
+        check(want <= files, f"missing AE exports in {sorted(files)}")
+        sd = torch.load(os.path.join(art.out_dir, "ae_cylinder_r2_final.pt"), weights_only=True)
+        check(autoencoder.is_ae_state_dict(sd) and tuple(sd["temporal_ae.encoder.0.weight"].shape) == (256, 1001),
+              "AE export keys")
+        check(np.isfinite(art.relative_error) and len(art.sweep) == 14, "AE slice error/sweep")
+        ae_slice_sps = art.steps_per_sec
+        print(f"[6a slice] ae_cylinder with chunk_method=megakernel: {SLICE_EPOCHS} epochs in {wall:.1f} s "
+              f"(POD, sweep and exports included), {ae_slice_sps:.1f} steps/s over chunks 2-{n_chunks}; rec "
+              f"{hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}, ae {hist['ae'][0]:.6e} -> {hist['ae'][-1]:.6e}; "
+              f"relative error {art.relative_error:.6f}, POD(2) {art.pod_error_r:.6f}, POD(4) "
+              f"{art.pod_error_2r:.6f}; sweep {len(art.sweep)} rows; AE kernel launches {ae_launches} = chunks, "
+              "other kernels 0")
+
     # 7. times on the card, each kernel and its plain version in turns
     a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((cyl[0], cyl[2]), (cyl[2], cyl[1]), cyl[:2]))
     kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
@@ -635,6 +772,17 @@ def main() -> int:
     print(f"[7 time] {card}: dual_contractions at the packed eager loss' (n, m, K')={aneurysm_dual}: kernel "
           f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (50 calls each, in "
           f"turns); bound {packed_dual_bound * 1e3:.1f} us ({packed_dual_by})")
+
+    n, m, k = k12
+    a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
+    kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
+    plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
+    k1, p1, p2, k2 = (time_ms(f, 200) for f in (kernel, plain, plain, kernel))
+    k12_dual_ms, k12_dual_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    k12_dual_bound, k12_dual_by = bound_ms(2 * (2 * n * m * k), 4 * (2 * n * k + 2 * k * m + n * m))
+    print(f"[7 time] {card}: dual_contractions at the fourier_cylinder and ae_cylinder eager losses' (n, m, K)={k12}: "
+          f"kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (200 calls "
+          f"each, in turns); bound {k12_dual_bound * 1e3:.1f} us ({k12_dual_by})")
     n, m, k = cyl
 
     spec, st = start(preset)
@@ -736,6 +884,36 @@ def main() -> int:
                   + ", ".join(f"{k} {v * 1e6 / E:.1f} us/epoch ({v / sp_total:.1%})"
                               for k, v in sp.items() if k != "prologue"))
 
+    # 7a. the AE kernel: its plain version in turns over TIMED_STEPS-epoch
+    # chunks, a 2,000-epoch chunk, the eager step and the phase split
+    aspec, ast = ae_start(aepreset, live=False)
+    kernel = lambda: ae_chunk.fused_ae_chunk(ast, ae_batch, TIMED_STEPS, aspec, aepreset)  # noqa: E731
+    plain = lambda: ae_chunk.ae_chunk_plain(ast, ae_batch, TIMED_STEPS, aspec, aepreset)  # noqa: E731
+    k1, p1, p2, k2 = (time_ms(f, 2) for f in (kernel, plain, plain, kernel))
+    ae_ms, ae_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    E = aepreset.checkpoint_every
+    ae_long_ms = time_ms(lambda: ae_chunk.fused_ae_chunk(ast, ae_batch, E, aspec, aepreset), 1)
+    ae_split = ae_chunk.phase_split(ast, ae_batch, E, aspec, aepreset)
+    n, m = aepreset.n, aepreset.m
+    mlp = ae_chunk.mlp_size(m)
+    ae_state_bytes = 4 * 2 * (3 * mlp + 3 * aeK * m + 3 * aeK + 18 + train_chunk.SVEC)
+    ae_bytes = 4 * (n * m + m + TIMED_STEPS * len(ae_chunk.METRICS)) + ae_state_bytes
+    ae_bound, ae_by = bound_ms(TIMED_STEPS * ae_flops(n, m, aeK), ae_bytes)
+    ae_loss = autoencoder.build_loss(aspec, aepreset.beta, aepreset.l1_lambda, aepreset.ae_beta, method="fused")
+    ae_eager = train.make_train_chunk(ae_loss, autoencoder.param_groups(ast.params), aepreset)
+    ae_eager_ms = time_ms(lambda: ae_eager(ast, ae_batch, TIMED_STEPS), 1) / TIMED_STEPS
+    print(f"[7a time] {card}: AE kernel at (n, m, K)=({n}, {m}, {aeK}): {ae_long_ms * 1e3 / E:.1f} us/epoch over a "
+          f"{E}-epoch chunk; over {TIMED_STEPS}-epoch chunks in turns: kernel {k1 * per_epoch:.1f}/{k2 * per_epoch:.1f} "
+          f"us/epoch, plain chunk {p1 * per_epoch:.1f}/{p2 * per_epoch:.1f} us/epoch; eager step "
+          f"{ae_eager_ms * 1e3:.1f} us; bound {ae_bound * per_epoch:.1f} us/epoch ({ae_by}, "
+          f"{ae_flops(n, m, aeK) / 1e9:.2f} GFLOP an epoch); slice {ae_slice_sps:.1f} steps/s, eager path "
+          f"{ae_eager_sps:.1f} steps/s")
+    ae_split_total = sum(ae_split.values())
+    print(f"[7a split] {card}: AE kernel over a {E}-epoch chunk (kernel clock, block 0): prologue "
+          f"{ae_split['prologue'] * 1e6:.1f} us once; "
+          + ", ".join(f"{k} {v * 1e6 / E:.1f} us/epoch ({v / ae_split_total:.1%})"
+                      for k, v in ae_split.items() if k != "prologue"))
+
     # 8. the records
     print(json.dumps({"kernels": [
         {
@@ -794,6 +972,24 @@ def main() -> int:
         {
             "name": name,
             "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/dual_gemm.cu",
+            "replaces": "desmo_tpu/pallas/dual_gemm.py:71",
+            "launches": launches,
+            "max_abs_err": errs[k12],
+            "ms": k12_dual_ms,
+            "plain_ms": k12_dual_plain_ms,
+            "bound_ms": k12_dual_bound,
+            "bound_by": k12_dual_by,
+            "library_ms": None,
+        }
+        for name, launches in (
+            ("dual_contractions (Fourier eager loss, K=12)", dual_launches_f),
+            ("dual_contractions (AE eager loss, K=12)", ae_dual_launches),
+        )
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
             "source": "desmo_tpu_torch/csrc/train_chunk.cu",
             "replaces": "desmo_tpu/pallas/train_chunk.py:356 (n_seeds>1, make_fused_ensemble_chunk :1801)",
             "launches": ensemble_runs[run]["launches"],
@@ -805,6 +1001,20 @@ def main() -> int:
             ("fused_ensemble_chunk (aneurysm, 4 seeds)", "6e", "5e", "7e"),
             ("fused_ensemble_chunk (Fourier form, fourier_cylinder, 8 seeds)", "6ef", "5ef", "7ef"),
         )
+    ] + [
+        {
+            "name": "fused_ae_chunk",
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/ae_chunk.cu",
+            "replaces": "desmo_tpu/pallas/ae_chunk.py:170",
+            "launches": ae_launches,
+            "max_abs_err": ae_max_abs,
+            "ms": ae_ms,
+            "plain_ms": ae_plain_ms,
+            "bound_ms": ae_bound,
+            "bound_by": ae_by,
+            "library_ms": None,
+        },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,8 +2,9 @@
 
 Trains the DESMO model (learnable masks on POD modes, a polynomial +
 sin/cos/tanh candidate library, free temporal coefficients, factored MSE +
-orthogonality + L1) and its Fourier variant (temporal coefficients as
-learnable truncated Fourier series) on one NVIDIA GPU. The JAX package ``desmo_tpu`` stays the
+orthogonality + L1), its Fourier variant (temporal coefficients as
+learnable truncated Fourier series) and its autoencoder variant (the latent
+modes from an MLP funnel over each point's time series) on one NVIDIA GPU. The JAX package ``desmo_tpu`` stays the
 reference: every module here mirrors its counterpart's names and is held
 against it by ``tests/test_torch_*.py``.
 
@@ -16,9 +17,10 @@ Modules
 - ``library``     candidate-term factor tables (term order is a checkpoint contract)
 - ``losses``      reconstruction / orthogonality / sparsity objectives
 - ``kernels``     hand-written CUDA kernels and their plain PyTorch versions:
-  ``train_chunk`` (a whole training chunk per launch) and ``dual_gemm``
-- ``models``      the DESMO model (``models.desmo``) and its Fourier variant
-  (``models.fourier``)
+  ``train_chunk`` (a whole training chunk per launch), ``ae_chunk`` (the
+  same for the AE variant) and ``dual_gemm``
+- ``models``      the DESMO model (``models.desmo``), its Fourier variant
+  (``models.fourier``) and its AE variant (``models.autoencoder``)
 - ``pod``         host POD initialization
 - ``optim``       torch-semantics Adamax + ReduceLROnPlateau on tensor state
 - ``train``       the chunked training loop (eager, or the mega-kernel's chunk)

@@ -7,6 +7,8 @@
     python -m desmo_tpu_torch run --preset fourier_cylinder --synthetic --epochs 2000
     python -m desmo_tpu_torch run --preset aneurysm --synthetic --seeds 4
     python -m desmo_tpu_torch run --preset cylinder --synthetic --sweep-beta 1e-3,1e-2
+    python -m desmo_tpu_torch run --preset ae_cylinder --synthetic --chunk-method megakernel
+    python -m desmo_tpu_torch run --preset ae_cylinder --synthetic --ae-recipe
 
 ``run`` trains on the GPU by default and raises when there is none; the plain
 PyTorch path runs only with ``--device cpu``. ``--chunk-method`` sets the
@@ -14,7 +16,10 @@ preset's ``chunk_method``: ``auto`` runs the mega-kernel on a GPU and the
 eager loop on the CPU. ``--seeds S`` trains S seed-packed models at once
 and keeps the best (the packed mega-kernel on a GPU); ``--sweep-beta``,
 ``--sweep-lam`` and ``--sweep-lr-scale`` give the seeds a grid of
-(beta, lambda, LR scale), whose size is the default ``--seeds``.
+(beta, lambda, LR scale), whose size is the default ``--seeds``. The AE
+variant keeps the JAX package's policy: ``auto`` is the eager loop, and
+``--chunk-method megakernel`` takes its kernel; ``--ae-recipe`` and
+``--ae-data-omega`` turn on its convergence recipe.
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ def cmd_run(args) -> int:
         overrides["num_epochs"] = args.epochs
     if args.chunk_method is not None:
         overrides["chunk_method"] = args.chunk_method
+    if args.ae_data_omega:
+        overrides["ae_omega_data_scaled"] = True
+    if args.ae_recipe:
+        overrides["ae_recipe"] = True
     if args.seeds:
         overrides["n_seeds"] = args.seeds
     if args.seed_phi_sigma is not None:
@@ -137,6 +146,14 @@ def main(argv=None) -> int:
         "scan (the eager loop) or megakernel",
     )
 
+    p_run.add_argument(
+        "--ae-recipe", action="store_true",
+        help="AE variant: the convergence recipe (live MLP init, AE-only warmup, data-scaled omega)",
+    )
+    p_run.add_argument(
+        "--ae-data-omega", action="store_true",
+        help="AE variant: rescale the omega init from the initial latent RMS",
+    )
     p_run.add_argument(
         "--seeds", type=int, default=None, metavar="S",
         help="desmo/fourier: train S independently initialized models at once, packed (one read of X serves "

@@ -3,7 +3,7 @@ scheme, and weights carried over from the JAX package.
 
 Port of ``save_state``, ``state_dict_from_params`` and
 ``params_from_state_dict`` from ``desmo_tpu/checkpoint.py`` (desmo and
-Fourier variants).
+Fourier variants; the AE variant's keys through ``models.autoencoder``).
 ``save_state`` writes the same flat keys as the JAX package
 (``params/<key>``, ``opt/count``, ``opt/mu/<key>``, ``opt/nu/<key>``,
 ``sched/lrs``, ``sched/best``, ``sched/num_bad``, ``epoch``), so
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from desmo_tpu_torch import optim
+from desmo_tpu_torch.models import autoencoder
 from desmo_tpu_torch.train import TrainState
 
 _TRIG = ("sin", "cos", "tanh")
@@ -35,7 +36,11 @@ def state_dict_from_params(
     ``c_coef``, ``z_list.*``, ``zsin_list.*``, ``sin_coef_list.*``,
     ``omega_list.{3i+k}``, ...), as contiguous CPU tensors. The Fourier
     variant's ``z_list.{t}`` hold the 2nF+1 series coefficients, and it adds
-    ``period_list.{t}`` and ``trig_period_list.{3i+k}``, each of shape (1,)."""
+    ``period_list.{t}`` and ``trig_period_list.{3i+k}``, each of shape (1,).
+    The AE variant writes the reference ``SINDyAutoencoder``'s keys
+    (``autoencoder.state_dict_from_params``)."""
+    if variant == "ae":
+        return autoencoder.state_dict_from_params(params)
     p = {k: v.detach().cpu() for k, v in params.items()}
     r = p["phi"].shape[0]
     sd: dict[str, torch.Tensor] = {}
@@ -66,6 +71,8 @@ def params_from_state_dict(
     sd: Mapping, device: torch.device | str, variant: str = "desmo"
 ) -> dict[str, torch.Tensor]:
     """Inverse of :func:`state_dict_from_params`; values may be tensors or arrays."""
+    if variant == "ae":
+        return autoencoder.params_from_state_dict(sd, device)
 
     def collect(prefix: str) -> np.ndarray:
         items = []
@@ -97,10 +104,11 @@ def params_from_state_dict(
 
 
 def params_from_jax(np_params: Mapping[str, np.ndarray], device: torch.device | str) -> dict[str, torch.Tensor]:
-    """The JAX package's parameters (as numpy arrays, same keys and shapes,
-    the Fourier variant's ``period`` and ``trig_period`` included, with or
-    without a leading seed axis) as the port's float32 tensors on
-    ``device``."""
+    """The JAX package's parameters (as numpy arrays, same keys and shapes:
+    any variant's flat dict, the Fourier variant's ``period`` and the AE
+    variant's ``ae_enc_w{i}``/``ae_dec_b{i}`` included, with or without a
+    leading seed axis) as the port's float32 tensors on ``device``, in the
+    same key order."""
     return {
         k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
         for k, v in np_params.items()

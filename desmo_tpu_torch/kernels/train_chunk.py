@@ -67,19 +67,17 @@ import torch
 
 from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch import library, optim
-from desmo_tpu_torch.kernels import _build
+from desmo_tpu_torch.kernels import _build, ae_chunk
+from desmo_tpu_torch.kernels._chunk_optim import (
+    _BEST, _BETA, _COUNT, _EPOCH, _LAM, _LR0, _NUMBAD, _POW, B1, SCHED_THRESHOLD, SVEC, _adamax_,
+)
 from desmo_tpu_torch.models import fourier
 from desmo_tpu_torch.train import ChunkFn, TrainState
 
-B1, B2, EPS = 0.9, 0.999, 1e-8
-SCHED_THRESHOLD = 1e-4
 METRICS = ("rec", "ortho", "l1", "total", "max_arg")
 # the packed form's per-seed metrics, each (num_steps, S); it adds "total"
 # (their sum over the seeds) and the global "max_arg", as the TPU kernel does
 SEED_METRICS = ("rec", "ortho", "l1", "total_s")
-# scheduler-vector slots (floats, one row per seed)
-_LR0, _BEST, _POW, _COUNT, _NUMBAD, _EPOCH, _BETA, _LAM = 0, 5, 6, 7, 8, 9, 10, 11
-SVEC = 16
 MAX_K, MAX_R, MAX_P, MAX_NF = 128, 8, 8, 63
 # the TPU kernel's cap of packed seeds (its scheduler block has 8 rows); the
 # port keeps it so that both packages select the same path
@@ -146,7 +144,11 @@ def select_chunk(spec, cfg, device: torch.device):
     requires the mega-kernel (``ValueError`` when unsupported; on the CPU it
     runs the plain version); 'auto' takes it on a CUDA device when the loss
     method is 'auto' or 'fused', and the eager loop on the CPU, as the JAX
-    package scans off the TPU."""
+    package scans off the TPU. The AE variant has a kernel of its own
+    (``kernels.ae_chunk.select_ae_chunk``): 'megakernel' takes it, 'auto'
+    keeps the eager loop, as the JAX package does."""
+    if getattr(cfg, "variant", "desmo") == "ae":
+        return ae_chunk.select_ae_chunk(spec, cfg)
     method = getattr(cfg, "chunk_method", "auto")
     if method == "scan":
         return None
@@ -361,14 +363,6 @@ def unpack_seeds(cs: ChunkState, like: TrainState, num_steps: int) -> TrainState
         sched=sched,
         epoch=like.epoch + num_steps,
     )
-
-
-def _adamax_(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, g, lr, bias) -> None:
-    """One Adamax step of the kernel, in place: ``mu = b1 mu + (1-b1) g``,
-    ``nu = max(b2 nu, |g| + eps)``, ``p = p - (lr/bias) mu / nu``."""
-    mu.copy_(B1 * mu + (1.0 - B1) * g)
-    nu.copy_(torch.maximum(B2 * nu, g.abs() + EPS))
-    p.copy_(p - (lr / bias) * mu / nu)
 
 
 def series_forward(zc: torch.Tensor, per: torch.Tensor, tw: torch.Tensor):

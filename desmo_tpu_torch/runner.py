@@ -1,7 +1,7 @@
 """End-to-end pipeline: load -> preprocess -> POD -> train -> error ->
-sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo and Fourier
-variants on one device, one seed or a seed-packed ensemble (``n_seeds > 1``,
-``ensemble.fit``), with no holdout and no figures.
+sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo, Fourier and
+AE variants on one device, one seed or (desmo and Fourier) a seed-packed
+ensemble (``n_seeds > 1``, ``ensemble.fit``), with no holdout and no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -22,6 +22,7 @@ from desmo_tpu_torch import data as data_mod
 from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch.kernels import train_chunk
 from desmo_tpu_torch.logging_utils import MetricsLogger
+from desmo_tpu_torch.models import autoencoder as ae_model
 from desmo_tpu_torch.models import desmo as desmo_model
 from desmo_tpu_torch.models import fourier as fourier_model
 
@@ -107,10 +108,14 @@ def resolve_loss_method(cfg: configs.RunConfig, device: torch.device) -> str:
 
 
 def check_supported(cfg: configs.RunConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what the port does not run yet, and
+    ``ValueError`` for what the JAX package refuses too (several seeds of the
+    AE variant)."""
+    if cfg.variant == "ae" and cfg.n_seeds > 1:
+        raise ValueError("n_seeds > 1 requires the desmo or fourier variant (ensemble.py scope)")
     todo = []
-    if cfg.variant not in ("desmo", "fourier"):
-        todo.append(f"variant {cfg.variant!r} (ROADMAP queue 1, item 7)")
+    if cfg.variant not in ("desmo", "fourier", "ae"):
+        todo.append(f"variant {cfg.variant!r}")
     if cfg.variant == "fourier" and cfg.period_multistart > 1 and cfg.n_seeds <= 1:
         # with n_seeds > 1 the period candidates train as per-seed inits
         todo.append("the Fourier period multi-start of one seed, period_multistart > 1 (ROADMAP queue 1, item 5b)")
@@ -237,6 +242,11 @@ def build_model(cfg: configs.RunConfig, device: torch.device):
         )
         params = fourier_model.Fourier(spec, device=device).params()
         loss_fn = fourier_model.build_loss(spec, cfg.beta, cfg.l1_lambda, method=method)
+    elif cfg.variant == "ae":
+        spec = ae_model.AESpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
+        params = ae_model.init_params(spec, seed=cfg.seed, device=device)
+        loss_fn = ae_model.build_loss(spec, cfg.beta, cfg.l1_lambda, cfg.ae_beta, method=method)
+        return spec, params, loss_fn, ae_model.param_groups(params)
     else:
         spec = desmo_model.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
         params = desmo_model.Desmo(spec, device=device).params()
@@ -252,12 +262,56 @@ def compute_pod(cfg: configs.RunConfig, x: np.ndarray, device: torch.device):
     return pod.truncate(p2, cfg.r), p2
 
 
-def prepare_batch(x: np.ndarray, pod_modes: torch.Tensor, device: torch.device) -> dict:
+def prepare_batch(x: np.ndarray, pod_modes: torch.Tensor | None, device: torch.device) -> dict:
     """The training batch: fp32 X, its precomputed ``sum(X*X)`` and the POD
-    modes, on ``device``. The TPU's bf16 hi/lo planes of X do not carry over:
-    the CUDA kernel reads fp32 X."""
+    modes, on ``device``; with ``pod_modes=None`` (the AE variant, whose
+    latent comes from its encoder) X's column sums ``x_colsum`` instead. The
+    TPU's bf16 hi/lo planes of X do not carry over: the CUDA kernels read
+    fp32 X."""
     xd = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
-    return {"x": xd, "x_sq": torch.sum(xd * xd), "pod_modes": pod_modes.contiguous()}
+    batch = {"x": xd, "x_sq": torch.sum(xd * xd)}
+    if pod_modes is None:
+        batch["x_colsum"] = torch.sum(xd, dim=0)
+    else:
+        batch["pod_modes"] = pod_modes.contiguous()
+    return batch
+
+
+def reconstruct(params: dict, batch: dict, spec, variant: str) -> torch.Tensor:
+    """The model's reconstruction of X (n, m)."""
+    if variant == "ae":
+        return ae_model.apply(params, batch["x"], spec)[0]
+    model = fourier_model if variant == "fourier" else desmo_model
+    return model.apply(params, batch["pod_modes"], spec)[0]
+
+
+def ae_recipe_cfg(cfg: configs.RunConfig) -> configs.RunConfig:
+    """The AE recipe's clamps, applied after the live init
+    (``desmo_tpu/runner.py:170-185``): the MLP LR capped at 1e-3 (at the
+    preset's 1e-2 the encoder collapses to spatially constant latents) and
+    ``ae_beta`` floored at 10, which anchors the latents against that
+    collapse."""
+    return dataclasses.replace(cfg, lr_z=min(cfg.lr_z, 1e-3), ae_beta=max(cfg.ae_beta, 10.0))
+
+
+def ae_recipe(cfg, spec, params, groups, batch, device, log):
+    """The AE convergence recipe (``desmo_tpu/runner.py:451-490``): the live
+    MLP init, :func:`ae_recipe_cfg`, an AE-only warmup of
+    ``cfg.ae_warmup_epochs`` through the eager loop, then omega scaled to the
+    warmed latents and ``lr_omega`` to 1% of its mean sin value. Returns
+    ``(cfg, params, loss_fn)`` for the main fit."""
+    params = ae_model.init_params_live(spec, seed=cfg.seed, device=device)
+    cfg = ae_recipe_cfg(cfg)
+    loss_fn = ae_model.build_loss(spec, cfg.beta, cfg.l1_lambda, cfg.ae_beta,
+                                  method=resolve_loss_method(cfg, device))
+    if cfg.ae_warmup_epochs > 0:
+        warm = train.fit(ae_model.build_warmup_loss(spec), groups, cfg, params, batch,
+                         num_epochs=cfg.ae_warmup_epochs, log=log)
+        params = dict(warm.state.params)
+    omega = ae_model.data_scaled_omega(params, batch["x"])
+    params["omega"] = omega
+    cfg = dataclasses.replace(cfg, lr_omega=0.01 * float(torch.mean(torch.abs(omega[0]))))
+    return cfg, params, loss_fn
 
 
 def run(
@@ -293,8 +347,9 @@ def run(
     out_dir = os.path.join(out_dir, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
     spec, params, loss_fn, groups = build_model(cfg, dev)
-    p, p2 = compute_pod(cfg, x, dev)
-    batch = prepare_batch(x, p.modes, dev)
+    p, p2 = compute_pod(cfg, x, dev)  # the AE variant's error table still has POD's rows
+    ae = cfg.variant == "ae"
+    batch = prepare_batch(x, None if ae else p.modes, dev)
 
     logger = MetricsLogger(out_dir, cfg.name, echo=False)
 
@@ -307,6 +362,10 @@ def run(
 
     n_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
     log = (lambda line: print(line, flush=True)) if echo else None
+    if ae and cfg.ae_recipe:
+        cfg, params, loss_fn = ae_recipe(cfg, spec, params, groups, batch, dev, log)
+    elif ae and cfg.ae_omega_data_scaled:
+        params = dict(params, omega=ae_model.data_scaled_omega(params, batch["x"]))
     if cfg.n_seeds > 1:
         result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log)
     else:
@@ -322,8 +381,7 @@ def run(
     logger.close()
 
     with torch.no_grad():
-        model = fourier_model if cfg.variant == "fourier" else desmo_model
-        recon = model.apply(result.state.params, batch["pod_modes"], spec)[0]
+        recon = reconstruct(result.state.params, batch, spec, cfg.variant)
         err = float(losses.relative_frobenius_error(batch["x"], recon))
         err_pod = pod.pod_relative_error(batch["x"], p)
         err_pod2 = pod.pod_relative_error(batch["x"], p2)

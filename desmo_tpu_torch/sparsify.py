@@ -1,4 +1,4 @@
-"""Term energies and threshold sweeps for the desmo and Fourier variants.
+"""Term energies and threshold sweeps for the desmo, Fourier and AE variants.
 Port of ``desmo_tpu/sparsify.py:46-239``.
 
 Every candidate term contributes a rank-1 space-time field
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from desmo_tpu_torch import library, losses
+from desmo_tpu_torch.models import autoencoder as ae_model
 from desmo_tpu_torch.models import desmo as desmo_model
 from desmo_tpu_torch.models import fourier as fourier_model
 
@@ -44,8 +45,12 @@ def _is_fourier(params: dict) -> bool:
     return "period" in params
 
 
+def _is_ae(params: dict) -> bool:
+    return "ae_enc_w0" in params
+
+
 @torch.no_grad()
-def term_energies(params: dict, spec) -> TermEnergies:
+def term_energies(params: dict, spec, latent_override=None) -> TermEnergies:
     """Energy of every candidate term of a trained model.
 
     Kept from the reference: the library and trig bases are evaluated on the
@@ -53,8 +58,10 @@ def term_energies(params: dict, spec) -> TermEnergies:
     reference's sweep tables are defined by this convention. For the Fourier
     variant the series are materialized on ``t_points``, and the reference's
     column-slice bug is kept too (``desmo_tpu/sparsify.py:71-78``): term i's
-    temporal factor is the time slice ``z[:, i]``, not series i."""
-    latent = params["phi"].T  # (n, r)
+    temporal factor is the time slice ``z[:, i]``, not series i. The AE
+    variant has no phi masks: pass its encoder latent as
+    ``latent_override``."""
+    latent = params["phi"].T if latent_override is None else latent_override  # (n, r)
     factors = torch.as_tensor(
         library.factor_table(latent.shape[1], spec.poly_order), dtype=torch.int64, device=latent.device
     )
@@ -103,14 +110,19 @@ def threshold_sweep(
     """The reference's threshold table: error and surviving terms per threshold."""
     if thresholds is None:
         thresholds = default_thresholds()
+    ae = _is_ae(params)
+    # the AE variant reconstructs from X through its encoder, the others
+    # from the POD modes
+    source = batch["x"] if ae else batch["pod_modes"]
     if energies is None:
-        energies = term_energies(params, spec)
-    factors = desmo_model.factor_tensor(spec, batch["pod_modes"].device)
-    apply = fourier_model.apply if _is_fourier(params) else desmo_model.apply
+        latent = ae_model.encode_decode(params, batch["x"])[0] if ae else None
+        energies = term_energies(params, spec, latent_override=latent)
+    factors = desmo_model.factor_tensor(spec, source.device)
+    apply = ae_model.apply if ae else fourier_model.apply if _is_fourier(params) else desmo_model.apply
     results = []
     for threshold in thresholds:
         pruned = zero_below_threshold(params, energies, float(threshold))
-        recon = apply(pruned, batch["pod_modes"], spec, factors)[0]
+        recon = apply(pruned, source, spec, factors)[0]
         error = float(losses.relative_frobenius_error(batch["x"], recon))
         count = nonzero_terms(pruned)
         results.append(SweepEntry(float(threshold), error, count))

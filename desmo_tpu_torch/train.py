@@ -93,14 +93,15 @@ def make_train_chunk(loss_fn: LossFn, group_of: dict[str, str], cfg: RunConfig) 
 
     The parameters and both Adamax moments travel as one packed vector each
     inside the chunk; ``metrics`` holds one (num_steps,) device tensor per
-    key of ``METRICS``."""
+    key the loss returns (``METRICS`` for the desmo and Fourier losses, and
+    ``ae`` besides for the AE loss), and ``total``."""
 
     def chunk(state: TrainState, batch: dict, num_steps: int):
         layout = FlatLayout(state.params, group_of)
         vec = layout.flatten(state.params)
         opt = optim.AdamaxState(state.count, layout.flatten(state.mu), layout.flatten(state.nu))
         sched, epoch = state.sched, state.epoch
-        rows = []
+        rows, keys = [], None
         for _ in range(num_steps):
             leaf = vec.detach().requires_grad_(True)
             total, metrics = loss_fn(layout.unflatten(leaf), batch)
@@ -113,14 +114,16 @@ def make_train_chunk(loss_fn: LossFn, group_of: dict[str, str], cfg: RunConfig) 
                         sched, total, patience=cfg.patience,
                         factor=cfg.sched_factor, min_lr=cfg.sched_min_lr,
                     )
-                rows.append(torch.stack([metrics["rec"], metrics["ortho"], metrics["l1"], total]))
+                if keys is None:
+                    keys = [k for k in metrics if k != "total"] + ["total"]
+                rows.append(torch.stack([total if k == "total" else metrics[k] for k in keys]))
             epoch += 1
         out = TrainState(
             layout.unflatten(vec), layout.unflatten(opt.mu), layout.unflatten(opt.nu),
             opt.count, sched, epoch,
         )
         stacked = torch.stack(rows)
-        return out, {k: stacked[:, i] for i, k in enumerate(METRICS)}
+        return out, {k: stacked[:, i] for i, k in enumerate(keys)}
 
     return chunk
 
@@ -210,7 +213,7 @@ def fit(
     wall = time.perf_counter() - t0
     steps_timed = done - start_epoch - first_chunk
     sps = steps_timed / wall if wall > 0 and steps_timed > 0 else float("nan")
-    history = {k: np.concatenate([h[k] for h in histories]) for k in METRICS}
+    history = {k: np.concatenate([h[k] for h in histories]) for k in histories[0]}
     return TrainResult(
         state=state, history=history, steps_per_sec=sps, wall_seconds=wall,
         max_abs_trig_arg=max_abs_trig_arg,

@@ -17,16 +17,17 @@ import numpy as np  # noqa: E402
 
 from desmo_tpu_torch import configs, ensemble, losses, pod, runner, train  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
-from desmo_tpu_torch.kernels import dual_gemm, train_chunk  # noqa: E402
-from desmo_tpu_torch.models import desmo, fourier  # noqa: E402
+from desmo_tpu_torch.kernels import ae_chunk, dual_gemm, train_chunk  # noqa: E402
+from desmo_tpu_torch.models import autoencoder, desmo, fourier  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
 # the shapes of tests/test_torch_dual_gemm.py, the cylinder preset's, and the
 # packed widths of the ensemble's eager loss: fourier_cylinder S=8 (K'=96)
-# and aneurysm S=4 (K'=108); and K'=128, the largest
+# and aneurysm S=4 (K'=108); and K'=128, the largest; the eager loss of
+# fourier_cylinder and ae_cylinder (K=12)
 SHAPES = [(100, 7, 50), (512, 47, 128), (700, 50, 333), (3961, 47, 1001), (3961, 96, 1001),
-          (27000, 108, 1000), (600, 128, 77)]
+          (27000, 108, 1000), (600, 128, 77), (3961, 12, 1001)]
 
 
 @pytest.fixture
@@ -58,8 +59,9 @@ def test_kernel_matches_twin(cuda, n, k, m):
     assert torch.equal(ax, ax2) and torch.equal(xb, xb2)  # fixed-order reductions
 
 
-def test_fused_loss_grads_match_autograd_of_factored_mse(cuda):
-    a, b, x = _inputs(3961, 47, 1001, cuda, seed=1, scale=0.3)
+@pytest.mark.parametrize("k", [47, 12])
+def test_fused_loss_grads_match_autograd_of_factored_mse(cuda, k):
+    a, b, x = _inputs(3961, k, 1001, cuda, seed=1, scale=0.3)
     out = []
     for fn in (
         lambda a_, b_: dual_gemm.factored_mse_fused(a_, b_, x, torch.sum(x * x)),
@@ -304,3 +306,77 @@ def test_packed_phase_split_and_runner_path(cuda, tmp_path):
     assert np.isfinite(art.history["total"]).all() and len(art.history["total"]) == 300
     files = set(tmp_path.joinpath(cfg.name).iterdir())
     assert {tmp_path / cfg.name / "ensemble.json", tmp_path / cfg.name / "term_stability.json"} <= files
+
+
+def _ae_problem(device, n=3961, m=1001, **over):
+    """The AE preset at (n, m) on the cylinder's synthetic data from the live
+    init (the reference init's decoder is dead, so it proves nothing about
+    the funnel's backward), omega_init=1 and tame LRs (at the preset's 1e4 a
+    1-ulp latent difference flips the signs of sin), with ``over`` applied."""
+    base = dict(n=n, m=m, omega_init=1.0, lr_coef=1e-3, lr_z=1e-3, lr_omega=1e-2)
+    cfg = dataclasses.replace(configs.get("ae_cylinder"), **{**base, **over})
+    x = synthetic.cylinder_wake(n, m, seed=cfg.seed)
+    batch = runner.prepare_batch(x, None, device)
+    spec = autoencoder.AESpec(n, m, cfg.r, cfg.poly_order, cfg.omega_init)
+    return cfg, spec, batch, train.init_state(autoencoder.init_params_live(spec, device=device), cfg)
+
+
+@pytest.mark.parametrize("n, m, steps", [(64, 40, 25), (3961, 1001, 30)])
+def test_ae_kernel_matches_plain_chunk(cuda, n, m, steps):
+    """The AE kernel against its plain chunk at the CPU suite's size and at
+    ae_cylinder's (n=3961, m=1001, K=12): one epoch from one state, every
+    metric to 2e-4 and every parameter to 1e-5 of its largest entry; the
+    trace to tests/test_ae_chunk.py's 5e-4 and the parameters on its two
+    tiers (a 1-ulp pre-activation difference flips a ReLU unit's gradient
+    for one step); two launches bit-identical."""
+    cfg, spec, batch, state = _ae_problem(cuda, n, m)
+    launches = ae_chunk.fused_ae_chunk.launches
+    sk, mk = ae_chunk.fused_ae_chunk(state, batch, steps, spec, cfg)
+    torch.cuda.synchronize()
+    assert ae_chunk.fused_ae_chunk.launches == launches + 1
+    sp, mp = ae_chunk.ae_chunk_plain(state, batch, steps, spec, cfg)
+    for key in ae_chunk.METRICS:
+        assert ((mk[key] - mp[key]).abs() <= 5e-4 * mp[key].abs() + 1e-7).all(), key
+    for key in sk.params:
+        d = (sk.params[key] - sp.params[key]).abs() / sp.params[key].abs().max()
+        assert d.max() < 2e-2 and (d < 5e-3).float().mean() >= 0.95, key
+    sk1, mk1 = ae_chunk.fused_ae_chunk(sk, batch, 1, spec, cfg)
+    sp1, mp1 = ae_chunk.ae_chunk_plain(sk, batch, 1, spec, cfg)
+    for key in ae_chunk.METRICS:
+        assert (mk1[key] - mp1[key]).abs() <= 2e-4 * mp1[key].abs(), key
+    for key in sk1.params:
+        assert (sk1.params[key] - sp1.params[key]).abs().max() <= 1e-5 * sp1.params[key].abs().max(), key
+    assert sk.epoch == sp.epoch == steps and torch.equal(sk.sched.lrs, sp.sched.lrs)
+    sk2, mk2 = ae_chunk.fused_ae_chunk(state, batch, steps, spec, cfg)
+    assert all(torch.equal(mk[k], mk2[k]) for k in mk)
+    assert all(torch.equal(sk.params[k], sk2.params[k]) for k in sk.params)
+
+
+def test_ae_kernel_plateau_drops_match_plain_chunk(cuda):
+    cfg, spec, batch, state = _ae_problem(cuda, 500, 200, patience=3, sched_every=2)
+    state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0, device=cuda))  # no epoch improves
+    sk, _ = ae_chunk.fused_ae_chunk(state, batch, 12, spec, cfg)
+    sp, _ = ae_chunk.ae_chunk_plain(state, batch, 12, spec, cfg)
+    assert float(sk.sched.lrs[0]) < cfg.lr_coef
+    assert torch.equal(sk.sched.lrs, sp.sched.lrs) and int(sk.sched.num_bad) == int(sp.sched.num_bad)
+
+
+def test_ae_phase_split_and_runner_paths(cuda, tmp_path):
+    """The AE kernel's phase split; ``runner.run`` on the AE preset at a
+    small size: ``megakernel`` launches the AE kernel once per chunk and no
+    other kernel, ``auto`` runs the eager loop, the dual contraction once
+    per epoch and the AE kernel never."""
+    cfg, spec, batch, state = _ae_problem(cuda)
+    split = ae_chunk.phase_split(state, batch, 20, spec, cfg)
+    assert list(split) == list(ae_chunk.PHASES) and all(v > 0 for v in split.values())
+    x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
+    small = dataclasses.replace(configs.get("ae_cylinder"), checkpoint_every=100)
+    counters = (ae_chunk.fused_ae_chunk, dual_gemm.dual_contractions, train_chunk.fused_train_chunk)
+    for method, want in (("megakernel", (3, 0, 0)), ("auto", (0, 300, 0))):
+        for fn in counters:
+            fn.launches = 0
+        art = runner.run(dataclasses.replace(small, chunk_method=method), x, out_dir=str(tmp_path / method),
+                         num_epochs=300, echo=False, device=cuda)
+        assert tuple(fn.launches for fn in counters) == want, method
+        assert np.isfinite(art.history["total"]).all() and len(art.history["ae"]) == 300
+        assert len(art.sweep) == 14

@@ -36,11 +36,14 @@ MODULES = [
     "desmo_tpu_torch.io.synthetic",
     "desmo_tpu_torch.io.vtk",
     "desmo_tpu_torch.kernels._build",
+    "desmo_tpu_torch.kernels._chunk_optim",
+    "desmo_tpu_torch.kernels.ae_chunk",
     "desmo_tpu_torch.kernels.dual_gemm",
     "desmo_tpu_torch.kernels.train_chunk",
     "desmo_tpu_torch.library",
     "desmo_tpu_torch.logging_utils",
     "desmo_tpu_torch.losses",
+    "desmo_tpu_torch.models.autoencoder",
     "desmo_tpu_torch.models.desmo",
     "desmo_tpu_torch.models.fourier",
     "desmo_tpu_torch.optim",
@@ -113,6 +116,18 @@ def test_cli_run_fourier_without_jax(tmp_path, chunk_method):
 
     sd = torch.load(out_dir / "fourier_cylinder_r2_final.pt", weights_only=True)
     assert {"period_list.0", "trig_period_list.0"} <= set(sd) and sd["z_list.0"].shape == (21,)
+
+
+@pytest.mark.parametrize("chunk_method", [None, "megakernel"])
+def test_cli_run_ae_without_jax(tmp_path, chunk_method):
+    """The AE preset at full width (n=3961, m=1001) on the CPU, through the
+    eager loop and through the AE kernel's plain chunk; the export holds the
+    reference's ``SINDyAutoencoder`` keys."""
+    out_dir = _cli_run(tmp_path, chunk_method, preset="ae_cylinder", r=2)
+    import torch
+
+    sd = torch.load(out_dir / "ae_cylinder_r2_final.pt", weights_only=True)
+    assert {"temporal_ae.encoder.0.weight", "omega_phi6", "zsin_coef_1"} <= set(sd)
 
 
 def test_cli_run_seeds_without_jax(tmp_path):

@@ -123,10 +123,7 @@ def test_state_dict_matches_jax_key_scheme(tmp_path):
     "override, item",
     [
         ({"run_greedy_prune": True}, "queue 1, item 3"),
-        ({"variant": "ae"}, "queue 1, item 7"),
         ({"variant": "fourier", "n_fourier": 3, "period_init": 20.0, "period_multistart": 4}, "queue 1, item 5b"),
-        # a seed-packed run refuses what one seed refuses
-        ({"n_seeds": 2, "variant": "ae"}, "queue 1, item 7"),
         ({"pod_method": "snapshots"}, "queue 1, item 9"),
     ],
 )
@@ -135,6 +132,21 @@ def test_unsupported_configs_raise(tmp_path, override, item):
     x = synthetic.cylinder_wake(40, 20)
     with pytest.raises(NotImplementedError, match=item):
         runner.run(cfg, x, out_dir=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("n_seeds", [1, 2])
+def test_ae_variant_runs_one_seed_and_refuses_several(tmp_path, n_seeds):
+    """The AE variant, which the port refused before it had the model, runs
+    with one seed; several seeds raise ``ValueError``, as
+    ``desmo_tpu/runner.py:510-514`` does."""
+    cfg = dataclasses.replace(configs.get("ae_cylinder"), num_epochs=2, checkpoint_every=2, n_seeds=n_seeds)
+    x = synthetic.cylinder_wake(40, 20)
+    if n_seeds > 1:
+        with pytest.raises(ValueError, match="n_seeds > 1"):
+            runner.run(cfg, x, out_dir=str(tmp_path), echo=False, device="cpu")
+        return
+    art = runner.run(cfg, x, out_dir=str(tmp_path), echo=False, device="cpu")
+    assert set(art.history) == {"rec", "ortho", "l1", "ae", "total"} and len(art.history["ae"]) == 2
 
 
 def test_n_seeds_runs_the_packed_ensemble(tmp_path):
