@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout (one
+Builds the port's four CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, started together), holds each against its plain PyTorch
 version at the main paths' shapes, and drives the training paths of four
 presets at full width on synthetic data through ``runner.run``:
@@ -25,14 +25,21 @@ presets at full width on synthetic data through ``runner.run``:
 - ae_cylinder (n=3961, m=1001, r=2, P=2, ae_beta=1e-3): as configured
   (``chunk_method="auto"``: the eager loop, its loss through the
   dual-contraction kernel), 100 epochs, and with ``chunk_method="megakernel"``
-  through the AE kernel, one launch per 2,000-epoch chunk, 10,000 epochs.
+  through the AE kernel, one launch per 2,000-epoch chunk, 10,000 epochs;
+- the space-sharded path (``runner.run(device_mesh=parallel.make_mesh(1))``,
+  a one-rank NCCL group): cylinder, 4,000 epochs, and fourier_cylinder, 400,
+  through the sharded step kernel (``csrc/shard_step.cu``), one launch and
+  one all-reduce per epoch. Before it the step kernel is held against its
+  plain version over all rows and over 2 and 3 uneven shards with their
+  partials summed, and the sharded chunk against the mega-kernel.
 
 Each path runs with every launch count set to 0 just before it and read just
 after. Then it times each kernel (the mega-kernel in its four forms, the AE
-kernel)
+kernel, the step kernel)
 against its plain version in turns, beside its bound, and splits the
 mega-kernel's time by phase with the kernel's own clock; the packed forms
-beside the single-seed kernel at the same preset. Each phase prints its lines; any
+beside the single-seed kernel at the same preset; the sharded path's step
+beside the mega-kernel's epoch. Each phase prints its lines; any
 failed check exits non-zero. The second-to-last line is a JSON record of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
 without printing a result when no CUDA device is available.
@@ -58,6 +65,16 @@ PARITY_STEPS = 200
 STATE_STEPS = 30
 TIMED_STEPS = 50
 AE_EAGER_EPOCHS = 100
+SHARDED_EPOCHS = 4_000
+SHARDED_FOURIER_EPOCHS = 400
+# the step kernel against its plain version evaluated in float64: the dual
+# contraction's contract on every summed partial, and dl. The plain version
+# in float32 is no yardstick here: cuBLAS sums AᵀX over n in one long chain,
+# and the dictionary's constant column sums X's columns, whose terms cancel
+# (measured on the H100: 6.4e-6 of max|AᵀX| at cylinder, 2.3e-5 at
+# fourier_cylinder; the kernel 8.9e-7)
+STEP_RTOL = 5e-6
+STEP_DL_RTOL = 1e-5
 # kernel vs plain: fp32 FMA against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
 GRAD_RTOL = 2e-4
@@ -127,6 +144,18 @@ def ae_flops(n: int, m: int, k: int) -> float:
             + 2 * 256 * 256 * m + 4 * n * m * k + 2 * n * k * k + n * k * (k + 1) + m * k * (k + 1))
 
 
+def step_flops(n: int, m: int, k: int) -> float:
+    """Operations of one launch of the step kernel over n rows: AᵀX and XBᵀ
+    (2nmK each), A·gb (2nK²) and the symmetric AᵀA (nK(K+1))."""
+    return 4 * n * m * k + 2 * n * k * k + n * k * (k + 1)
+
+
+def step_bytes(n: int, m: int, k: int, r: int) -> float:
+    """Bytes one launch must move: X, the POD modes and phi of its rows, B,
+    gb, c and omega read once; dl, the partial sums and max_arg written once."""
+    return 4 * (n * m + 2 * n * r + k * m + k * k + k + 3 * r + n * r + k * m + k * k + r * r + k + 3 * r + 1)
+
+
 def reset_launches(*counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -139,8 +168,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device", file=sys.stderr)
         return 1
-    from desmo_tpu_torch import configs, device as device_mod, ensemble, losses, pod, runner, train
-    from desmo_tpu_torch.kernels import _build, ae_chunk, dual_gemm, train_chunk
+    from desmo_tpu_torch import configs, device as device_mod, ensemble, losses, parallel, pod, runner, train
+    from desmo_tpu_torch.kernels import _build, ae_chunk, dual_gemm, shard_step, train_chunk
     from desmo_tpu_torch.models import autoencoder, desmo, fourier
 
     # 1. the card
@@ -156,7 +185,7 @@ def main() -> int:
 
     # 2. build the kernels from this checkout's sources, one nvcc each, at once
     t0 = time.perf_counter()
-    names = ("dual_gemm", "train_chunk", "ae_chunk")
+    names = ("dual_gemm", "train_chunk", "ae_chunk", "shard_step")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
     for name in libs:
@@ -168,7 +197,7 @@ def main() -> int:
         print(f"[2 ptxas] {name}: {' | '.join(report)}")
 
     counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk,
-                ae_chunk.fused_ae_chunk)
+                ae_chunk.fused_ae_chunk, shard_step.step_partials)
 
     # 3. the dual contraction against its plain version at the main path's shapes
     gen = torch.Generator().manual_seed(0)
@@ -914,7 +943,171 @@ def main() -> int:
           + ", ".join(f"{k} {v * 1e6 / E:.1f} us/epoch ({v / ae_split_total:.1%})"
                       for k, v in ae_split.items() if k != "prologue"))
 
-    # 8. the records
+    # 8a. the step kernel against its plain version at cylinder (K=47) and
+    # fourier_cylinder (K=12), from one state (omega_init=1): all rows in one
+    # call, and the same rows as 2 and 3 uneven shards with their partials
+    # summed, as the ranks of a mesh would sum them
+    def step_args(cfg, st):
+        cs = train_chunk.pack_seeds(train_chunk.stack_seed(st), [cfg.beta], [cfg.l1_lambda])
+        if cs.series is None:
+            b = cs.b[0]
+        else:
+            tw = torch.as_tensor(fourier.TWO_PI * fourier.t_points(cfg.m), device=dev)
+            b = train_chunk.series_forward(cs.series[0], cs.periods[0], tw)[0]
+        return (batch_of[cfg.name]["pod_modes"], batch_of[cfg.name]["x"], cs.phi[0], b, b @ b.T, cs.coef[0],
+                cs.omega[0])
+
+    batch_of = {preset.name: batch, fpreset.name: fbatch}
+    parts = ("ax", "ga", "latg", "gcoef", "gomega")
+    step_checks = {}
+    for cfg, make in ((unit, start), (funit, fstart)):
+        spec_s, st_s = make(cfg)
+        args = step_args(cfg, st_s)
+        n, m, r = cfg.n, cfg.m, cfg.r
+        k = spec_s.num_poly_terms + 3 * r
+        ref32 = shard_step.step_partials_plain(*args, spec_s, n)
+        ref = shard_step.step_partials_plain(*(a.double() for a in args), spec_s, n)
+        got = shard_step.step_partials(*args, spec_s, n)
+        again = shard_step.step_partials(*args, spec_s, n)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(a, b) for a, b in zip(got, again))
+        plain_err = {"dl": rel_err(ref32[0].double(), ref[0])}
+        plain_err.update({name: rel_err(g.double(), w) for name, g, w in zip(
+            parts, shard_step.split_sums(ref32[1], k, m, r), shard_step.split_sums(ref[1], k, m, r))})
+        worst = {}
+        for d in (1, 2, 3):
+            spans = [parallel.row_range(n, d, rank) for rank in range(d)]
+            outs = [shard_step.step_partials(args[0][lo:hi].contiguous(), args[1][lo:hi].contiguous(),
+                                             args[2][:, lo:hi].contiguous(), *args[3:], spec_s, n) for lo, hi in spans]
+            torch.cuda.synchronize()
+            e = {"dl": rel_err(torch.cat([o[0] for o in outs]).double(), ref[0])}
+            summed = shard_step.split_sums(sum(o[1] for o in outs), k, m, r)
+            e.update({name: rel_err(g.double(), w)
+                      for name, g, w in zip(parts, summed, shard_step.split_sums(ref[1], k, m, r))})
+            same_max = float(max(o[2] for o in outs)) == float(ref32[2])
+            worst = {key: max(v, worst.get(key, 0.0)) for key, v in e.items()}
+            check(e["dl"] <= STEP_DL_RTOL and all(e[name] <= STEP_RTOL for name in parts) and same_max,
+                  f"{cfg.name}: step kernel over {d} shard(s) vs plain beyond its limits: {e}, max_arg equal {same_max}")
+        check(identical, f"{cfg.name}: two step kernel launches from the same state differ")
+        step_checks[cfg.name] = dict(max_abs=max(float((g.double() - w).abs().max()) for g, w in zip(got, ref)),
+                                     args=args, spec=spec_s, shape=(n, m, k, r))
+        print(f"[8a step] {cfg.name} (n, m, K)=({n}, {m}, {k}), omega_init=1: step kernel over all rows and over 2 and "
+              f"3 uneven shards (partials summed) vs the plain version over all rows in float64, worst of the three: "
+              + ", ".join(f"{key} {v:.2e}" for key, v in worst.items())
+              + f" of max|ref| (limits: dl {STEP_DL_RTOL:.0e}, the sums {STEP_RTOL:.0e}); the plain version in float32 "
+              "vs float64: " + ", ".join(f"{key} {v:.2e}" for key, v in plain_err.items())
+              + f"; max_arg equal to the float32 plain's; two launches bit-identical; max |kernel - plain (float64)| "
+              f"{step_checks[cfg.name]['max_abs']:.3e}")
+
+    # 8b. the sharded chunk on a one-rank NCCL group against the mega-kernel
+    mesh = parallel.make_mesh(1, device=dev)
+    for cfg, make, param_limit in ((unit, start, 5e-4), (funit, fstart, 1e-2)):
+        spec_s, st_s = make(cfg)
+        chunk = shard_step.make_sharded_fused_chunk(spec_s, cfg, mesh)
+        local = parallel.shard_batch(batch_of[cfg.name], mesh)
+        s1, m1 = chunk(st_s, local, 1)
+        k1, mk1 = train_chunk.fused_train_chunk(st_s, batch_of[cfg.name], 1, spec_s, cfg)
+        e_one = {key: float(((m1[key] - mk1[key]).abs() / mk1[key].abs()).max()) for key in train_chunk.METRICS}
+        one_ok = all(bool(((m1[key] - mk1[key]).abs() <= 2e-4 * mk1[key].abs()
+                           + (ORTHO_ATOL if key == "ortho" else 0.0)).all()) for key in train_chunk.METRICS)
+        e_one_params = max(rel_err(s1.params[key], k1.params[key]) for key in s1.params)
+        s25, m25 = chunk(st_s, local, 25)
+        k25, mk25 = train_chunk.fused_train_chunk(st_s, batch_of[cfg.name], 25, spec_s, cfg)
+        e_trace = {key: trace_rel(m25, mk25, key, 25) for key in ("rec", "l1", "total")}
+        e_params = max(rel_err(s25.params[key], k25.params[key]) for key in s25.params)
+        print(f"[8b sharded] {cfg.name}, space=1 (NCCL), omega_init=1, against the mega-kernel: one epoch from one "
+              f"state, metrics " + ", ".join(f"{key} {v:.2e}" for key, v in e_one.items())
+              + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute), params {e_one_params:.2e} of max|param| (limit "
+              f"1e-5); 25 epochs, trace " + ", ".join(f"{key} {v:.2e}" for key, v in e_trace.items())
+              + f" (limit 2e-4), params {e_params:.2e} (limit {param_limit:.0e})")
+        check(one_ok and e_one_params <= 1e-5, f"{cfg.name}: sharded chunk, one epoch from one state: {e_one}, "
+              f"params {e_one_params}")
+        check(max(e_trace.values()) <= 2e-4 and e_params <= param_limit,
+              f"{cfg.name}: sharded chunk over 25 epochs: {e_trace}, params {e_params}")
+
+    # 8c. the slice over the mesh: runner.run through the sharded step kernel
+    sharded_runs = {}
+    for cfg, data, epochs in ((preset, x_np, SHARDED_EPOCHS),
+                              (dataclasses.replace(fpreset, checkpoint_every=200), fx_np, SHARDED_FOURIER_EPOCHS)):
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches(*counters)
+            t0 = time.perf_counter()
+            art = runner.run(cfg, data, out_dir=tmp, num_epochs=epochs, echo=False, device=dev, device_mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = shard_step.step_partials.launches
+            others = sum(fn.launches for fn in counters) - launches
+            hist = art.history
+            check(all(bool(np.isfinite(hist[key]).all()) and hist[key].shape == (epochs,) for key in hist),
+                  f"sharded {cfg.name} history")
+            check(hist["rec"][-1] < hist["rec"][0], f"sharded {cfg.name} rec did not fall: {hist['rec'][0]} -> "
+                  f"{hist['rec'][-1]}")
+            check(launches == epochs and others == 0,
+                  f"sharded {cfg.name}: step kernel launched {launches} times in {epochs} epochs, other kernels {others}")
+            files = set(os.listdir(art.out_dir))
+            want = {f"{cfg.name}_r{cfg.r}_final.pt", "state_final.npz"} | {
+                f"state_epoch{e}.npz" for e in range(cfg.checkpoint_every, epochs + 1, cfg.checkpoint_every)}
+            check(want <= files, f"missing sharded exports in {sorted(files)}")
+            check(art.state.params["phi"].shape == (cfg.r, cfg.n), "sharded export's phi is not whole")
+            check(np.isfinite(art.relative_error) and len(art.sweep) == 14, f"sharded {cfg.name} error/sweep")
+            sharded_runs[cfg.name] = dict(launches=launches, sps=art.steps_per_sec)
+            print(f"[8c sharded] {cfg.name} n={art.config.n} m={art.config.m} as configured over space=1 (NCCL): "
+                  f"{epochs} epochs in {wall:.1f} s (POD, sweep and exports included), {art.steps_per_sec:.1f} steps/s "
+                  f"over chunks 2-{epochs // cfg.checkpoint_every}; rec {hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; "
+                  f"relative error {art.relative_error:.6f}, POD(r) {art.pod_error_r:.6f}; sweep {len(art.sweep)} rows; "
+                  f"step kernel launches {launches} = epochs, other kernels 0")
+
+    # 8d. times: the step kernel and its plain version in turns; the sharded
+    # step split into the kernel, the two all-reduces and the rest (the host's
+    # update ops and the gaps between), and against the mega-kernel's epoch
+    step_times, sharded_steps = {}, {}
+    for name, iters in ((preset.name, 200), (fpreset.name, 200)):
+        sc = step_checks[name]
+        n, m, k, r = sc["shape"]
+        kernel = lambda: shard_step.step_partials(*sc["args"], sc["spec"], n)  # noqa: E731
+        plain = lambda: shard_step.step_partials_plain(*sc["args"], sc["spec"], n)  # noqa: E731
+        k1, p1, p2, k2 = (time_ms(f, iters) for f in (kernel, plain, plain, kernel))
+        bound, by = bound_ms(step_flops(n, m, k), step_bytes(n, m, k, r))
+        step_times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by)
+        flat = torch.zeros((k * m + k * k + r * r + k + 3 * r,), device=dev)
+        mx = torch.zeros((1,), device=dev)
+        ar_ms = time_ms(lambda: (mesh.all_reduce(mx, "max"), mesh.all_reduce(flat, "sum")), iters)
+        cfg = preset if name == preset.name else fpreset
+        spec_s, st_s = (start if name == preset.name else fstart)(cfg)
+        chunk = shard_step.make_sharded_fused_chunk(spec_s, cfg, mesh)
+        local = parallel.shard_batch(batch_of[name], mesh)
+        steps = 500
+        sharded = lambda: chunk(st_s, local, steps)  # noqa: E731
+        mega = lambda: train_chunk.fused_train_chunk(st_s, batch_of[name], steps, spec_s, cfg)  # noqa: E731
+        a1, b1, b2, a2 = (time_ms(f, 1) * 1e3 / steps for f in (sharded, mega, mega, sharded))
+        step_us = (a1 + a2) / 2
+        rest_us = step_us - 1e3 * (step_times[name]["ms"] + ar_ms)
+        sharded_steps[name] = dict(chunk=chunk, state=st_s, local=local, us=step_us)
+        print(f"[8d time] {card}: {name} (n, m, K)=({n}, {m}, {k}): step kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us per "
+              f"launch, plain version {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us (kernel, plain, plain, kernel; {iters} calls "
+              f"each); bound {bound * 1e3:.1f} us ({by}, {step_flops(n, m, k) / 1e9:.3f} GFLOP); sharded step over "
+              f"{steps}-step chunks {a1:.1f}/{a2:.1f} us against the mega-kernel's epoch {b1:.1f}/{b2:.1f} us "
+              f"(sharded, mega, mega, sharded): kernel {1e3 * step_times[name]['ms']:.1f} + all-reduces (max, sum; "
+              f"{ar_ms * 1e3:.1f} alone) + the rest {rest_us:.1f} us (the host's update ops and the gaps); end to end "
+              f"{sharded_runs[name]['sps']:.1f} steps/s against the mega-kernel path's "
+              f"{slice_sps if name == preset.name else fslice_sps:.1f}")
+    # the device's busy time per sharded step: a profiler window of 50 steps,
+    # the time of its device events (the kernels and copies, not the host
+    # operations that launched them) over the unprofiled step time above. It
+    # runs after every timing: the profiler's tracing can stay attached.
+    for name, sh in sharded_steps.items():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            sh["chunk"](sh["state"], sh["local"], 50)
+            torch.cuda.synchronize()
+        device_us = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+        print(f"[8d busy] {card}: {name} sharded step: " + (
+            "device time not measured (the profiler saw no device event)" if device_us <= 0 else
+            f"{device_us / 50:.1f} us of device time a step against {sh['us']:.1f} us a step, a busy share of "
+            f"{device_us / 50 / sh['us']:.1%}"))
+    torch.distributed.destroy_process_group()
+
+    # 9. the records
     print(json.dumps({"kernels": [
         {
             "name": "dual_contractions",
@@ -1015,6 +1208,19 @@ def main() -> int:
             "bound_by": ae_by,
             "library_ms": None,
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/shard_step.cu",
+            "replaces": "desmo_tpu/pallas/shard_step.py:74",
+            "launches": sharded_runs[preset_name]["launches"],
+            "max_abs_err": step_checks[preset_name]["max_abs"],
+            **step_times[preset_name],
+            "library_ms": None,
+        }
+        for name, preset_name in (("step_partials (cylinder over space=1)", preset.name),
+                                  ("step_partials (fourier_cylinder over space=1)", fpreset.name))
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

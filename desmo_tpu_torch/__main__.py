@@ -9,6 +9,8 @@
     python -m desmo_tpu_torch run --preset cylinder --synthetic --sweep-beta 1e-3,1e-2
     python -m desmo_tpu_torch run --preset ae_cylinder --synthetic --chunk-method megakernel
     python -m desmo_tpu_torch run --preset ae_cylinder --synthetic --ae-recipe
+    python -m desmo_tpu_torch run --preset cylinder --synthetic --mesh space=1
+    torchrun --nproc-per-node 2 -m desmo_tpu_torch run --preset cylinder --synthetic --device cpu --mesh space=2
 
 ``run`` trains on the GPU by default and raises when there is none; the plain
 PyTorch path runs only with ``--device cpu``. ``--chunk-method`` sets the
@@ -19,7 +21,10 @@ and keeps the best (the packed mega-kernel on a GPU); ``--sweep-beta``,
 (beta, lambda, LR scale), whose size is the default ``--seeds``. The AE
 variant keeps the JAX package's policy: ``auto`` is the eager loop, and
 ``--chunk-method megakernel`` takes its kernel; ``--ae-recipe`` and
-``--ae-data-omega`` turn on its convergence recipe.
+``--ae-data-omega`` turn on its convergence recipe. ``--mesh space=d`` shards
+the rows over d processes, one per device (``torchrun --nproc-per-node d``;
+one process alone for d = 1), through the sharded step kernel, one launch
+and one all-reduce per step; only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -43,13 +48,26 @@ def cmd_presets(_args) -> int:
     return 0
 
 
+def _parse_mesh(spec_str, device):
+    """'space=4[,time=1]' -> a ``parallel.SpaceMesh`` on ``device`` (or None)."""
+    if not spec_str:
+        return None
+    from desmo_tpu_torch.parallel import make_mesh
+
+    axes = {"space": None, "time": 1}
+    for part in spec_str.split(","):
+        name, _, val = part.partition("=")
+        if name not in axes or not val.isdigit():
+            raise SystemExit(
+                f"--mesh expects 'space=<d>[,time=<d>]', got {spec_str!r}"
+            )
+        axes[name] = int(val)
+    return make_mesh(n_space=axes["space"], n_time=axes["time"], device=device)
+
+
 def cmd_run(args) -> int:
     from desmo_tpu_torch import configs, runner
 
-    if args.mesh:
-        raise NotImplementedError(
-            "desmo_tpu_torch does not run a device mesh (--mesh) yet (ROADMAP queue 1, item 8)"
-        )
     cfg = configs.get(args.preset)
     overrides = {}
     if args.epochs is not None:
@@ -83,6 +101,7 @@ def cmd_run(args) -> int:
             overrides["n_seeds"] = n_combo
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    device_mesh = _parse_mesh(args.mesh, args.device)
     x, _mesh = runner.load_data(
         cfg,
         data_dir=args.data_dir,
@@ -96,12 +115,15 @@ def cmd_run(args) -> int:
         synthetic=args.synthetic,
         dim=args.dim,
     )
-    artifacts = runner.run(cfg, x, out_dir=args.out_dir, device=args.device)
+    artifacts = runner.run(cfg, x, out_dir=args.out_dir, device=args.device, device_mesh=device_mesh)
+    if device_mesh is not None and device_mesh.rank != 0:
+        return 0
     summary = {
         "preset": cfg.name,
         "device": args.device,
         "chunk_method": cfg.chunk_method,
         "n_seeds": cfg.n_seeds,
+        "mesh": args.mesh,
         "relative_error": artifacts.relative_error,
         "pod_error_r": artifacts.pod_error_r,
         "pod_error_2r": artifacts.pod_error_2r,
@@ -134,7 +156,8 @@ def main(argv=None) -> int:
     p_run.add_argument("--out-dir", default="./runs")
     p_run.add_argument(
         "--mesh", default=None, metavar="SPEC",
-        help="multi-device sharding, as in desmo_tpu: not ported yet (raises)",
+        help="space=d: shard the rows over d processes, one per device (torchrun --nproc-per-node d; "
+        "one process for d=1); time=1 only",
     )
     p_run.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],

@@ -265,7 +265,7 @@ def make_ensemble_chunk(loss_fn, group_of: dict[str, str], cfg: RunConfig, n_see
     ``total_s`` (num_steps, S) and ``total`` (num_steps,)."""
     if param_shardings is not None:
         raise NotImplementedError(
-            "desmo_tpu_torch does not run the ensemble over a device mesh yet (ROADMAP queue 1, item 8)"
+            "desmo_tpu_torch does not run the ensemble over a device mesh yet (ROADMAP queue 1, item 5: the packed sharded ensemble)"
         )
 
     def chunk(state: train.TrainState, batch: dict, num_steps: int):
@@ -423,7 +423,7 @@ def fit(
     single-seed params, for :func:`term_stability`)."""
     if device_mesh is not None:
         raise NotImplementedError(
-            "desmo_tpu_torch does not run the ensemble over a device mesh yet (ROADMAP queue 1, item 8)"
+            "desmo_tpu_torch does not run the ensemble over a device mesh yet (ROADMAP queue 1, item 5: the packed sharded ensemble)"
         )
     device = batch["x"].device
     if method is None:

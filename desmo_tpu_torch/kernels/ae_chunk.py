@@ -55,7 +55,7 @@ from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch import library, optim
 from desmo_tpu_torch.kernels import _build
 from desmo_tpu_torch.kernels._chunk_optim import (
-    _BEST, _COUNT, _EPOCH, _LR0, _NUMBAD, _POW, B1, SCHED_THRESHOLD, SVEC, _adamax_,
+    _BEST, _COUNT, _EPOCH, _LR0, _NUMBAD, _POW, B1, SVEC, _adamax_, sched_step_,
 )
 from desmo_tpu_torch.models import autoencoder as ae_model
 from desmo_tpu_torch.train import ChunkFn, TrainState
@@ -299,29 +299,14 @@ def ae_chunk_plain(state: TrainState, batch: dict, num_steps: int, spec, cfg):
         total = rec + beta * ortho + lam * l1 + ae_beta * ae
         rows.append(torch.stack([rec, ortho, l1, total, torch.max(torch.abs(args)), ae]))
         # Adamax with the LRs in force before this step's scheduler step
-        powb = sv[_POW] * B1
-        bias = 1.0 - powb
+        bias = 1.0 - sv[_POW] * B1
         lrs = sv[_LR0:_LR0 + 5].clone()
         for k, gk in grads.items():
             _adamax_(W[k], W_mu[k], W_nu[k], gk, lrs[_G_Z], bias)
         _adamax_(bm, b_mu, b_nu, g_b, lrs[_G_Z], bias)
         _adamax_(c, c_mu, c_nu, g_coef, lrs[_G_COEF], bias)
         _adamax_(om, om_mu, om_nu, g_om, lrs[_G_OMEGA], bias)
-        # the plateau scheduler
-        best, num_bad, epoch = sv[_BEST].clone(), sv[_NUMBAD].clone(), sv[_EPOCH].clone()
-        improved = total < best * (1.0 - SCHED_THRESHOLD)
-        best_n = torch.where(improved, total, best)
-        nb = torch.where(improved, torch.zeros_like(num_bad), num_bad + 1.0)
-        red = nb > float(cfg.patience)
-        stepped = torch.where(red, torch.clamp(lrs * float(cfg.sched_factor), min=float(cfg.sched_min_lr)), lrs)
-        nb = torch.where(red, torch.zeros_like(nb), nb)
-        do = torch.remainder(epoch, float(cfg.sched_every)) == 0.0
-        sv[_LR0:_LR0 + 5] = torch.where(do, stepped, lrs)
-        sv[_BEST] = torch.where(do, best_n, best)
-        sv[_NUMBAD] = torch.where(do, nb, num_bad)
-        sv[_POW] = powb
-        sv[_COUNT] = sv[_COUNT] + 1.0
-        sv[_EPOCH] = epoch + 1.0
+        sched_step_(sv[None], total.reshape(1), cfg)  # the plateau scheduler
     return unpack(cs, state, num_steps), _metrics(torch.stack(rows))
 
 

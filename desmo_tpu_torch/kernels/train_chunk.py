@@ -69,7 +69,7 @@ from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch import library, optim
 from desmo_tpu_torch.kernels import _build, ae_chunk
 from desmo_tpu_torch.kernels._chunk_optim import (
-    _BEST, _BETA, _COUNT, _EPOCH, _LAM, _LR0, _NUMBAD, _POW, B1, SCHED_THRESHOLD, SVEC, _adamax_,
+    _BEST, _BETA, _LAM, _LR0, _NUMBAD, _POW, B1, SVEC, _adamax_, sched_step_,
 )
 from desmo_tpu_torch.models import fourier
 from desmo_tpu_torch.train import ChunkFn, TrainState
@@ -489,22 +489,7 @@ def train_chunk_plain_packed(state: TrainState, batch: dict, num_steps: int, spe
             _adamax_(zc, zc_mu, zc_nu, g_zc.view(S, K, nc), lrs[:, 2, None, None], bias)
             _adamax_(per, per_mu, per_nu, g_per.view(S, K), lrs[:, 4:5], bias)
         _adamax_(om, om_mu, om_nu, g_om, lrs[:, 3:4], bias)
-        # the plateau schedulers, one per seed
-        best, num_bad, epoch = sv[:, _BEST].clone(), sv[:, _NUMBAD].clone(), sv[0, _EPOCH].clone()
-        improved = total < best * (1.0 - SCHED_THRESHOLD)
-        best_n = torch.where(improved, total, best)
-        nb = torch.where(improved, torch.zeros_like(num_bad), num_bad + 1.0)
-        red = nb > float(cfg.patience)
-        stepped = torch.where(red[:, None], torch.clamp(lrs * float(cfg.sched_factor), min=float(cfg.sched_min_lr)),
-                              lrs)
-        nb = torch.where(red, torch.zeros_like(nb), nb)
-        do = torch.remainder(epoch, float(cfg.sched_every)) == 0.0
-        sv[:, _LR0:_LR0 + 5] = torch.where(do, stepped, lrs)
-        sv[:, _BEST] = torch.where(do, best_n, best)
-        sv[:, _NUMBAD] = torch.where(do, nb, num_bad)
-        sv[:, _POW] = powb
-        sv[:, _COUNT] = sv[:, _COUNT] + 1.0
-        sv[:, _EPOCH] = epoch + 1.0
+        sched_step_(sv, total, cfg)  # the plateau schedulers, one per seed
     return unpack_seeds(cs, state, num_steps), _seed_metrics(torch.stack(rows), torch.stack(maxargs))
 
 

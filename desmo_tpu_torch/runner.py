@@ -1,7 +1,9 @@
 """End-to-end pipeline: load -> preprocess -> POD -> train -> error ->
 sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo, Fourier and
 AE variants on one device, one seed or (desmo and Fourier) a seed-packed
-ensemble (``n_seeds > 1``, ``ensemble.fit``), with no holdout and no figures.
+ensemble (``n_seeds > 1``, ``ensemble.fit``), and for one desmo or Fourier
+seed with its rows sharded over a device mesh (``device_mesh``, the sharded
+step kernel), with no holdout and no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -17,10 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from desmo_tpu_torch import checkpoint, configs, ensemble, losses, pod, sparsify, train
+from desmo_tpu_torch import checkpoint, configs, ensemble, losses, parallel, pod, sparsify, train
 from desmo_tpu_torch import data as data_mod
 from desmo_tpu_torch import device as device_mod
-from desmo_tpu_torch.kernels import train_chunk
+from desmo_tpu_torch.kernels import shard_step, train_chunk
 from desmo_tpu_torch.logging_utils import MetricsLogger
 from desmo_tpu_torch.models import autoencoder as ae_model
 from desmo_tpu_torch.models import desmo as desmo_model
@@ -118,11 +120,11 @@ def check_supported(cfg: configs.RunConfig) -> None:
         todo.append(f"variant {cfg.variant!r}")
     if cfg.variant == "fourier" and cfg.period_multistart > 1 and cfg.n_seeds <= 1:
         # with n_seeds > 1 the period candidates train as per-seed inits
-        todo.append("the Fourier period multi-start of one seed, period_multistart > 1 (ROADMAP queue 1, item 5b)")
+        todo.append("the Fourier period multi-start of one seed, period_multistart > 1 (ROADMAP queue 1, item 4)")
     if cfg.pod_method != "host":
-        todo.append(f"pod_method={cfg.pod_method!r} (ROADMAP queue 1, item 9)")
+        todo.append(f"pod_method={cfg.pod_method!r} (ROADMAP queue 1, item 6)")
     if cfg.run_greedy_prune:
-        todo.append("greedy pruning, run_greedy_prune=True (ROADMAP queue 1, item 3)")
+        todo.append("greedy pruning, run_greedy_prune=True (ROADMAP queue 1, item 2)")
     if todo:
         raise NotImplementedError("desmo_tpu_torch does not run " + "; ".join(todo) + " yet")
 
@@ -232,6 +234,46 @@ def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log) -> tr
     return result
 
 
+def select_sharded_chunk(spec, cfg: configs.RunConfig, mesh: parallel.SpaceMesh) -> train.ChunkFn:
+    """The chunk of a run over a device mesh, the policy of
+    ``desmo_tpu/runner.py:367-402``: the sharded step kernel's chunk
+    (``kernels.shard_step``) for the desmo and Fourier variants under
+    ``chunk_method`` 'auto' (with the loss method 'auto' or 'fused') or
+    'megakernel'. 'megakernel' on a configuration the kernel does not take
+    raises ``ValueError``; what the JAX package runs through its eager path
+    over the mesh instead raises ``NotImplementedError``, as do several
+    seeds."""
+    if cfg.n_seeds > 1:
+        raise NotImplementedError(
+            "desmo_tpu_torch does not run several seeds over a device mesh yet "
+            "(ROADMAP queue 1, item 5: the packed sharded ensemble)"
+        )
+    method = cfg.chunk_method
+    kernel_ok = method == "megakernel" or cfg.loss_method in ("auto", "fused")
+    if method != "scan" and kernel_ok and shard_step.supports_sharded(spec, cfg):
+        return shard_step.make_sharded_fused_chunk(spec, cfg, mesh)
+    if method == "megakernel":
+        raise ValueError(
+            f"chunk_method='megakernel' but preset {cfg.name!r} has no sharded mega-kernel (variant/terms) "
+            "— see kernels.shard_step.supports_sharded"
+        )
+    raise NotImplementedError(
+        f"desmo_tpu_torch does not run the eager loop over a device mesh (variant {cfg.variant!r}, "
+        f"chunk_method={method!r}, loss_method={cfg.loss_method!r}) yet "
+        "(ROADMAP queue 1, item 5: the eager path over a mesh and the time axis)"
+    )
+
+
+def _rows_of_phi(state: train.TrainState, fn) -> train.TrainState:
+    """``state`` with ``fn`` applied to phi and its moments."""
+    return dataclasses.replace(
+        state,
+        params={**state.params, "phi": fn(state.params["phi"])},
+        mu={**state.mu, "phi": fn(state.mu["phi"])},
+        nu={**state.nu, "phi": fn(state.nu["phi"])},
+    )
+
+
 def build_model(cfg: configs.RunConfig, device: torch.device):
     """``(spec, params, loss_fn, groups)`` for the config's variant on ``device``."""
     check_supported(cfg)
@@ -323,8 +365,10 @@ def run(
     *,
     device: str | torch.device = "cuda",
     holdout: float = 0.0,
+    device_mesh: parallel.SpaceMesh | None = None,
 ) -> RunArtifacts:
-    """Train, report and export one preset on ``device``.
+    """Train, report and export one preset on ``device``, or on the ranks of
+    ``device_mesh`` (``parallel.make_mesh``; then on its device).
 
     Writes ``<out_dir>/<name>/``: the CSV/JSONL metrics, ``state_final.npz``,
     ``<name>_r<r>_final.pt`` and, every ``checkpoint_every`` epochs,
@@ -336,24 +380,47 @@ def run(
     written. ``ga_single_pass`` is a
     TPU shortcut of the mega-kernel's Gram and is ignored: the port's kernel
     computes the exact Gram. ``holdout`` (forecasting at held-out times) is
-    not ported yet and raises when set."""
+    not ported yet and raises when set.
+
+    Over a mesh (:func:`select_sharded_chunk`), every rank holds all of X
+    and trains its rows of phi (``parallel.shard_batch``); rank 0 computes
+    the POD and the initial parameters and broadcasts them. Phi and its
+    moments are gathered only for the exports, the relative error and the
+    sweep, which every rank then holds; only rank 0 writes files and prints,
+    and only its POD errors are numbers (NaN on the other ranks)."""
     if holdout:
         raise NotImplementedError(
-            "desmo_tpu_torch does not run holdout forecasting (ROADMAP queue 1, item 5b) yet"
+            "desmo_tpu_torch does not run holdout forecasting (ROADMAP queue 1, item 4) yet"
         )
-    dev = device_mod.resolve(device)
+    dev = device_mod.resolve(device if device_mesh is None else device_mesh.device)
+    lead = device_mesh is None or device_mesh.rank == 0
     cfg = single_seed_sweep(dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1]))
     check_supported(cfg)
     out_dir = os.path.join(out_dir, cfg.name)
-    os.makedirs(out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
     spec, params, loss_fn, groups = build_model(cfg, dev)
-    p, p2 = compute_pod(cfg, x, dev)  # the AE variant's error table still has POD's rows
     ae = cfg.variant == "ae"
-    batch = prepare_batch(x, None if ae else p.modes, dev)
+    if device_mesh is None:
+        p, p2 = compute_pod(cfg, x, dev)  # the AE variant's error table still has POD's rows
+        modes = None if ae else p.modes
+    else:
+        chunk = select_sharded_chunk(spec, cfg, device_mesh)
+        if lead:
+            p, p2 = compute_pod(cfg, x, dev)
+            modes = p.modes.contiguous()
+        else:
+            p = p2 = None
+            modes = torch.empty((cfg.n, cfg.r), dtype=torch.float32, device=dev)
+        for t in [modes, *params.values()]:  # rank 0's, so that the ranks cannot drift apart
+            device_mesh.broadcast(t)
+    batch = prepare_batch(x, modes, dev)
 
-    logger = MetricsLogger(out_dir, cfg.name, echo=False)
+    logger = MetricsLogger(out_dir, cfg.name, echo=False) if lead else None
 
     def export(state: train.TrainState, tag: str) -> None:
+        if not lead:
+            return
         checkpoint.save_state(os.path.join(out_dir, f"state_{tag}.npz"), state)
         checkpoint.save_pt(
             os.path.join(out_dir, f"{cfg.name}_r{cfg.r}_{tag}.pt"),
@@ -361,12 +428,26 @@ def run(
         )
 
     n_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
-    log = (lambda line: print(line, flush=True)) if echo else None
+    log = (lambda line: print(line, flush=True)) if echo and lead else None
     if ae and cfg.ae_recipe:
         cfg, params, loss_fn = ae_recipe(cfg, spec, params, groups, batch, dev, log)
     elif ae and cfg.ae_omega_data_scaled:
         params = dict(params, omega=ae_model.data_scaled_omega(params, batch["x"]))
-    if cfg.n_seeds > 1:
+    if device_mesh is not None:
+
+        def gather(state: train.TrainState) -> train.TrainState:
+            return _rows_of_phi(state, lambda t: device_mesh.gather_rows(t, cfg.n))
+
+        result = train.fit(
+            loss_fn, groups, cfg, params, parallel.shard_batch(batch, device_mesh),
+            num_epochs=n_epochs,
+            log=log,
+            checkpoint_fn=lambda state, epoch: export(gather(state), f"epoch{epoch}"),
+            state=_rows_of_phi(train.init_state(params, cfg), lambda t: parallel.local_rows(t, device_mesh)),
+            chunk=chunk,
+        )
+        result.state = gather(result.state)
+    elif cfg.n_seeds > 1:
         result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log)
     else:
         result = train.fit(
@@ -376,15 +457,17 @@ def run(
             checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
             chunk=train_chunk.select_chunk(spec, cfg, dev),
         )
-    for i in range(0, result.state.epoch, cfg.log_every):
-        logger.log_epoch(i, n_epochs, {k: v[i] for k, v in result.history.items()})
-    logger.close()
+    if logger is not None:
+        for i in range(0, result.state.epoch, cfg.log_every):
+            logger.log_epoch(i, n_epochs, {k: v[i] for k, v in result.history.items()})
+        logger.close()
 
     with torch.no_grad():
         recon = reconstruct(result.state.params, batch, spec, cfg.variant)
         err = float(losses.relative_frobenius_error(batch["x"], recon))
-        err_pod = pod.pod_relative_error(batch["x"], p)
-        err_pod2 = pod.pod_relative_error(batch["x"], p2)
+        err_pod = pod.pod_relative_error(batch["x"], p) if lead else float("nan")
+        err_pod2 = pod.pod_relative_error(batch["x"], p2) if lead else float("nan")
+    echo = echo and lead
     if echo:
         print(f"DESMO error with {cfg.r} modes: {err}")
         print(f"POD error with {cfg.r} modes: {err_pod}")

@@ -41,6 +41,7 @@ from desmo_tpu.pallas import train_chunk as jtc  # noqa: E402
 from desmo_tpu_torch import __main__ as cli  # noqa: E402
 from desmo_tpu_torch import checkpoint, configs, runner, train  # noqa: E402
 from desmo_tpu_torch.kernels import _build, ae_chunk, train_chunk  # noqa: E402
+from desmo_tpu_torch.kernels._chunk_optim import B1  # noqa: E402
 from desmo_tpu_torch.models import autoencoder as ae  # noqa: E402
 from desmo_tpu_torch.models import desmo  # noqa: E402
 
@@ -182,6 +183,38 @@ def test_plain_chunk_matches_eager_loop():
     assert_params_two_tiers(fused.state.params, {k: v.numpy() for k, v in eager.state.params.items()})
     np.testing.assert_array_equal(fused.state.sched.lrs.numpy(), eager.state.sched.lrs.numpy())
     assert 0.0 < fused.max_abs_trig_arg < 100.0
+
+
+def test_zero_latent_rows_take_the_autograd_polynomial_gradient():
+    """At a latent with exact-zero rows the plain AE chunk's first-epoch
+    gradients equal torch autograd of the port's factored AE loss. With the
+    encoder's biases zeroed, every row of X that is zero has every
+    pre-activation 0.0 and so a latent of exactly 0.0, as 2,048 of 3,961
+    rows have at ae_cylinder's Xavier/zero-bias init. The port's polynomial
+    backward is the product rule over the P factors, autodiff's value. The
+    reference AE kernel differs here: it divides the polynomial sum by the
+    latent and takes 0 where the latent is 0
+    (``desmo_tpu/pallas/ae_chunk.py:630-631``), which drops the degree-1
+    terms' gradient at those rows and moves the last encoder bias's
+    gradient. Each gradient is read from the first Adamax step's moment
+    (``mu = (1 - b1) g`` from zero) and held to 1e-5 of its largest
+    entry."""
+    cfg = tiny_cfg()
+    spec, batch, state = port_start(cfg)
+    params = {k: torch.zeros_like(v) if k.startswith("ae_enc_b") else v for k, v in state.params.items()}
+    x = batch["x"].clone()
+    x[::2] = 0.0
+    batch = {"x": x, "x_sq": torch.sum(x * x), "x_colsum": x.sum(0)}
+    lat = ae.encode_decode(params, x)[0]
+    assert bool((lat[::2] == 0.0).all()) and bool((lat[1::2] != 0.0).all())
+    after, _ = ae_chunk.ae_chunk_plain(train.init_state(params, cfg), batch, 1, spec, cfg)
+    loss_fn = ae.build_loss(spec, cfg.beta, cfg.l1_lambda, cfg.ae_beta, method="factored")
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    grads = dict(zip(leaves, torch.autograd.grad(loss_fn(leaves, batch)[0], list(leaves.values()))))
+    for key, want in grads.items():
+        got = after.mu[key] / (1.0 - B1)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), key
+    assert float(grads[f"ae_enc_b{ae.N_LAYERS - 1}"].abs().max()) > 0.0
 
 
 @pytest.mark.parametrize(

@@ -352,7 +352,7 @@ def test_fit_fourier_period_multistart():
 
 def test_fit_refuses_a_mesh():
     cfg, _, spec, _, x, modes, _ = problem()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5: the packed sharded ensemble"):
         ensemble.fit(cfg, spec, batches(x, modes)[0], n_seeds=2, num_epochs=2, device_mesh=object(), log=None)
 
 
@@ -422,7 +422,7 @@ def test_runner_single_seed_sweeps():
 def test_period_multistart_needs_seeds(tmp_path):
     cfg = dataclasses.replace(configs.get("fourier_cylinder"), n_fourier=3, period_init=20.0, period_multistart=4)
     runner.check_supported(dataclasses.replace(cfg, n_seeds=2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         runner.check_supported(cfg)
 
 

@@ -15,9 +15,10 @@ import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from desmo_tpu_torch import configs, ensemble, losses, pod, runner, train  # noqa: E402
+from desmo_tpu_torch import configs, ensemble, losses, parallel, pod, runner, train  # noqa: E402
+from desmo_tpu_torch import device as device_mod  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
-from desmo_tpu_torch.kernels import ae_chunk, dual_gemm, train_chunk  # noqa: E402
+from desmo_tpu_torch.kernels import ae_chunk, dual_gemm, shard_step, train_chunk  # noqa: E402
 from desmo_tpu_torch.models import autoencoder, desmo, fourier  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -380,3 +381,103 @@ def test_ae_phase_split_and_runner_paths(cuda, tmp_path):
         assert tuple(fn.launches for fn in counters) == want, method
         assert np.isfinite(art.history["total"]).all() and len(art.history["ae"]) == 300
         assert len(art.sweep) == 14
+
+
+def _step_inputs(cfg, spec, batch, state):
+    """The step kernel's arguments at the state: all rows, B built from the
+    series for the Fourier form."""
+    cs = train_chunk.pack_seeds(train_chunk.stack_seed(state), [cfg.beta], [cfg.l1_lambda])
+    if cs.series is None:
+        b = cs.b[0]
+    else:
+        tw = torch.as_tensor(fourier.TWO_PI * fourier.t_points(cfg.m), device=batch["x"].device)
+        b = train_chunk.series_forward(cs.series[0], cs.periods[0], tw)[0]
+    return (batch["pod_modes"], batch["x"], cs.phi[0], b, b @ b.T, cs.coef[0], cs.omega[0])
+
+
+@pytest.mark.parametrize("preset", ["cylinder", "fourier_cylinder"])
+def test_step_kernel_matches_plain_version(cuda, preset):
+    """The step kernel at the preset's full width from the live init at
+    omega_init=1, over all rows and over 2 and 3 uneven shards with the
+    partials summed, against the plain version over all rows in float64:
+    each summed part within 5e-6 of its largest entry (the dual
+    contraction's contract), dl within 1e-5; max_arg equal to the float32
+    plain version's; two launches give the same bits. The float32 plain
+    version is no yardstick for AᵀX: cuBLAS sums it over n in one chain,
+    and the constant column's sums of X cancel (6.4e-6 of max|AᵀX| from
+    float64 at cylinder, 2.3e-5 at fourier_cylinder; the kernel 8.9e-7)."""
+    device_mod.fp32_matmul()
+    if preset == "cylinder":
+        cfg, spec, batch, state = _chunk_problem(cuda, 3961, 1001, 4, 3, omega_init=1.0, lr_omega=1.0)
+    else:
+        cfg, spec, batch, state = _fourier_problem(cuda, preset, omega_init=1.0, lr_omega=1.0)
+    args = _step_inputs(cfg, spec, batch, state)
+    n, m, r = cfg.n, cfg.m, cfg.r
+    K = spec.num_poly_terms + 3 * r
+    ref32 = shard_step.step_partials_plain(*args, spec, n)
+    ref = shard_step.step_partials_plain(*(a.double() for a in args), spec, n)
+    launches = shard_step.step_partials.launches
+    first = shard_step.step_partials(*args, spec, n)
+    again = shard_step.step_partials(*args, spec, n)
+    torch.cuda.synchronize()
+    assert shard_step.step_partials.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for d in (1, 2, 3):
+        bounds = [parallel.row_range(n, d, k) for k in range(d)]
+        parts = [shard_step.step_partials(args[0][lo:hi].contiguous(), args[1][lo:hi].contiguous(),
+                                          args[2][:, lo:hi].contiguous(), *args[3:], spec, n) for lo, hi in bounds]
+        torch.cuda.synchronize()
+        dl = torch.cat([p[0] for p in parts])
+        assert (dl.double() - ref[0]).abs().max() <= 1e-5 * ref[0].abs().max()
+        summed = shard_step.split_sums(sum(p[1] for p in parts), K, m, r)
+        for name, got, want in zip(("ax", "ga", "latg", "gcoef", "gomega"), summed, shard_step.split_sums(ref[1], K, m, r)):
+            assert (got.double() - want).abs().max() <= 5e-6 * want.abs().max(), (d, name)
+        assert float(max(p[2] for p in parts)) == float(ref32[2])
+
+
+@pytest.mark.parametrize("preset", ["cylinder", "fourier_cylinder"])
+def test_sharded_chunk_matches_mega_kernel(cuda, preset):
+    """The sharded chunk on a one-rank NCCL mesh against the mega-kernel from
+    the live init at omega_init=1: one epoch from one state, metrics within
+    2e-4 (ortho plus 1e-5 absolute) and params within 1e-5 of each array's
+    largest entry; 25 epochs, rec and total within 2e-4 and params within
+    2e-3, as the mega-kernel against its plain chunk."""
+    mesh = parallel.make_mesh(1, device=cuda)
+    if preset == "cylinder":
+        cfg, spec, batch, state = _chunk_problem(cuda, 3961, 1001, 4, 3, omega_init=1.0, lr_omega=1.0)
+    else:
+        cfg, spec, batch, state = _fourier_problem(cuda, preset, omega_init=1.0, lr_omega=1.0)
+    chunk = shard_step.make_sharded_fused_chunk(spec, cfg, mesh)
+    local = parallel.shard_batch(batch, mesh)
+    launches = shard_step.step_partials.launches
+    s1, m1 = chunk(state, local, 1)
+    k1, mk1 = train_chunk.fused_train_chunk(state, batch, 1, spec, cfg)
+    torch.cuda.synchronize()
+    assert shard_step.step_partials.launches == launches + 1
+    for key in train_chunk.METRICS:
+        atol = 1e-5 if key == "ortho" else 0.0
+        assert (m1[key] - mk1[key]).abs().max() <= 2e-4 * mk1[key].abs().max() + atol, key
+    for key in s1.params:
+        assert (s1.params[key] - k1.params[key]).abs().max() <= 1e-5 * k1.params[key].abs().max(), key
+    s25, m25 = chunk(state, local, 25)
+    k25, mk25 = train_chunk.fused_train_chunk(state, batch, 25, spec, cfg)
+    for key in ("rec", "total"):
+        assert ((m25[key] - mk25[key]).abs() / mk25[key].abs()).max() <= 2e-4, key
+    for key in s25.params:
+        assert (s25.params[key] - k25.params[key]).abs().max() <= 2e-3 * k25.params[key].abs().max(), key
+    assert s25.epoch == 25 and torch.equal(s25.sched.lrs, k25.sched.lrs)
+
+
+def test_runner_over_a_one_rank_mesh(cuda, tmp_path):
+    """``runner.run`` over a one-rank NCCL mesh: one step kernel launch per
+    epoch, no other kernel, the exports written."""
+    mesh = parallel.make_mesh(1, device=cuda)
+    cfg = dataclasses.replace(configs.get("cylinder"), checkpoint_every=100)
+    x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
+    counters = (shard_step.step_partials, train_chunk.fused_train_chunk, dual_gemm.dual_contractions)
+    for fn in counters:
+        fn.launches = 0
+    art = runner.run(cfg, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda, device_mesh=mesh)
+    assert [fn.launches for fn in counters] == [300, 0, 0]
+    assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14
+    assert {"state_final.npz", "cylinder_r4_final.pt"} <= {p.name for p in (tmp_path / "cylinder").iterdir()}

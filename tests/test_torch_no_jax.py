@@ -39,6 +39,7 @@ MODULES = [
     "desmo_tpu_torch.kernels._chunk_optim",
     "desmo_tpu_torch.kernels.ae_chunk",
     "desmo_tpu_torch.kernels.dual_gemm",
+    "desmo_tpu_torch.kernels.shard_step",
     "desmo_tpu_torch.kernels.train_chunk",
     "desmo_tpu_torch.library",
     "desmo_tpu_torch.logging_utils",
@@ -47,6 +48,8 @@ MODULES = [
     "desmo_tpu_torch.models.desmo",
     "desmo_tpu_torch.models.fourier",
     "desmo_tpu_torch.optim",
+    "desmo_tpu_torch.parallel",
+    "desmo_tpu_torch.parallel.sharding",
     "desmo_tpu_torch.pod",
     "desmo_tpu_torch.runner",
     "desmo_tpu_torch.sparsify",
@@ -135,6 +138,12 @@ def test_cli_run_seeds_without_jax(tmp_path):
     packed eager loop); the run writes ensemble.json."""
     out_dir = _cli_run(tmp_path, None, extra=["--seeds", "2"])
     assert "ensemble.json" in os.listdir(out_dir)
+
+
+def test_cli_run_mesh_without_jax(tmp_path):
+    """The cylinder preset at full width over a one-rank mesh on the CPU (a
+    gloo group of this process; the sharded step kernel's plain version)."""
+    _cli_run(tmp_path, None, extra=["--mesh", "space=1"])
 
 
 def _cli_run(tmp_path, chunk_method, preset="cylinder", r=4, extra=()):

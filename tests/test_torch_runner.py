@@ -122,9 +122,9 @@ def test_state_dict_matches_jax_key_scheme(tmp_path):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ({"run_greedy_prune": True}, "queue 1, item 3"),
-        ({"variant": "fourier", "n_fourier": 3, "period_init": 20.0, "period_multistart": 4}, "queue 1, item 5b"),
-        ({"pod_method": "snapshots"}, "queue 1, item 9"),
+        ({"run_greedy_prune": True}, "queue 1, item 2"),
+        ({"variant": "fourier", "n_fourier": 3, "period_init": 20.0, "period_multistart": 4}, "queue 1, item 4"),
+        ({"pod_method": "snapshots"}, "queue 1, item 6"),
     ],
 )
 def test_unsupported_configs_raise(tmp_path, override, item):
@@ -165,15 +165,17 @@ def test_n_seeds_runs_the_packed_ensemble(tmp_path):
 
 
 def test_holdout_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5b"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
         runner.run(_slice_cfg(), synthetic.cylinder_wake(40, 20), out_dir=str(tmp_path), device="cpu", holdout=0.2)
 
 
 def test_cli_refuses_a_mesh(tmp_path):
+    """A mesh of four ranks needs four processes (``torchrun``): one process
+    alone refuses it. ``tests/test_torch_shard_step.py`` runs the mesh."""
     from desmo_tpu_torch.__main__ import main
 
     argv = ["run", "--preset", "cylinder", "--synthetic", "--device", "cpu", "--out-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match="space=4"):
         main(argv + ["--mesh", "space=4"])
 
 
