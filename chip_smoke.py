@@ -81,8 +81,9 @@ GRAD_RTOL = 2e-4
 # mega-kernel ortho vs plain: the absolute floor of tests/test_torch_train_chunk.py
 ORTHO_ATOL = 1e-5
 # the card's published peaks (H100 SXM, NVIDIA's data sheet): fp32 outside
-# the tensor cores, and HBM
+# the tensor cores, TF32 on the tensor cores (dense), and HBM
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -114,6 +115,46 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     the memory rate, whichever is longer."""
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bound_3xtf32_ms(contraction_flops: float, other_flops: float, nbytes: float) -> float:
+    """The least time under the mega-kernel's scheme: its two contractions
+    with X as three TF32 passes on the tensor cores, the rest at the fp32
+    rate, or the bytes at the memory rate, whichever is longer."""
+    return 1e3 * max(3 * contraction_flops / PEAK_TF32 + other_flops / PEAK_FP32, nbytes / PEAK_BYTES)
+
+
+def contraction_flops(n: int, m: int, k: int, seeds: int = 1) -> float:
+    """Operations of one epoch's two contractions with X, AᵀX and XBᵀ, at the
+    packed width K' = seeds k: 2nmK' each (the part of ``chunk_flops`` that
+    runs on the tensor cores)."""
+    return 2 * (2 * n * m * seeds * k)
+
+
+def kernel_forms(log: str) -> list[tuple[str, int, int, int]]:
+    """``(name, registers, bytes spilled, bytes of stack)`` of each kernel
+    function in ``-Xptxas -v``'s report, the mega-kernel's forms named by
+    their KP and form (registers -1 where the report gives none)."""
+    import re
+
+    forms, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Function properties for (\S+)", line)
+        if entry:
+            mangled = entry.group(1)
+            chunk = re.search(r"train_chunk_kernelILi(\d+)ELb([01])E", mangled)
+            probe = re.search(r"contract_probe_kernelILi(\d+)E", mangled)
+            name = (f"{'Fourier' if chunk.group(2) == '1' else 'desmo'} KP={chunk.group(1)}" if chunk
+                    else f"probe KP={probe.group(1)}" if probe else mangled)
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            forms.append([name, int(spill.group(1)), int(spill.group(2)) + int(spill.group(3))])
+        used = re.search(r"Used (\d+) registers", line)
+        if used and forms and forms[-1][0] == name:
+            forms[-1].append(int(used.group(1)))
+            name = None
+    return [(f[0], f[3] if len(f) > 3 else -1, f[2], f[1]) for f in forms]
 
 
 def chunk_flops(n: int, m: int, k: int, nf: int = 0, seeds: int = 1) -> float:
@@ -195,6 +236,11 @@ def main() -> int:
         report = [ln.split(":", 1)[-1].strip() for ln in _build.build_log(name).splitlines()
                   if "Used" in ln or "spill" in ln]
         print(f"[2 ptxas] {name}: {' | '.join(report)}")
+    forms = kernel_forms(_build.build_log("train_chunk"))
+    print("[2 ptxas] train_chunk by form: " + " | ".join(
+        f"{name}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack" for name, regs, spill, stack in forms))
+    check(len(forms) == 12 and all(spill == 0 for _, _, spill, _ in forms),
+          "the mega-kernel's forms (desmo and Fourier at KP=32/48/64/128, the probe) must build without spills")
 
     counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk,
                 ae_chunk.fused_ae_chunk, shard_step.step_partials)
@@ -395,6 +441,11 @@ def main() -> int:
     eager_loss = desmo.build_loss(spec, unit.beta, unit.l1_lambda, method="factored")
     eager = train.make_train_chunk(eager_loss, desmo.param_groups(st.params), unit)
     se, _ = eager(st, batch, PARITY_STEPS)
+    # the contraction probe's inputs (phase 7c): the dictionary and temporal
+    # matrix of the kernel's state after PARITY_STEPS epochs, and X
+    probe_inputs = {"cylinder": (desmo.spatial_dictionary(sk.params, batch["pod_modes"],
+                                                          desmo.factor_tensor(spec, dev))[0].contiguous(),
+                                 desmo.temporal_matrix(sk.params).contiguous(), batch["x"])}
     e_trace = {k: trace_rel(mk, mp, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
     ortho_diff = (mk["ortho"][1:] - mp["ortho"][1:]).abs()
     e_ortho = (ortho_diff / mp["ortho"][1:].abs()).max().item()
@@ -548,6 +599,12 @@ def main() -> int:
         pst = packed_state(cfg, spec, seeds)
         sk, mk = train_chunk.fused_ensemble_chunk(pst, pbatch, PARITY_STEPS, spec, cfg)
         torch.cuda.synchronize()
+        if tag == "5e":  # the packed columns of the seeds, for the contraction probe (phase 7c)
+            seeds_p = [train_chunk.seed_view(sk, s_).params for s_ in range(seeds)]
+            factors = desmo.factor_tensor(spec, dev)
+            probe_inputs[f"{cfg.name} S={seeds}"] = (
+                torch.cat([desmo.spatial_dictionary(q, pbatch["pod_modes"], factors)[0] for q in seeds_p], 1).contiguous(),
+                torch.cat([desmo.temporal_matrix(q) for q in seeds_p], 0).contiguous(), pbatch["x"])
         sp, mp = train_chunk.train_chunk_plain_packed(pst, pbatch, PARITY_STEPS, spec, cfg)
         sk2, mk2 = train_chunk.fused_ensemble_chunk(pst, pbatch, PARITY_STEPS, spec, cfg)
         torch.cuda.synchronize()
@@ -825,6 +882,8 @@ def main() -> int:
     state_bytes = 4 * 2 * (3 * preset.r * n + 3 * K * m + 3 * K + 9 * preset.r + train_chunk.SVEC)
     chunk_bytes = 4 * (n * m + n * preset.r + TIMED_STEPS * len(train_chunk.METRICS)) + state_bytes
     chunk_bound, chunk_by = bound_ms(TIMED_STEPS * chunk_flops(n, m, K), chunk_bytes)
+    chunk_bound3 = bound_3xtf32_ms(TIMED_STEPS * contraction_flops(n, m, K),
+                                   TIMED_STEPS * (chunk_flops(n, m, K) - contraction_flops(n, m, K)), chunk_bytes)
     loss_fn = desmo.build_loss(spec, preset.beta, preset.l1_lambda, method="fused")
     eager = train.make_train_chunk(loss_fn, desmo.param_groups(st.params), preset)
     eager_ms = time_ms(lambda: eager(st, batch, TIMED_STEPS), 2) / TIMED_STEPS
@@ -833,7 +892,8 @@ def main() -> int:
           f"{preset.checkpoint_every}-epoch chunk; over {TIMED_STEPS}-epoch chunks in turns: kernel "
           f"{k1 * per_epoch:.1f}/{k2 * per_epoch:.1f} us/epoch, plain chunk {p1 * per_epoch:.1f}/"
           f"{p2 * per_epoch:.1f} us/epoch; eager step {eager_ms * 1e3:.1f} us; bound "
-          f"{chunk_bound * per_epoch:.1f} us/epoch ({chunk_by}); slice {slice_sps:.1f} steps/s, "
+          f"{chunk_bound * per_epoch:.1f} us/epoch ({chunk_by}; 3xTF32: {chunk_bound3 * per_epoch:.1f}); "
+          f"slice {slice_sps:.1f} steps/s, "
           f"eager path {eager_sps:.1f} steps/s")
 
     phases: dict[str, float] = {}
@@ -858,17 +918,43 @@ def main() -> int:
     fstate_bytes = 4 * 2 * (3 * fr * n + 3 * fK * nc + 3 * fK + 3 * fK + 9 * fr + train_chunk.SVEC)
     fchunk_bytes = 4 * (n * m + n * fr + m + TIMED_STEPS * len(train_chunk.METRICS)) + fstate_bytes
     fourier_bound, fourier_by = bound_ms(TIMED_STEPS * chunk_flops(n, m, fK, fpreset.n_fourier), fchunk_bytes)
+    fourier_bound3 = bound_3xtf32_ms(
+        TIMED_STEPS * contraction_flops(n, m, fK),
+        TIMED_STEPS * (chunk_flops(n, m, fK, fpreset.n_fourier) - contraction_flops(n, m, fK)), fchunk_bytes)
     print(f"[7f time] {card}: Fourier mega-kernel at (n, m, K, nF)=({n}, {m}, {fK}, {fpreset.n_fourier}): "
           f"{flong_ms * 1e3 / fpreset.checkpoint_every:.1f} us/epoch over a {fpreset.checkpoint_every}-epoch chunk; "
           f"over {TIMED_STEPS}-epoch chunks in turns: kernel {k1 * per_epoch:.1f}/{k2 * per_epoch:.1f} us/epoch, "
           f"plain chunk {p1 * per_epoch:.1f}/{p2 * per_epoch:.1f} us/epoch; bound "
-          f"{fourier_bound * per_epoch:.1f} us/epoch ({fourier_by}); slice {fslice_sps:.1f} steps/s, "
+          f"{fourier_bound * per_epoch:.1f} us/epoch ({fourier_by}; 3xTF32: {fourier_bound3 * per_epoch:.1f}); "
+          f"slice {fslice_sps:.1f} steps/s, "
           f"eager path {feager_sps:.1f} steps/s")
     fsplit_total = sum(fsplit.values())
     print(f"[7f split] {card}: Fourier mega-kernel over a {fpreset.checkpoint_every}-epoch chunk (kernel clock, "
           f"block 0): prologue {fsplit['prologue'] * 1e6:.1f} us once; "
           + ", ".join(f"{k} {v * per_epoch_us:.1f} us/epoch ({v / fsplit_total:.1%})"
                       for k, v in fsplit.items() if k != "prologue") + "")
+
+    # 7c. the mega-kernel's two contractions alone (train_chunk.contract_probe:
+    # the kernel's own X·Bᵀ and AᵀX routines, one launch) against the plain
+    # version evaluated in float64, at cylinder and at aneurysm S=4 (K'=108),
+    # on the dictionaries and temporal matrices of phases 5 and 5e: the step
+    # kernel's contract, STEP_RTOL of max|ref|; two launches bit-identical
+    for name, (pa, pb, px) in probe_inputs.items():
+        xb, ax = train_chunk.contract_probe(pa, pb, px)
+        xb2, ax2 = train_chunk.contract_probe(pa, pb, px)
+        torch.cuda.synchronize()
+        same = torch.equal(xb, xb2) and torch.equal(ax, ax2)
+        rxb, rax = px.double() @ pb.double().T, pa.double().T @ px.double()
+        e_xb, e_ax = rel_err(xb.double(), rxb), rel_err(ax.double(), rax)
+        fxb, fax = train_chunk.contract_probe_plain(pa, pb, px)
+        probe_ms = time_ms(lambda: train_chunk.contract_probe(pa, pb, px), 20)
+        n, k = pa.shape
+        print(f"[7c probe] {card}: contractions at {name} (n, m, K)=({n}, {px.shape[1]}, {k}) against float64: "
+              f"X·Bᵀ {e_xb:.2e}, AᵀX {e_ax:.2e} of max|ref| (limit {STEP_RTOL:.0e}); the float32 plain version "
+              f"{rel_err(fxb.double(), rxb):.2e}, {rel_err(fax.double(), rax):.2e}; repeat launch bit-identical "
+              f"{same}; {probe_ms * 1e3:.1f} us per probe launch (both products and the A copy)")
+        check(e_xb <= STEP_RTOL and e_ax <= STEP_RTOL and same,
+              f"contraction probe at {name}: X·Bᵀ {e_xb:.2e}, AᵀX {e_ax:.2e} > {STEP_RTOL} or launches differ")
 
     # 7e/7ef. the packed kernel and the single-seed kernel at the same preset,
     # in turns over a 2,000-epoch chunk, with the packed form's phase split
@@ -895,13 +981,18 @@ def main() -> int:
                                + seeds * train_chunk.SVEC)
         nbytes = 4 * (n * m + n * r + (m if nf else 0) + TIMED_STEPS * seeds * len(train_chunk.METRICS)) + state_bytes
         bound, by = bound_ms(TIMED_STEPS * chunk_flops(n, m, ks, nf, seeds), nbytes)
+        bound3 = bound_3xtf32_ms(TIMED_STEPS * contraction_flops(n, m, ks, seeds),
+                                 TIMED_STEPS * (chunk_flops(n, m, ks, nf, seeds) - contraction_flops(n, m, ks, seeds)),
+                                 nbytes)
         single_bound, _ = bound_ms(TIMED_STEPS * chunk_flops(n, m, ks, nf), 4 * n * m)
         packed_us, single_us = (k1 + k2) / 2, (s1 + s2) / 2
         # the record's times are of one TIMED_STEPS-epoch chunk, as phases 7 and 7f's
-        packed_times[tag] = dict(ms=(q1 + q2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by)
+        packed_times[tag] = dict(ms=(q1 + q2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by,
+                                 bound_3xtf32_ms=bound3)
         print(f"[{tag} time] {card}: {cfg.name} {seeds} seeds (K'={kp}) as configured: packed kernel "
               f"{k1:.1f}/{k2:.1f} us/epoch, single-seed kernel {s1:.1f}/{s2:.1f} us/epoch (packed, single, single, "
-              f"packed; {E}-epoch chunks); bounds {bound * 1e3 / TIMED_STEPS:.1f} us/epoch packed ({by}), "
+              f"packed; {E}-epoch chunks); bounds {bound * 1e3 / TIMED_STEPS:.1f} us/epoch packed ({by}; "
+              f"3xTF32: {bound3 * 1e3 / TIMED_STEPS:.1f}), "
               f"{single_bound * 1e3 / TIMED_STEPS:.1f} single; over {TIMED_STEPS}-epoch chunks in turns: packed "
               f"kernel {q1 * 1e3 / TIMED_STEPS:.1f}/{q2 * 1e3 / TIMED_STEPS:.1f} us/epoch, plain packed chunk "
               f"{p1 * 1e3 / TIMED_STEPS:.1f}/{p2 * 1e3 / TIMED_STEPS:.1f} us/epoch; cost_vs_single_x "
@@ -1133,6 +1224,7 @@ def main() -> int:
             "plain_ms": chunk_plain_ms,
             "bound_ms": chunk_bound,
             "bound_by": chunk_by,
+            "bound_3xtf32_ms": chunk_bound3,
             "library_ms": None,
         },
         {
@@ -1146,6 +1238,7 @@ def main() -> int:
             "plain_ms": fourier_plain_ms,
             "bound_ms": fourier_bound,
             "bound_by": fourier_by,
+            "bound_3xtf32_ms": fourier_bound3,
             "library_ms": None,
         },
         {

@@ -13,46 +13,77 @@
 // Bound on an H100 SXM at the cylinder shape (n=3961, m=1001, r=4, P=3, so
 // T=35, K=47): an epoch needs about 0.78 GFLOP (AᵀX and XBᵀ 2nmK each, A·gb
 // 2nK², ga·B 2K²m, and the symmetric Grams AᵀA nK(K+1) and BBᵀ mK(K+1)) and
-// reads X (15.9 MB) once:
-// about 11.6 us at the 67 TFLOP/s fp32 rate outside the tensor cores, with
-// the X read (4.7 us at 3.35 TB/s) hidden under it. fp32-FMA-bound; X stays
-// in the 50 MB L2 from one epoch to the next.
+// reads X (15.9 MB) once: about 11.6 us at the 67 TFLOP/s fp32 rate outside
+// the tensor cores, with the X read (4.7 us at 3.35 TB/s) hidden under it.
+// The two contractions with X run on the tensor cores in three TF32 passes
+// (3xTF32, tile_mma.cuh): 2 x 3 x 2nmK at 495 TFLOP/s plus the rest at the
+// fp32 rate bounds the epoch at about 5.0 us. X (its padded copy) stays in
+// the 50 MB L2 from one epoch to the next.
 //
-// Design (simple first; wgmma/TMA and 3xTF32 are later work). The TPU's
-// sequential grid (num_steps + 1, row tiles) becomes a loop inside one
-// persistent cooperative launch of one block per SM; the grid size is an
-// argument and every split derives from it. The kernel is compiled for K
-// padded to 32, 48, 64 or 128, so its register tiles fit K. Per epoch, four
-// phases with a grid-wide barrier after each:
+// Design. The TPU's sequential grid (num_steps + 1, row tiles) becomes a
+// loop inside one persistent cooperative launch of one block per SM; the
+// grid size is an argument and every split derives from it. The kernel is
+// compiled for K padded to 32, 48, 64 or 128, so its tiles fit K. At the
+// launch's start every block copies X (n, m) and B (K, m) into the scratch
+// with rows padded to a multiple of 8 floats (zero beyond m), so that the
+// contractions stage them by 16-byte copies; the copy of B follows every
+// update of B. Per epoch, four phases with a grid-wide barrier after each
+// (and one inside the columns phase):
 //   1. rows: each block owns a contiguous row range. In tiles of kRT rows it
 //      builds lat = pod * phiᵀ, the library D and A = D * c in shared memory,
-//      writes A to scratch, forms xb = X Bᵀ for its rows (chunks of X and B
-//      staged in shared memory, the next chunk loaded into registers
-//      meanwhile), dA = 2/nm (A gb - xb), the per-row latent gradient dl, and
-//      per-block partials of AᵀA, latᵀlat, the coefficient and omega
-//      gradients and max |omega * lat|;
+//      writes A to scratch, forms xb = X Bᵀ for its rows (xb_tile), dA = 2/nm
+//      (A gb - xb), the per-row latent gradient dl, and per-block partials of
+//      AᵀA, latᵀlat, the coefficient and omega gradients and max |omega * lat|;
 //   2. reduce: the partials are summed over the blocks, one warp per entry;
 //   3. columns: each block applies the phi Adamax to its own rows (the ortho
-//      sign needs the reduced latᵀlat), then for its slab of columns forms
-//      ax = Aᵀ X (A read back from L2 in prefetched tiles, each thread
-//      holding up to 4 k x 8 columns), its share of sum(ax * B), gB = 2/nm
-//      (ga B - ax), the B Adamax, and its partial of the next epoch's B Bᵀ;
+//      sign needs the reduced latᵀlat); then ax = Aᵀ X through a 2-D split
+//      (ax_partials): the grid is cut into g_r row groups x g_c column slabs,
+//      block (i, j) writes the partial Aᵀ X of row group i over slab j to
+//      scratch, and after one more grid barrier the owner of each column sums
+//      the g_r partials in row-group order. Then for its slab of columns:
+//      its share of sum(ax * B), gB = 2/nm (ga B - ax), the B Adamax, and its
+//      partial of the next epoch's B Bᵀ;
 //   4. finalize: the B Bᵀ partials are summed; block 0 writes the metrics
 //      row, steps the coefficient and omega Adamax and the scheduler.
 // Every sum across threads or blocks runs in a fixed order, so two launches
-// give identical bits. At one block of 8 warps per SM most loops wait on
-// latency: the designs above keep several loads or FMA chains in flight per
-// thread. A per-phase clock (PhaseClock) says where the time goes. Products are plain fp32 FMA (the TPU's bf16 hi/lo
-// three-pass products, 128-lane AUG/WIDE packing, selection matmuls and
-// gathers, VMEM budgets and fast sin/cos do not carry over). Trig is CUDA's
-// full-range sincosf/tanhf (no fast math); the polynomial backward uses the
-// product rule over the P factors, so it needs no guard at lat == 0. The
-// kernel allocates nothing and does not synchronise; the entry point returns
-// the launch's cudaError_t.
+// give identical bits. A per-phase clock (PhaseClock) says where the time goes.
+//
+// The two contractions with X. A slab of AᵀX per block would stream all of A
+// back from L2 in every block (G reads of A per epoch: 98 MB at cylinder,
+// 1.5 GB at aneurysm with four seeds), and chunks of X and B staged through
+// registers one at a time leave the block waiting on L2.
+// - AᵀX reads A g_c times per epoch, not G times: g_c is near sqrt(2 G m / n),
+//   which balances A's g_c reads against the 2 g_r K m floats of partials
+//   (ax_split; at cylinder 16 x 8: A 6 MB, partials 6 MB, X once). A fold of
+//   AᵀX into the rows phase (X read once, as the TPU kernel does) would write
+//   G partials of K x m (2 x 24.8 MB at cylinder); the split writes g_r.
+// - Both stage their tiles through a ring of kStages shared-memory stages
+//   filled by 16-byte cp.async copies, kStages - 1 tiles ahead of the one in
+//   use: no thread holds a prefetch in registers.
+// - The products run on the tensor cores (mma.sync m16n8k8, 3xTF32: fp32
+//   grade, see tile_mma.cuh), each fragment loaded once from shared memory
+//   for several tiles, the layouts padded so that a warp's fragment loads hit
+//   32 distinct banks. X·Bᵀ splits its columns over the warps and adds the
+//   warps' sums in warp order; AᵀX gives each warp its own n8 tiles of the
+//   slab, sums each staged tile of rows on its own and adds it to the
+//   running sum, so no chain of additions is longer than about a hundred.
+// What bounds them now (measured on the H100 at cylinder): the staging alone
+// takes about 8 us of each, the fragment loads, TF32 splits and products
+// the rest; removing the products alone saves little. A's fragments are
+// read by every warp, so the thread that copies a piece of A splits it once
+// per tile. wgmma (64-row warpgroup tiles) and TMA are not used.
+//
+// The TPU's bf16 hi/lo three-pass products become TF32 ones; its 128-lane
+// AUG/WIDE packing, selection matmuls and gathers, VMEM budgets and fast
+// sin/cos do not carry over. Trig is CUDA's full-range sincosf/tanhf (no fast math); the
+// polynomial backward uses the product rule over the P factors, so it needs
+// no guard at lat == 0. The kernel allocates nothing and does not
+// synchronise; the entry point returns the launch's cudaError_t.
 //
 // The Fourier form (a template parameter, so the desmo form's code is as it
 // was; its fields sit at the end of Args, since placing them among the desmo
-// form's slowed that form, which runs at 255 registers). B (K, m) is no parameter there but the truncated series of each row,
+// form's slowed that form, which runs near its register limit). B (K, m) is
+// no parameter there but the truncated series of each row,
 // B[k][j] = z_k0 + sum_h z_k,2h-1 cos(h th) + z_k,2h sin(h th) with
 // th = 2 pi t_j / period_k, built as the TPU kernel builds it: cos and sin of
 // th once (sincosf, full range: th reaches about 1e3 rad), the harmonics by
@@ -70,7 +101,7 @@
 //      writes the new state to the scratch), rebuilds its own column slab of
 //      B from the new series and forms its partial of the next B Bᵀ;
 //   6. gram: the B Bᵀ partials are summed; block 0 stores the new series.
-// Six grid barriers per epoch against the desmo form's four. Rebuilding all
+// Seven grid barriers per epoch against the desmo form's five. Rebuilding all
 // of B (K m series values) and B Bᵀ (K² m) in every block would save two of
 // them but multiply that work by the grid size, so each block rebuilds only
 // its own slab and the Gram goes through partials as in the desmo form.
@@ -95,24 +126,61 @@
 #include <cooperative_groups.h>
 #include <stddef.h>
 
+#include "tile_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRT = 32;   // rows per tile of the rows phase
-constexpr int kCW = 64;   // columns of X per staged chunk (xb)
-constexpr int kPrefX1 = kRT * kCW / kThreads;  // X values a thread prefetches per chunk
-constexpr int kSW = 8;    // columns per sub-slab (ax); its rows are read as two float4
-static_assert(kSW == 8, "the columns phase reads a row of its X tile as two float4");
+constexpr int kRT = 32;   // rows per tile of the rows phase: two m16 tiles of X·Bᵀ
+constexpr int kSW = 8;    // columns per sub-slab of the columns phase's B update
 constexpr int kMaxK = 128;
+constexpr int kStages = 3;  // shared-memory stages in each contraction's cp.async ring
 
 // The kernel is compiled for K padded to KP = 32, 48, 64 or 128, so that the
-// register tiles and loops over k have fixed sizes.
+// tiles and loops over k have fixed sizes.
 __host__ __device__ constexpr int padded_k(int K) { return K <= 32 ? 32 : K <= 48 ? 48 : K <= 64 ? 64 : 128; }
-// rows per staged tile of the columns phase
-__host__ __device__ constexpr int ax_tile_rows(int KP) { return KP <= 64 ? 128 : 64; }
+
+// Every form sums in the same order, so that a packed seed's contractions
+// equal the one-seed kernel's bit for bit whatever KP is: both contractions
+// split their work over the same warps and tiles of rows and columns at
+// every KP, and only the number of k tiles differs.
+//
+// X·Bᵀ (xb_tile): a row tile's kRT rows against B's KP rows, over m in chunks
+// of kXbChunk columns; row stride kXbLd (= 4 mod 32: conflict-free fragment
+// loads). The warps form kXbGroups groups over the KP / 8 n8 tiles of k;
+// the kXbSplit warps of a group split each chunk's k8 steps (warp r of a
+// group takes the steps s with s % kXbSplit == r), and each warp's sum over
+// a chunk is formed on its own and then added to its running one. The ring
+// has xb_stages stages (2 at KP = 128, for shared memory).
+constexpr int kXbGroups = 2;
+constexpr int kXbSplit = kWarps / kXbGroups;
+constexpr int kXbChunk = 64;
+constexpr int kXbLd = kXbChunk + 4;
+__host__ __device__ constexpr int xb_stages(int KP) { return KP == 128 ? 2 : kStages; }
+__host__ __device__ constexpr int xb_ring_floats(int KP) { return xb_stages(KP) * (kRT + KP) * kXbLd; }
+// a warp forms at most kMaxTiles of its n8 (X·Bᵀ) or m16 (AᵀX) tiles at once
+constexpr int kMaxTiles = 4;
+
+// AᵀX (ax_partial): tiles of kAxRows rows of A, its big and small TF32
+// parts (row stride ax_ld_a), and of X (row stride kAxLdX), both = 8 mod 32
+// (conflict-free fragment loads). Warp w owns n8 tiles w + kWarps u
+// (u < kAxTilesN) of a slab at most kAxMaxWidth wide, and every m16 tile
+// of k.
+constexpr int kAxRows = 32;
+constexpr int kAxLdX = 136;
+constexpr int kAxTilesN = 2;
+constexpr int kAxMaxWidth = 8 * kWarps * kAxTilesN;
+__host__ __device__ constexpr int ax_ld_a(int KP) { return KP + 8; }
+__host__ __device__ constexpr int ax_ring_floats(int KP) { return kStages * kAxRows * (2 * ax_ld_a(KP) + kAxLdX); }
+static_assert(kAxMaxWidth <= kAxLdX, "a slab fits the X tile");
+// the warps' X·Bᵀ sums (kXbSplit of them, kRT x KP each) reuse the ring
+static_assert(kXbSplit * kRT * 32 <= xb_ring_floats(32) && kXbSplit * kRT * 48 <= xb_ring_floats(48) &&
+              kXbSplit * kRT * 64 <= xb_ring_floats(64) && kXbSplit * kRT * 128 <= xb_ring_floats(128),
+              "the warp sums fit the ring");
+
 constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
 constexpr int kMaxSeeds = 8;
@@ -125,11 +193,12 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 // the kernel clock's counters (PhaseClock): the prologue; in the rows phase
 // the dictionary, xb, the gradients and Gram partials, and the rest up to
 // the end of its barrier; the reduce phase; in the columns phase the phi
-// update, ax, and the rest up to the end of its barrier; the finalize phase;
-// the Fourier form's series update and its B Bᵀ reduction
+// update, block 0's AᵀX partial, the wait at the split's barrier, and the
+// rest up to the end of its barrier; the finalize phase; the Fourier form's
+// series update and its B Bᵀ reduction
 enum Phase {
   kPrologue, kRowsDictionary, kRowsXb, kRowsGradients, kRowsBarrier, kReduce,
-  kColumnsPhi, kColumnsAx, kColumnsBarrier, kFinalize, kSeries, kSeriesGram, kPhases
+  kColumnsPhi, kColumnsAx, kColumnsAxBarrier, kColumnsBarrier, kFinalize, kSeries, kSeriesGram, kPhases
 };
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
@@ -160,27 +229,62 @@ struct Args {
   int S, Ks;          // seeds, and columns per seed
 };
 
+__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+
+// The 2-D split of AᵀX over a grid of G blocks: gr row groups of
+// ceil(n / gr) rows x gc column slabs of wc columns (a multiple of 8, at
+// most kAxMaxWidth); task (i, j) = block i gc + j, and blocks from gr gc on
+// have none (or, where m needs more slabs than G, blocks take tasks b, b + G, ...).
+// A is read gc times and the partials are 2 gr K m floats, so gc starts at
+// floor(sqrt(2 G m / n)), then widens the slabs to the limit if needed.
+struct AxSplit {
+  int gr, gc, wc;
+};
+
+__host__ __device__ inline AxSplit ax_split(int n, int m, int G) {
+  const int wmax = kAxMaxWidth;
+  int gc = 1;
+  while ((long long)(gc + 1) * (gc + 1) * n <= 2LL * G * m) ++gc;
+  const int narrowest = (m + 7) / 8, widest = (m + wmax - 1) / wmax;
+  gc = gc < G ? gc : G;
+  gc = gc < narrowest ? gc : narrowest;
+  gc = gc > widest ? gc : widest;
+  AxSplit sp;
+  sp.wc = ((m + gc - 1) / gc + 7) / 8 * 8;
+  sp.gc = (m + sp.wc - 1) / sp.wc;
+  const int groups = G / sp.gc < (n + 7) / 8 ? G / sp.gc : (n + 7) / 8;
+  sp.gr = groups > 1 ? groups : 1;
+  return sp;
+}
+
 // Offsets (in floats) into the scratch buffer for a grid of G blocks; nc is
 // the Fourier form's series length 2 nf + 1, 0 for the desmo form.
 struct Layout {
   long long a, dl, part, part_max, part_cross, part_gb, sums, gb;
-  long long bw, part_ser, sums_ser, ser_next, timer, total;
+  long long bw, part_ser, sums_ser, ser_next, timer, axp, xp, bp, total;
   int kk;      // entries of the seeds' diagonal Gram blocks, S Ks²
   int lg;      // entries of the seeds' latent Grams, S r²
   int es;      // entries of the summed partials: ga, latᵀlat, gcoef, gomega
   int es_ser;  // Fourier: entries of a series partial, K (nc + 1)
+  int lda;     // row stride of A (n, K) in the scratch, round4(K): 16-byte rows, zero from K on
+  int mp;      // row stride of the padded copies of X (n, m) and B (K, m) at xp and bp: 32-byte rows, zero from m on
+  AxSplit ax;  // the AᵀX split; its partials (gr, K, m) at axp
 };
+
+__host__ __device__ inline int padded_m(int m) { return (m + 7) / 8 * 8; }
 
 __host__ __device__ inline Layout make_layout(int n, int m, int r, int Ks, int S, int nc, int G) {
   Layout L;
   const int K = S * Ks, R = S * r;
+  L.lda = round4(K);
+  L.ax = ax_split(n, m, G);
   L.kk = S * Ks * Ks;
   L.lg = S * r * r;
   L.es = L.kk + L.lg + K + 3 * R;
   L.es_ser = nc > 0 ? K * (nc + 1) : 0;
   const long long fourier = nc > 0;
   long long o = 0;
-  L.a = o;          o += (long long)n * K;
+  L.a = o;          o += (long long)n * L.lda;
   L.dl = o;         o += (long long)n * R;
   L.part = o;       o += (long long)G * L.es;
   L.part_max = o;   o += G;
@@ -194,29 +298,38 @@ __host__ __device__ inline Layout make_layout(int n, int m, int r, int Ks, int S
   L.ser_next = o;   o += fourier * 3LL * K * (nc + 1);  // series (3, K, nc), then periods (3, K)
   o += o & 1;
   L.timer = o;      o += 2 * kPhases;  // kPhases unsigned 64-bit ns counters
+  L.axp = o;        o += (long long)L.ax.gr * K * m;
+  L.mp = padded_m(m);
+  o = (o + 7) / 8 * 8;
+  L.xp = o;         o += (long long)n * L.mp;
+  L.bp = o;         o += (long long)K * L.mp;
   L.total = o;
   return L;
 }
 
-__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+// The Layout, kept in shared memory (so that no thread carries its offsets
+// in registers through the launch), in floats.
+constexpr int kLayoutFloats = (int)((sizeof(Layout) + 15) / 16 * 4);
 
-// Shared memory that lives through the launch: the column table (K, kCT + P)
-// and, for each latent lane j (of S r), the (column, factor) entries of the
-// table that hold lane j + 1 (offsets and entries), for the polynomial
-// backward; then the Fourier form's series LRs of the epoch, per seed.
+// Shared memory that lives through the launch: the Layout; the column table
+// (K, kCT + P) and, for each latent lane j (of S r), the (column, factor)
+// entries of the table that hold lane j + 1 (offsets and entries), for the
+// polynomial backward; then the Fourier form's series LRs of the epoch, per
+// seed; then the kernel clock's counters.
 __host__ __device__ inline int table_floats(int K, int P, int R) {
-  return round4(K * (kCT + P)) + round4(R + 1) + round4(K * P) + 2 * kMaxSeeds;
+  return kLayoutFloats + round4(K * (kCT + P)) + round4(R + 1) + round4(K * P) + 2 * kMaxSeeds +
+         round4(2 * kPhases);
 }
 
 // Shared floats: the tables, then the largest of the phases' own.
 __host__ __device__ inline int smem_floats(int r, int Ks, int S, int P, int nc) {
   const int K = S * Ks, R = S * r, ld = K + 1, KP = padded_k(K), kk = S * Ks * Ks;
-  const int rows = round4(K) + round4(3 * R) + round4(kk) + kRT * (R + 1) +
-                   4 * kRT * ld + kRT * (kCW + 1) + KP * (kCW + 1) + kThreads + round4(K) +
-                   round4(3 * R);
-  const int rt3 = ax_tile_rows(KP);
-  const int columns = round4(kk) + rt3 * K + KP + rt3 * kSW + 3 * K * kSW + kWarps * K * kSW + kThreads +
-                      S * kThreads + (nc > 0 ? kSerTab : 0);
+  const int rows = round4(K) + round4(3 * R) + round4(kk) + kRT * (R + 1) + 4 * kRT * ld +
+                   xb_ring_floats(KP) + kThreads + round4(K) + round4(3 * R);
+  // the AᵀX ring, then (after the split's barrier, in the same place) the
+  // slab's B update
+  const int slab = round4(kk) + 3 * K * kSW + kThreads + S * kThreads + (nc > 0 ? kSerTab : 0);
+  const int columns = ax_ring_floats(KP) > slab ? ax_ring_floats(KP) : slab;
   const int finalize = kThreads + 4 * kMaxSeeds + kMaxSeeds;
   const int series = nc > 0 ? round4(K * kSW) + round4(K * nc) + round4(K) : 0;
   int most = rows > columns ? rows : columns;
@@ -240,16 +353,17 @@ __device__ __forceinline__ unsigned long long globaltimer_ns() {
 // Block 0's thread 0 adds the time since its previous mark to a counter at
 // each mark: where the chunk's time goes, at the cost of one clock read per
 // mark. Marks inside a phase time block 0's own work; the mark after a grid
-// barrier also takes in the wait for the slowest block. N counters: the
-// desmo form keeps none for the Fourier form's phases (every thread carries
-// them, and the kernel is at its register limit).
-template <int N>
+// barrier also takes in the wait for the slowest block. The kPhases
+// counters live in shared memory (ns), so that no thread carries them in
+// registers.
 struct PhaseClock {
-  unsigned long long ns[N] = {};
+  unsigned long long* ns;
   unsigned long long last = 0;
   bool on;
-  __device__ PhaseClock() : on(blockIdx.x == 0 && threadIdx.x == 0) {
-    if (on) last = globaltimer_ns();
+  __device__ explicit PhaseClock(unsigned long long* shared) : ns(shared), on(blockIdx.x == 0 && threadIdx.x == 0) {
+    if (!on) return;
+    for (int p = 0; p < kPhases; ++p) ns[p] = 0;
+    last = globaltimer_ns();
   }
   __device__ void mark(int phase) {
     if (!on) return;
@@ -260,7 +374,7 @@ struct PhaseClock {
   __device__ void store(float* where) const {
     if (!on) return;
     unsigned long long* out = reinterpret_cast<unsigned long long*>(where);
-    for (int p = 0; p < N; ++p) out[p] = ns[p];
+    for (int p = 0; p < kPhases; ++p) out[p] = ns[p];
   }
 };
 
@@ -317,6 +431,7 @@ struct Tables {
   int* d_off;
   int* d_tp;
   float* lr_ep;  // lr_z of seed s at [s], lr_period at [kMaxSeeds + s]
+  unsigned long long* clock;  // the kernel clock's kPhases counters, 16-byte aligned
 };
 
 __device__ Tables build_tables(const Args& a, float* smem) {
@@ -326,6 +441,7 @@ __device__ Tables build_tables(const Args& a, float* smem) {
   tb.d_off = tb.ct + round4(K * CT);
   tb.d_tp = tb.d_off + round4(R + 1);
   tb.lr_ep = reinterpret_cast<float*>(tb.d_tp + round4(K * P));
+  tb.clock = reinterpret_cast<unsigned long long*>(tb.lr_ep + 2 * kMaxSeeds);
   for (int e = threadIdx.x; e < K * CT; e += kThreads) tb.ct[e] = a.ctab[e];
   __syncthreads();
   // lane j's count, then the offsets in order, then its entries: K P steps
@@ -349,6 +465,25 @@ __device__ Tables build_tables(const Args& a, float* smem) {
   }
   __syncthreads();
   return tb;
+}
+
+// dst[i * ld + j] = src[i * cols + j] for j < cols, 0 for cols <= j < ld, over
+// every block's threads: a copy of a row-major array with 16-byte aligned
+// rows, for the contractions' 16-byte staging.
+__device__ void pad_copy(const float* __restrict__ src, int rows, int cols, float* __restrict__ dst, int ld) {
+  constexpr int kU = 4;  // loads in flight per thread
+  for (int i = blockIdx.x; i < rows; i += gridDim.x) {
+    const float* s = src + (long long)i * cols;
+    float* d = dst + (long long)i * ld;
+    for (int j0 = threadIdx.x; j0 < ld; j0 += kU * kThreads) {
+      float v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) v[u] = j0 + u * kThreads < cols ? s[j0 + u * kThreads] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (j0 + u * kThreads < ld) d[j0 + u * kThreads] = v[u];
+    }
+  }
 }
 
 // part_gb[e] += sum over the sub-slab's w columns of Bn[k1][jj] * Bn[k2][jj],
@@ -441,7 +576,9 @@ __device__ void series_slab(const Args& a, const Layout& L, const float* zc, con
     const int k = e / w, j = col_begin + e % w;
     float c1, s1;
     series_angle(a.tpts, 1.f / per[k], j, &c1, &s1);
-    a.b[(long long)k * m + j] = series_value(zc + k * nc, a.nf, c1, s1);
+    const float v = series_value(zc + k * nc, a.nf, c1, s1);
+    a.b[(long long)k * m + j] = v;
+    a.work[L.bp + (long long)k * L.mp + j] = v;
   }
   __syncthreads();
   gb_partial(a, L, smem);
@@ -535,12 +672,260 @@ __device__ void store_series(const Args& a, const Layout& L) {
   for (int e = threadIdx.x; e < 3 * a.K; e += kThreads) a.per[e] = next[kn + e];
 }
 
+// y[i * ldy + k] = sum_j X[r0 + i][j] B[k][j] for i < kRT, k < K (rows from
+// `rows` on are 0): X·Bᵀ for one row tile, in 3xTF32 tiles. X and B come
+// from their padded copies (row stride ld, a multiple of 8, zero from m on).
+// Chunks of X (kRT x CW) and B (K x CW) pass through a ring of kStages
+// stages filled by 16-byte cp.async copies (each thread copies one 16-byte
+// piece of a chunk's rows, every RS-th row). Warp w takes the n8
+// tiles (k) of group w % NG, at most kMaxTiles at a time, and the k8 steps s
+// of each chunk with s % NR == w / NG; its sum over a chunk is formed on its
+// own and then added to the running one, and the NR warps' sums are added in
+// warp order.
+template <int KP>
+__device__ void xb_tile(const float* x, const float* bm, int ld, int m, int K, int r0, int rows, float* ring,
+                        float* y, int ldy) {
+  constexpr int CW = kXbChunk, LD = kXbLd, NG = kXbGroups, NR = kXbSplit, NTW = KP / 8 / NG;
+  constexpr int NTH = NTW < kMaxTiles ? NTW : kMaxTiles;  // n8 tiles a pass over the chunk
+  constexpr int S = xb_stages(KP), kStage = (kRT + KP) * LD, RS = kThreads / (CW / 4);
+  static_assert(kRT % RS == 0, "a chunk of X is copied in whole passes");
+  static_assert(CW / 8 % NR == 0, "a chunk's k8 steps split evenly over a group's warps");
+  const int t = threadIdx.x, warp = t / 32, ng = warp % NG, kr = warp / NG;
+  const int pc = 4 * (t % (CW / 4)), i0 = t / (CW / 4);  // this thread's piece: columns pc.. of rows i0 + RS u
+  const int kb = (K + 7) / 8 * 8;  // rows of B staged, zero from K on
+  const int nch = (m + CW - 1) / CW;
+  const long long step = (long long)RS * ld;
+  const float* xp = x + (long long)(r0 + i0) * ld + pc;
+  const float* bp = bm + (long long)i0 * ld + pc;
+  auto issue = [&](int c) {
+    float* xs = ring + (c % S) * kStage + i0 * LD + pc;
+    const int j0 = c * CW;
+    const bool col = j0 + pc < m;  // the piece lies within the padded row
+    const float* src = xp + j0;
+#pragma unroll
+    for (int u = 0; u < kRT / RS; ++u, src += step) {
+      const bool ok = col && i0 + RS * u < rows;
+      cp_async16(xs + RS * LD * u, ok ? src : x, ok);
+    }
+    float* bs = xs + kRT * LD;
+    src = bp + j0;
+    for (int k = i0; k < kb; k += RS, src += step, bs += RS * LD) {
+      const bool ok = col && k < K;
+      cp_async16(bs, ok ? src : bm, ok);
+    }
+  };
+  float run[2][NTW][4];
+#pragma unroll
+  for (int w = 0; w < NTW; ++w)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) run[0][w][e] = run[1][w][e] = 0.f;
+  __syncthreads();  // the ring's previous use is over
+  for (int c = 0; c < S - 1; ++c) {
+    if (c < nch) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk c is in every thread's view, and chunk c - 1's stage is free
+    if (c + S - 1 < nch) issue(c + S - 1);
+    cp_async_commit();
+    const float* xs = ring + (c % S) * kStage;
+    const float* bs = xs + kRT * LD;
+#pragma unroll
+    for (int h = 0; h < NTW; h += NTH) {
+      float acc[2][NTH][4];
+#pragma unroll
+      for (int w = 0; w < NTH; ++w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][w][e] = acc[1][w][e] = 0.f;
+#pragma unroll
+      for (int s = kr; s < CW / 8; s += NR) {  // columns from m on are zero in both
+        unsigned a_big[2][4], a_small[2][4];
+        load_a_rows(xs + 8 * s, LD, a_big[0], a_small[0]);
+        load_a_rows(xs + 16 * LD + 8 * s, LD, a_big[1], a_small[1]);
+#pragma unroll
+        for (int w = 0; w < NTH; ++w) {
+          const int nt = ng * NTW + h + w;
+          if (8 * nt < K) {
+            unsigned b_big[2], b_small[2];
+            load_b_cols(bs + 8 * nt * LD + 8 * s, LD, b_big, b_small);
+            mma_3xtf32(acc[0][w], a_big[0], a_small[0], b_big, b_small);
+            mma_3xtf32(acc[1][w], a_big[1], a_small[1], b_big, b_small);
+          }
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < NTH; ++w)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          run[0][h + w][e] += acc[0][w][e];
+          run[1][h + w][e] += acc[1][w][e];
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* red = ring;  // (NR, kRT, KP)
+#pragma unroll
+  for (int w = 0; w < NTW; ++w)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) store_c(run[mt][w], red + (kr * kRT + 16 * mt) * KP + 8 * (ng * NTW + w), KP, 16, 8);
+  __syncthreads();
+  for (int e = t; e < kRT * K; e += kThreads) {
+    const int i = e / K, k = e % K;
+    float v = 0.f;
+    for (int u = 0; u < NR; ++u) v += red[(u * kRT + i) * KP + k];  // in warp order
+    y[i * ldy + k] = v;
+  }
+}
+
+// out[k * ldo + j] = sum over the rows i in [i0, i1) of A[i][k] X[i][c0 + j],
+// for k < K and j < w (w <= kAxMaxWidth): AᵀX over a row group for a
+// column slab, in 3xTF32 tiles. A's rows lie at stride lda (a multiple of 4,
+// the entries from K on zero), X's (its padded copy) at stride ldx (a
+// multiple of 8, zero from m on; c0 a multiple of 8); tiles of kAxRows rows
+// pass through a ring of kStages stages filled by 16-byte cp.async copies.
+// A piece of X beyond the slab's w columns is copied or zero-filled: only
+// outputs j >= w, which are not stored, read it. Every warp reads all of A's
+// tile, so each thread splits the pieces of A it copied into their TF32
+// parts once, before the tile's barrier (X's fragments, each read by one
+// warp, are split as they are loaded).
+// Warp w owns the n8 tiles w + kWarps u and every m16 tile of k; each staged
+// tile's sum is formed on its own and then added to the running one.
+template <int KP>
+__device__ void ax_partial(const float* A, int lda, const float* x, int ldx, int K, int i0, int i1, int c0, int w,
+                           float* ring, float* out, int ldo) {
+  constexpr int MT = KP / 16, NT = kAxTilesN, LDA = ax_ld_a(KP);
+  constexpr int MTH = MT < kMaxTiles ? MT : kMaxTiles;  // m16 tiles a pass over the tile
+  constexpr int kStage = kAxRows * (2 * LDA + kAxLdX);  // A's big parts, A's small parts, X
+  static_assert(kThreads == 256 && kAxRows == 32 && kAxLdX >= 128, "a tile is copied in 4 passes of 8 rows");
+  const int t = threadIdx.x, warp = t / 32;
+  const int nrows = i1 - i0, ntile = (nrows + kAxRows - 1) / kAxRows, pad = KP - lda;
+  // each thread copies the 16-byte pieces at column ca of A's and X's rows
+  // ia + 8u (kAxRows rows a tile)
+  const int ca = 4 * (t % 32), ia = t / 32;
+  const bool a_col = ca < lda, x_col = ca < w;
+  const float* ap = A + (long long)(i0 + ia) * lda + ca;
+  const float* xp = x + (long long)(i0 + ia) * ldx + c0 + ca;
+  __syncthreads();  // the ring's previous use is over
+  // A's columns [lda, KP) are never copied: zero in both parts of every stage
+  for (int e = t; e < 2 * kStages * kAxRows * pad; e += kThreads) {
+    const int part = e / (kAxRows * pad), rc = e % (kAxRows * pad);  // part = 2 stage + (small)
+    ring[(part / 2) * kStage + (part % 2) * kAxRows * LDA + (rc / pad) * LDA + lda + rc % pad] = 0.f;
+  }
+  auto issue = [&](int tile) {
+    float* as = ring + (tile % kStages) * kStage + ia * LDA + ca;
+    float* xs = ring + (tile % kStages) * kStage + 2 * kAxRows * LDA + ia * kAxLdX + ca;
+    const int base = tile * kAxRows;
+    const float* src = ap + (long long)base * lda;
+#pragma unroll
+    for (int u = 0; u < kAxRows / 8; ++u, src += 8 * lda) {
+      const bool ok = a_col && base + ia + 8 * u < nrows;
+      if (a_col) cp_async16(as + 8 * LDA * u, ok ? src : A, ok);
+    }
+    src = xp + (long long)base * ldx;
+#pragma unroll
+    for (int u = 0; u < kAxRows / 8; ++u, src += 8LL * ldx) {
+      const bool ok = x_col && base + ia + 8 * u < nrows;
+      cp_async16(xs + 8 * kAxLdX * u, ok ? src : x, ok);
+    }
+  };
+  float run[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[mt][u][e] = 0.f;
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < ntile) issue(c);
+    cp_async_commit();
+  }
+  for (int tile = 0; tile < ntile; ++tile) {
+    cp_async_wait<kStages - 2>();
+    if (a_col) {  // this thread's own pieces of A have landed: split them in place
+      float* ab = ring + (tile % kStages) * kStage + ia * LDA + ca;
+#pragma unroll
+      for (int u = 0; u < kAxRows / 8; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          unsigned big, small;
+          split_tf32(ab[8 * LDA * u + e], big, small);
+          ab[8 * LDA * u + e] = f32_bits(big);
+          ab[kAxRows * LDA + 8 * LDA * u + e] = f32_bits(small);
+        }
+    }
+    __syncthreads();  // the tile is in every thread's view, and the previous tile's stage is free
+    if (tile + kStages - 1 < ntile) issue(tile + kStages - 1);
+    cp_async_commit();
+    const float* as = ring + (tile % kStages) * kStage;
+    const float* xs = as + 2 * kAxRows * LDA;
+#pragma unroll
+    for (int h = 0; h < MT; h += MTH) {
+      float acc[MTH][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MTH; ++mt)
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][u][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kAxRows / 8; ++s) {  // rows from nrows on are zero
+        unsigned b_big[NT][2], b_small[NT][2];
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+          if (8 * (warp + kWarps * u) < w)
+            load_b_rows(xs + 8 * s * kAxLdX + 8 * (warp + kWarps * u), kAxLdX, b_big[u], b_small[u]);
+#pragma unroll
+        for (int mt = 0; mt < MTH; ++mt) {
+          const int gm = h + mt;
+          if (16 * gm < K) {
+            unsigned a_big[4], a_small[4];
+            load_a_cols_split(as + 8 * s * LDA + 16 * gm, as + (kAxRows + 8 * s) * LDA + 16 * gm, LDA, a_big,
+                              a_small);
+#pragma unroll
+            for (int u = 0; u < NT; ++u)
+              if (8 * (warp + kWarps * u) < w) mma_3xtf32(acc[mt][u], a_big, a_small, b_big[u], b_small[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MTH; ++mt)
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) run[h + mt][u][e] += acc[mt][u][e];
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int u = 0; u < NT; ++u) {
+      const int nt = warp + kWarps * u;
+      store_c(run[mt][u], out + 16 * mt * ldo + 8 * nt, ldo, K - 16 * mt, w - 8 * nt);
+    }
+}
+
+// Every block's tasks of the AᵀX split: task (i, j) writes the partial over
+// row group i for column slab j into axp[i] (K, m). Blocks without a task
+// return at once; the caller's grid barrier orders the partials before
+// their sums.
+template <int KP>
+__device__ void ax_partials(const float* A, int lda, const float* x, int ldx, int n, int m, int K,
+                            const AxSplit& sp, float* ring, float* axp) {
+  const int rg = (n + sp.gr - 1) / sp.gr;
+  for (int task = blockIdx.x; task < sp.gr * sp.gc; task += gridDim.x) {
+    const int gi = task / sp.gc, gj = task % sp.gc;
+    const int i0 = min(n, gi * rg), i1 = min(n, i0 + rg), c0 = gj * sp.wc;
+    ax_partial<KP>(A, lda, x, ldx, K, i0, i1, c0, min(sp.wc, m - c0), ring, axp + (long long)gi * K * m + c0, m);
+  }
+}
+
 // Phase 1: forward, xb, dA, dl and the per-block partials over the block's rows.
-template <int KP, typename Clock>
+template <int KP>
 __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, float* smem, int step,
-                          Clock& clock) {
-  constexpr int kXC = KP / 16;                   // xb: k = tx + 16c, c < kXC
-  constexpr int kPrefB1 = KP * kCW / kThreads;   // B values prefetched per thread
+                          PhaseClock& clock) {
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int n = a.n, m = a.m, r = a.r, P = a.P, K = a.K, Ks = a.Ks, ld = K + 1;
   const int R = a.S * r, AW = R + 1, CT = kCT + P, T = Ks - 3 * r;
@@ -555,8 +940,7 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
   float* A_s = p;   p += kRT * ld;
   float* V_s = p;   p += kRT * ld;  // d D / d arg on the trig columns, 0 on the polynomial ones
   float* Y_s = p;   p += kRT * ld;  // xb, then dA
-  float* X_s = p;   p += kRT * (kCW + 1);
-  float* B_s = p;   p += KP * (kCW + 1);  // rows K..KP-1 stay zero
+  float* ring = p;  p += xb_ring_floats(KP);
   float* red = p;   p += kThreads;
   float* cacc = p;  p += round4(K);
   float* oacc = p;
@@ -616,66 +1000,13 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
       A_s[i * ld + k] = d * c_s[k];
     }
     __syncthreads();
-    for (int e = t; e < rows * K; e += kThreads) {
-      const int i = e / K, k = e % K;
-      A_g[(long long)(r0 + i) * K + k] = A_s[i * ld + k];
+    for (int e = t; e < rows * L.lda; e += kThreads) {
+      const int i = e / L.lda, k = e % L.lda;
+      A_g[(long long)(r0 + i) * L.lda + k] = k < K ? A_s[i * ld + k] : 0.f;
     }
     __syncthreads();
     clock.mark(kRowsDictionary);
-    // xb[i][k] = sum_j X[r0 + i][j] * B[k][j]: rows ty and ty + 16, k = tx + 16c.
-    // The next chunk of X and B is loaded into registers while this one is used.
-    {
-      const int tx = t % 16, ty = t / 16;
-      float acc[2][kXC];
-#pragma unroll
-      for (int c = 0; c < kXC; ++c) acc[0][c] = acc[1][c] = 0.f;
-      float px[kPrefX1], pb[kPrefB1];
-      auto fetch = [&](int j0) {
-#pragma unroll
-        for (int u = 0; u < kPrefX1; ++u) {
-          const int e = t + kThreads * u, i = e / kCW, col = j0 + e % kCW;
-          px[u] = (i < rows && col < m) ? a.x[(long long)(r0 + i) * m + col] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < kPrefB1; ++u) {
-          const int e = t + kThreads * u, k = e / kCW, col = j0 + e % kCW;
-          pb[u] = (k < K && col < m) ? a.b[(long long)k * m + col] : 0.f;
-        }
-      };
-      fetch(0);
-      for (int j0 = 0; j0 < m; j0 += kCW) {
-        __syncthreads();
-#pragma unroll
-        for (int u = 0; u < kPrefX1; ++u) {
-          const int e = t + kThreads * u;
-          X_s[(e / kCW) * (kCW + 1) + e % kCW] = px[u];
-        }
-#pragma unroll
-        for (int u = 0; u < kPrefB1; ++u) {
-          const int e = t + kThreads * u;
-          B_s[(e / kCW) * (kCW + 1) + e % kCW] = pb[u];
-        }
-        __syncthreads();
-        if (j0 + kCW < m) fetch(j0 + kCW);
-        for (int jj = 0; jj < kCW; ++jj) {
-          const float x0 = X_s[ty * (kCW + 1) + jj], x1 = X_s[(ty + 16) * (kCW + 1) + jj];
-#pragma unroll
-          for (int c = 0; c < kXC; ++c) {
-            const float bv = B_s[(tx + 16 * c) * (kCW + 1) + jj];
-            acc[0][c] = fmaf(x0, bv, acc[0][c]);
-            acc[1][c] = fmaf(x1, bv, acc[1][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kXC; ++c) {
-        const int k = tx + 16 * c;
-        if (k < K) {
-          Y_s[ty * ld + k] = acc[0][c];
-          Y_s[(ty + 16) * ld + k] = acc[1][c];
-        }
-      }
-    }
+    xb_tile<KP>(a.work + L.xp, a.work + L.bp, L.mp, m, K, r0, rows, ring, Y_s, ld);
     __syncthreads();
     clock.mark(kRowsXb);
     // dA = 2/nm (A gb - xb), in place of xb, over each column's seed block
@@ -778,15 +1109,12 @@ __device__ void reduce_phase(const Args& a, const Layout& L, float* red) {
   reduce_partials(a.work + L.part, L.es, L.es, a.work + L.sums, red);
 }
 
-// Phase 3: phi Adamax of the block's rows; ax and gB over the block's column
+// Phase 3: phi Adamax of the block's rows; the AᵀX split's partials and a
+// grid barrier; ax (the partials summed) and gB over the block's column
 // slab, then the B Adamax and the next B Bᵀ partial (desmo) or the series
 // gradient partials (Fourier).
-template <int KP, bool kFourier, typename Clock>
-__device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock& clock) {
-  constexpr int kRT3 = ax_tile_rows(KP);
-  constexpr int kKq = (KP + 31) / 32;              // ax: lane owns k = lane + 32q, q < kKq
-  constexpr int kPrefA3 = kRT3 * KP / kThreads;    // A values prefetched per thread
-  constexpr int kPrefX3 = kRT3 * kSW / kThreads;   // X values prefetched per thread
+template <int KP, bool kFourier>
+__device__ void column_phase(const Args& a, const Layout& L, float* smem, PhaseClock& clock) {
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
   const int n = a.n, m = a.m, r = a.r, K = a.K, Ks = a.Ks, S = a.S, R = S * r;
   const float two_nm = (float)(2.0 / ((double)n * m));
@@ -819,14 +1147,17 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
   __syncthreads();
   clock.mark(kColumnsPhi);
 
-  float* ga_s = smem;
+  const float* axp = a.work + L.axp;
+  ax_partials<KP>(A_g, L.lda, a.work + L.xp, L.mp, n, m, K, L.ax, smem, a.work + L.axp);
+  clock.mark(kColumnsAx);
+  cg::this_grid().sync();
+  clock.mark(kColumnsAxBarrier);
+
+  float* ga_s = smem;  // in place of the ring
   float* p = smem + round4(L.kk);
-  float* As = p;   p += kRT3 * K + KP;  // lanes with k >= K read past the tile and are dropped
-  float* Xs = p;   p += kRT3 * kSW;     // 16-byte aligned: rows are read as float4
   float* Bo = p;   p += K * kSW;
   float* Bn = p;   p += K * kSW;
   float* ax_s = p; p += K * kSW;
-  float* wred = p; p += kWarps * K * kSW;
   float* red = p;  p += kThreads;
   float* crs = p;  p += S * kThreads;    // each thread's sum(ax * B) by seed
   float* tab = p;  // Fourier: kSerTab floats
@@ -841,77 +1172,27 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
   }
   const long long km = (long long)K * m;
   const int W = (m + G - 1) / G, col_begin = b * W, col_end = min(m, col_begin + W);
-  const int lane = t % 32, warp = t / 32;
   for (int j0 = col_begin; j0 < col_end; j0 += kSW) {
     const int w = min(kSW, col_end - j0);
-    // ax[k][jj] over all rows: lane owns k = lane + 32q and all kSW columns,
-    // warp owns the rows of each staged tile that are warp mod kWarps. The
-    // next tile of A and X is loaded into registers while this one is used.
-    float acc[kKq][kSW];
-#pragma unroll
-    for (int q = 0; q < kKq; ++q)
-#pragma unroll
-      for (int jj = 0; jj < kSW; ++jj) acc[q][jj] = 0.f;
-    float pa[kPrefA3], px[kPrefX3];
-    auto fetch = [&](int i0) {
-      const int rows = min(kRT3, n - i0);
-      const float* src = A_g + (long long)i0 * K;  // the tile's rows of A are contiguous
-#pragma unroll
-      for (int u = 0; u < kPrefA3; ++u) {
-        const int e = t + kThreads * u;
-        pa[u] = e < rows * K ? src[e] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kPrefX3; ++u) {
-        const int e = t + kThreads * u, i = e / kSW, jj = e % kSW;
-        px[u] = (i < rows && jj < w) ? a.x[(long long)(i0 + i) * m + j0 + jj] : 0.f;
-      }
-    };
-    fetch(0);
-    for (int i0 = 0; i0 < n; i0 += kRT3) {
-      const int rows = min(kRT3, n - i0);
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < kPrefA3; ++u) {
-        const int e = t + kThreads * u;
-        if (e < kRT3 * K + KP) As[e] = pa[u];
-      }
-#pragma unroll
-      for (int u = 0; u < kPrefX3; ++u) Xs[t + kThreads * u] = px[u];
-      __syncthreads();
-      if (i0 + kRT3 < n) fetch(i0 + kRT3);
-      for (int i = warp; i < rows; i += kWarps) {
-        const float4 lo = reinterpret_cast<const float4*>(Xs + i * kSW)[0];
-        const float4 hi = reinterpret_cast<const float4*>(Xs + i * kSW)[1];
-        const float xv[kSW] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int q = 0; q < kKq; ++q) {
-          const float av = As[i * K + lane + 32 * q];
-#pragma unroll
-          for (int jj = 0; jj < kSW; ++jj) acc[q][jj] = fmaf(av, xv[jj], acc[q][jj]);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kKq; ++q) {
-      const int k = lane + 32 * q;
-      if (k < K)
-#pragma unroll
-        for (int jj = 0; jj < kSW; ++jj) wred[(warp * K + k) * kSW + jj] = acc[q][jj];
-    }
-    for (int e = t; e < K * kSW; e += kThreads) {
-      const int k = e / kSW, jj = e % kSW;
-      Bo[e] = jj < w ? a.b[(long long)k * m + j0 + jj] : 0.f;
-    }
-    __syncthreads();
+    __syncthreads();  // the previous sub-slab is consumed
+    // ax: the split's partials summed in row-group order, four loads at a time
     for (int o = t; o < K * kSW; o += kThreads) {
-      float sum = 0.f;
-      for (int ww = 0; ww < kWarps; ++ww) sum += wred[ww * K * kSW + o];  // in warp order
-      ax_s[o] = sum;
+      const int k = o / kSW, jj = o % kSW;
+      float v = 0.f, bo = 0.f;
+      if (jj < w) {
+        const float* src = axp + (long long)k * m + j0 + jj;
+        int gi = 0;
+        for (; gi + 4 <= L.ax.gr; gi += 4, src += 4 * km) {
+          const float p0 = src[0], p1 = src[km], p2 = src[2 * km], p3 = src[3 * km];
+          v = v + p0 + p1 + p2 + p3;
+        }
+        for (; gi < L.ax.gr; ++gi, src += km) v += *src;
+        bo = a.b[(long long)k * m + j0 + jj];
+      }
+      ax_s[o] = v;
+      Bo[o] = bo;
     }
     __syncthreads();
-    clock.mark(kColumnsAx);
     // sum(ax * B) by seed, gB = 2/nm (ga B - ax) over the row's seed block
     // of ga, and the B Adamax (desmo; Bn the new B) or gB alone (Fourier;
     // Bn holds gB); seed s owns the entries [s Ks kSW, (s + 1) Ks kSW)
@@ -934,6 +1215,7 @@ __device__ void column_phase(const Args& a, const Layout& L, float* smem, Clock&
             const long long gi = (long long)k * m + j0 + jj;
             adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
             nb = a.b[gi];
+            a.work[L.bp + (long long)k * L.mp + j0 + jj] = nb;
           }
         }
         Bn[o] = nb;
@@ -1058,17 +1340,27 @@ template <int KP, bool kFourier>
 __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int nc = kFourier ? 2 * a.nf + 1 : 0;
-  const Layout L = make_layout(a.n, a.m, a.r, a.Ks, a.S, nc, gridDim.x);
+  Layout* shared_layout = reinterpret_cast<Layout*>(shared_base());
+  if (threadIdx.x == 0) *shared_layout = make_layout(a.n, a.m, a.r, a.Ks, a.S, nc, gridDim.x);
+  __syncthreads();
+  const Layout& L = *shared_layout;
   if (kFourier) a.b = a.work + L.bw;
-  PhaseClock<kFourier ? kPhases : kSeries> clock;
-  const Tables tb = build_tables(a, shared_base());
+  const Tables tb = build_tables(a, shared_base() + kLayoutFloats);
+  PhaseClock clock(tb.clock);
   float* smem = shared_base() + table_floats(a.K, a.P, a.S * a.r);  // each phase's own shared memory
   float* zc_s = smem + round4(a.K * kSW);           // Fourier, series phase
   float* per_s = zc_s + round4(a.K * nc);
-  if (kFourier)
+  // the padded copies of X and B that the contractions stage (the Fourier
+  // form's B comes from series_slab, which writes both; here its pad)
+  pad_copy(a.x, a.n, a.m, a.work + L.xp, L.mp);
+  if (kFourier) {
+    for (int k = blockIdx.x; k < a.K; k += gridDim.x)
+      for (int j = a.m + threadIdx.x; j < L.mp; j += kThreads) a.work[L.bp + (long long)k * L.mp + j] = 0.f;
     series_slab(a, L, a.ser, a.per, smem);
-  else
+  } else {
+    pad_copy(a.b, a.K, a.m, a.work + L.bp, L.mp);
     gb_partial(a, L, smem);
+  }
   grid.sync();
   reduce_gb(a, L, 0, smem);
   grid.sync();
@@ -1113,6 +1405,79 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
     }
   }
   clock.store(a.work + L.timer);
+}
+
+// The contractions alone, for tests: xb = X Bᵀ (n, K) and ax = Aᵀ X (K, m)
+// from A (n, K), B (K, m) and X (n, m), through the kernel's own routines
+// (xb_tile over each block's rows as in the rows phase; the AᵀX split as in
+// the columns phase). Scratch: A at stride round4(K), the split's partials,
+// then the padded copies of X and B.
+struct ProbeArgs {
+  const float* a;
+  const float* b;
+  const float* x;
+  float* xb;
+  float* ax;
+  float* work;
+  int n, m, K;
+};
+
+__host__ __device__ inline long long probe_padded_offset(int n, int m, int K, int G) {
+  return ((long long)n * round4(K) + (long long)ax_split(n, m, G).gr * K * m + 7) / 8 * 8;
+}
+
+__host__ __device__ inline long long probe_workspace(int n, int m, int K, int G) {
+  return probe_padded_offset(n, m, K, G) + (long long)(n + K) * padded_m(m);
+}
+
+__host__ __device__ inline int probe_smem_floats(int K) {
+  const int KP = padded_k(K), rows = kRT * (K + 1) + xb_ring_floats(KP);
+  return rows > ax_ring_floats(KP) ? rows : ax_ring_floats(KP);
+}
+
+template <int KP>
+__global__ void __launch_bounds__(kThreads, 1) contract_probe_kernel(ProbeArgs p) {
+  cg::grid_group grid = cg::this_grid();
+  const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x, n = p.n, m = p.m, K = p.K, lda = round4(K);
+  const AxSplit sp = ax_split(n, m, G);
+  const int mp = padded_m(m);
+  float* A_g = p.work;
+  float* axp = p.work + (long long)n * lda;
+  float* xp = p.work + probe_padded_offset(n, m, K, G);
+  float* bp = xp + (long long)n * mp;
+  float* smem = shared_base();
+  const long long stride = (long long)G * kThreads, first = (long long)b * kThreads + t;
+  pad_copy(p.a, n, K, A_g, lda);
+  pad_copy(p.x, n, m, xp, mp);
+  pad_copy(p.b, K, m, bp, mp);
+  grid.sync();
+  float* y = smem;
+  const int Rw = (n + G - 1) / G, row_begin = b * Rw, row_end = min(n, row_begin + Rw);
+  for (int r0 = row_begin; r0 < row_end; r0 += kRT) {
+    const int rows = min(kRT, row_end - r0);
+    xb_tile<KP>(xp, bp, mp, m, K, r0, rows, smem + kRT * (K + 1), y, K + 1);
+    __syncthreads();
+    for (int e = t; e < rows * K; e += kThreads) p.xb[(long long)(r0 + e / K) * K + e % K] = y[(e / K) * (K + 1) + e % K];
+  }
+  grid.sync();
+  ax_partials<KP>(A_g, lda, xp, mp, n, m, K, sp, smem, axp);
+  grid.sync();
+  for (long long e = first; e < (long long)K * m; e += stride) {
+    float v = 0.f;
+    for (int gi = 0; gi < sp.gr; ++gi) v += axp[(long long)gi * K * m + e];  // in row-group order
+    p.ax[e] = v;
+  }
+}
+
+using ProbeFn = void (*)(ProbeArgs);
+
+ProbeFn probe_for(int K) {
+  switch (padded_k(K)) {
+    case 32: return contract_probe_kernel<32>;
+    case 48: return contract_probe_kernel<48>;
+    case 64: return contract_probe_kernel<64>;
+    default: return contract_probe_kernel<128>;
+  }
 }
 
 size_t smem_bytes(int r, int Ks, int S, int P, int nc) {
@@ -1199,6 +1564,27 @@ int desmo_train_chunk(const float* pod, const float* x, const float* x_sq, const
   void* params[] = {&args};
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads),
                                     params, bytes, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Floats of scratch desmo_chunk_contract_probe needs for a grid of `grid` blocks.
+long long desmo_chunk_probe_workspace(int n, int m, int K, int grid) { return probe_workspace(n, m, K, grid); }
+
+// Test entry, off the training path: xb = X Bᵀ (n, K) and ax = Aᵀ X (K, m)
+// from row-major A (n, K), B (K, m) and X (n, m) through the kernel's own
+// contraction routines, in one cooperative launch of `grid` blocks (at most
+// desmo_chunk_grid's). Returns a cudaError_t.
+int desmo_chunk_contract_probe(const float* a, const float* b, const float* x, float* xb, float* ax, float* work,
+                               int n, int m, int K, int grid, void* stream) {
+  if (n < 1 || m < 1 || K < 1 || K > kMaxK || grid < 1) return (int)cudaErrorInvalidValue;
+  ProbeArgs args{a, b, x, xb, ax, work, n, m, K};
+  const size_t bytes = sizeof(float) * (size_t)probe_smem_floats(K);
+  const void* kernel = (const void*)probe_for(K);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), params, bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

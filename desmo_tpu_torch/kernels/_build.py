@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded through ``ctypes``. The library lands in
-``build/kernels/`` at the root of the checkout, named by a hash of the source
-and the flags, so a changed source rebuilds and an unchanged one loads
-directly. Nothing builds when the package is imported; the first launch on a
+``build/kernels/`` at the root of the checkout, named by a hash of the source,
+the headers beside it and the flags, so a changed source or header rebuilds
+and an unchanged one loads directly. Nothing builds when the package is imported; the first launch on a
 CUDA tensor builds. A failed build raises with the compiler's output.
 """
 
@@ -44,10 +44,13 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lands: named by a hash of the
-    source and the flags."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    source, the headers of ``csrc/`` (any of them may be included) and the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -53,7 +53,9 @@ a stacked state) take the plain version (:func:`train_chunk_plain`,
 :func:`train_chunk_plain_packed`: the same arithmetic written out in
 PyTorch) for CPU tensors only. On a CUDA tensor they launch
 ``csrc/train_chunk.cu`` or raise; every launch adds one to the wrapper's
-``launches``.
+``launches``. ``contract_probe`` runs the kernel's two contractions with X
+alone (its own X·Bᵀ and AᵀX routines, in one launch), a test entry off the
+training path that holds them against float64 on the card.
 """
 
 from __future__ import annotations
@@ -661,11 +663,12 @@ def fused_ensemble_chunk(state: TrainState, batch: dict, num_steps: int, spec, c
 
 # the kernel clock's counters, in the order of ``enum Phase`` in the source;
 # the "barrier" entries close their phase, the wait for the slowest block
-# included. The Fourier form adds its series update and the B Bᵀ reduction
+# included ("columns.ax" is block 0's own AᵀX partial, "columns.ax_barrier"
+# the wait for the split's other blocks). The Fourier form adds its series update and the B Bᵀ reduction
 # after it (``FOURIER_PHASES``).
 PHASES = (
     "prologue", "rows.dictionary", "rows.xb", "rows.gradients", "rows.barrier", "reduce",
-    "columns.phi", "columns.ax", "columns.barrier", "finalize",
+    "columns.phi", "columns.ax", "columns.ax_barrier", "columns.barrier", "finalize",
 )
 FOURIER_PHASES = PHASES + ("series.update", "series.gram")
 
@@ -698,5 +701,50 @@ def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg):
     return {name: t * 1e-9 for name, t in zip(names, ns)}
 
 
+def contract_probe_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
+    """``(X Bᵀ (n, K), Aᵀ X (K, m))`` in plain PyTorch."""
+    device_mod.fp32_matmul()
+    return x @ b.T, a.T @ x
+
+
+def contract_probe(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
+    """``(X Bᵀ (n, K), Aᵀ X (K, m))`` from fp32 ``a`` (n, K), ``b`` (K, m)
+    and ``x`` (n, m), through the mega-kernel's own contraction routines: X·Bᵀ
+    over each block's rows as the rows phase forms it, AᵀX through the
+    columns phase's 2-D split, in one cooperative launch. A test entry, off
+    the training path, to hold the kernel's contractions against a float64
+    reference on the card; on CPU tensors, the plain version."""
+    n, k = a.shape
+    m = x.shape[1]
+    for name, t, shape in (("a", a, (n, k)), ("b", b, (k, m)), ("x", x, (n, m))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"contract_probe: {name} must be a contiguous float32 {shape} tensor on x's device")
+    if not 1 <= k <= 128:
+        raise ValueError(f"contract_probe: K={k} outside 1..128")
+    if x.device.type == "cpu":
+        return contract_probe_plain(a, b, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"contract_probe: unsupported device {x.device}")
+    lib = _lib()
+    lib.desmo_chunk_probe_workspace.argtypes = [ctypes.c_int] * 4
+    lib.desmo_chunk_probe_workspace.restype = ctypes.c_longlong
+    lib.desmo_chunk_contract_probe.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.desmo_chunk_contract_probe.restype = ctypes.c_int
+    grid = torch.cuda.get_device_properties(x.device).multi_processor_count
+    with torch.cuda.device(x.device):
+        f32 = dict(dtype=torch.float32, device=x.device)
+        xb, ax = torch.empty((n, k), **f32), torch.empty((k, m), **f32)
+        work = torch.empty((lib.desmo_chunk_probe_workspace(n, m, k, grid),), **f32)
+        rc = lib.desmo_chunk_contract_probe(
+            a.data_ptr(), b.data_ptr(), x.data_ptr(), xb.data_ptr(), ax.data_ptr(), work.data_ptr(), n, m, k, grid,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"contract_probe: kernel launch failed with CUDA error {rc}")
+    contract_probe.launches += 1
+    return xb, ax
+
+
 fused_train_chunk.launches = 0
 fused_ensemble_chunk.launches = 0
+contract_probe.launches = 0

@@ -6,6 +6,8 @@
 
     mkdir -p build/parent && git archive <rev> | tar -x -C build/parent
     python3 scripts/torch_ab_train_chunk.py build/parent [--preset fourier_cylinder] [--eager]
+    python3 scripts/torch_ab_train_chunk.py build/parent \
+        --preset cylinder,fourier_cylinder,aneurysm,aneurysm:4,fourier_cylinder:8
 
 Version B is this checkout. Version A is either a kernel source with the
 checkout's C interface, compiled by the script itself into ``build/ab/``
@@ -16,7 +18,10 @@ preset must be one that checkout runs).
 On a preset at full width (default cylinder: n=3961, m=1001, r=4, P=3;
 synthetic data, the preset's init), the script runs one 2,000-epoch chunk of
 each version in the order A, B, B, A and prints each launch's µs per epoch
-and its phase split from the kernel's own clock. For a kernel source it then
+and its phase split from the kernel's own clock. ``--preset`` takes a
+comma-separated list of cells, each a preset or ``preset:S`` for S seeds
+packed as ``ensemble.fit`` packs them (the packed form); in directory mode
+each turn runs every cell in turn. For a kernel source it then
 prints how far B's metrics trace and params lie from A's after 200 epochs at
 omega_init=1 and lr_omega=1. With ``--eager`` (directory mode only) each
 turn times the eager loop instead (``chunk_method="scan"``, the fused loss
@@ -65,12 +70,14 @@ def launching(lib: ctypes.CDLL):
     train_chunk._grid.cache_clear()
 
 
-def problem(preset: str, **over):
-    """``(cfg, spec, batch, state)`` of ``preset`` at full width on the card,
-    through the package on ``sys.path``."""
+def problem(cell: str, **over):
+    """``(cfg, spec, batch, state)`` of the cell ``preset`` or ``preset:S``
+    at full width on the card, through the package on ``sys.path``: the
+    preset's init, or S seeds packed as ``ensemble.fit`` packs them."""
     from desmo_tpu_torch import configs, device as device_mod, pod, runner, train
     from desmo_tpu_torch.models import desmo
 
+    preset, _, seeds = cell.partition(":")
     dev = device_mod.resolve("cuda")
     cfg = dataclasses.replace(configs.get(preset), **over)
     x, _ = runner.load_data(cfg, synthetic=True)
@@ -84,6 +91,13 @@ def problem(preset: str, **over):
     else:
         spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
         params = desmo.Desmo(spec, device=dev).params()
+    if seeds:
+        from desmo_tpu_torch import ensemble
+
+        S = int(seeds)
+        params = ensemble.init_params(spec, S, seed=cfg.seed, phi_sigma=cfg.seed_phi_sigma,
+                                      omega_spread=cfg.seed_omega_spread, device=dev)
+        return cfg, spec, batch, ensemble.init_state(params, cfg, S)
     return cfg, spec, batch, train.init_state(params, cfg)
 
 
@@ -94,15 +108,18 @@ def split_line(name: str, split: dict, steps: int) -> str:
             + f" us/epoch; prologue {split['prologue'] * 1e6:.1f} us")
 
 
-def time_tree(name: str, tree: str, preset: str, steps: int) -> None:
-    """One chunk of the checkout at ``tree`` (this process imports its package)."""
+def time_tree(name: str, tree: str, cells: str, steps: int) -> None:
+    """One chunk of the checkout at ``tree`` per cell (this process imports
+    its package)."""
     sys.path.insert(0, tree)
     from desmo_tpu_torch.kernels import train_chunk
 
     if not train_chunk.__file__.startswith(tree):
         raise RuntimeError(f"imported {train_chunk.__file__}, not the package under {tree}")
-    cfg, spec, batch, state = problem(preset)
-    print(split_line(name, train_chunk.phase_split(state, batch, steps, spec, cfg), steps), flush=True)
+    for cell in cells.split(","):
+        cfg, spec, batch, state = problem(cell)
+        print(split_line(f"{cell} {name}", train_chunk.phase_split(state, batch, steps, spec, cfg), steps),
+              flush=True)
 
 
 def time_eager(name: str, tree: str, preset: str, steps: int) -> None:

@@ -339,7 +339,7 @@ def emulated_train_chunk(tmp_path_factory):
     cpp.write_text((_build.CSRC / "train_chunk.cu").read_text() + '\n#include "harness.inc"\n')
     exe = out / "train_chunk_emulated"
     subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), str(cpp), "-o", str(exe)],
+        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), "-I", str(_build.CSRC), str(cpp), "-o", str(exe)],
         check=True, capture_output=True, timeout=240,
     )
     return exe
@@ -389,3 +389,49 @@ def test_packed_cuda_source_on_emulated_grid(emulated_train_chunk, tmp_path, n, 
     single.assert_emulated_matches_plain(got, state, batch, steps, spec, cfg, betas, lams)
     if patience == 1:
         assert (got["svec"][:, 0] < cfg.lr_coef).all()  # every seed's scheduler dropped its LRs
+
+
+@pytest.mark.parametrize(
+    "r, P, S, nf",
+    [
+        (2, 2, 4, 0),  # K'=48 (the KP=48 form) against the seeds' K=12 (KP=32)
+        (4, 2, 3, 0),  # K'=81 (KP=128) against K=27 (KP=32): aneurysm's seed width
+        (2, 2, 5, 3),  # Fourier, K'=60 (KP=64) against K=12 (KP=32)
+    ],
+)
+def test_packed_seed_equals_the_seed_alone_on_emulated_grid(emulated_train_chunk, tmp_path, r, P, S, nf):
+    """Each seed of the packed CUDA source equals the one-seed source run
+    alone from that seed's state, bit for bit, though the two run different
+    KP forms: the contractions sum in an order that does not depend on KP.
+    The metrics' max |omega lat| is over all seeds, so it is left out."""
+    import test_torch_train_chunk as single
+
+    n, m, steps = 40, 33, 3
+    rng = np.random.default_rng(S + 10 * r + nf)
+    cfg = configs.RunConfig(
+        name="emu", variant="fourier" if nf else "desmo", n=n, m=m, r=r, poly_order=P, omega_init=1.0,
+        lr_omega=1.0, n_fourier=max(nf, 1), period_init=float(m),
+    )
+    spec = port_spec(cfg) if nf else desmo.DesmoSpec(n, m, r, P, 1.0)
+    xt = torch.as_tensor(rng.standard_normal((n, m)).astype(np.float32))
+    batch = {"x": xt, "x_sq": torch.sum(xt * xt),
+             "pod_modes": torch.as_tensor((0.3 * rng.standard_normal((n, r))).astype(np.float32))}
+    periods = list(m * (0.7 + 0.6 * rng.random(S))) if nf else None
+    state = ensemble.init_state(
+        ensemble.init_params(spec, S, seed=2, phi_sigma=0.1, omega_spread=0.2, periods=periods), cfg, S)
+    packed = single.run_emulated(emulated_train_chunk, tmp_path, state, batch, steps, spec, cfg, 4)
+    ks = spec.num_poly_terms + 3 * r
+    for s in range(S):
+        alone = single.run_emulated(emulated_train_chunk, tmp_path, train_chunk.stack_seed(
+            train_chunk.seed_view(state, s)), batch, steps, spec, cfg, 4)
+        rows = {"phi": slice(s * r, (s + 1) * r), "b": slice(s * ks, (s + 1) * ks),
+                "series": slice(s * ks, (s + 1) * ks), "periods": slice(s * ks, (s + 1) * ks),
+                "coef": slice(s * ks, (s + 1) * ks), "omega": slice(s * 3 * r, (s + 1) * 3 * r)}
+        for name, got in alone.items():
+            if name == "svec":
+                want = packed[name][s:s + 1]
+            elif name == "metrics":
+                got, want = got[:, :, :4], packed[name][:, s:s + 1, :4]
+            else:
+                want = packed[name][:, rows[name]]
+            np.testing.assert_array_equal(got, want, err_msg=f"seed {s}: {name}")

@@ -94,6 +94,30 @@ def _chunk_problem(device, n, m, r, P, **over):
 
 
 @pytest.mark.parametrize(
+    "n, m, k",
+    # K at every KP form (32, 48, 64, 128); ragged slabs and row groups; the
+    # cylinder's and aneurysm S=4's shapes
+    [(100, 50, 7), (700, 333, 47), (513, 77, 60), (600, 130, 128), (3961, 1001, 47), (27000, 1000, 108)],
+)
+def test_contract_probe_matches_float64(cuda, n, m, k):
+    """The mega-kernel's own X·Bᵀ and AᵀX routines (3xTF32 tiles) against
+    the products in float64, to the step kernel's 5e-6 of max|ref|, with X
+    centred over its rows and a constant column in A, so that the constant
+    column's sums cancel; two launches bit-identical."""
+    a, b, x = _inputs(n, k, m, cuda, seed=k)
+    x = (x - x.mean(dim=0, keepdim=True)).contiguous()
+    a[:, 0] = 1.0
+    launches = train_chunk.contract_probe.launches
+    xb, ax = train_chunk.contract_probe(a, b, x)
+    xb2, ax2 = train_chunk.contract_probe(a, b, x)
+    torch.cuda.synchronize()
+    assert train_chunk.contract_probe.launches == launches + 2
+    assert torch.equal(xb, xb2) and torch.equal(ax, ax2)
+    for got, ref in ((xb, x.double() @ b.double().T), (ax, a.double().T @ x.double())):
+        assert ((got.double() - ref).abs().max() / ref.abs().max()).item() <= 5e-6
+
+
+@pytest.mark.parametrize(
     "n, m, r, P, steps",
     # the CPU suite's size; K=82 (the K <= 128 build); the cylinder preset;
     # the aneurysm preset's shape, which the TPU kernel streamed

@@ -433,7 +433,7 @@ def emulated_train_chunk(tmp_path_factory):
     cpp.write_text((_build.CSRC / "train_chunk.cu").read_text() + '\n#include "harness.inc"\n')
     exe = out / "train_chunk_emulated"
     subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), str(cpp), "-o", str(exe)],
+        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), "-I", str(_build.CSRC), str(cpp), "-o", str(exe)],
         check=True, capture_output=True, timeout=240,
     )
     return exe
@@ -568,3 +568,93 @@ def test_fourier_cuda_source_on_emulated_grid(
     assert_emulated_matches_plain(got, state, batch, steps, spec, cfg)
     if patience == 1:
         assert got["svec"][0, 4] < cfg.lr_period  # the period LR dropped with the others
+
+
+@pytest.mark.parametrize(
+    "n, m, r, P, grid",
+    [
+        (17, 9, 2, 2, 5),  # slabs of 8 and 1 column (narrower than an n8 tile), row groups 9 and 8, a block idle
+        (70, 50, 4, 3, 6),  # K=47 (KP=48): slabs of 32 and 18 columns, row groups 24, 24, 22
+        (40, 33, 7, 2, 3),  # K=57 (KP=64): slabs of 24 and 9 columns over one row group, a block idle
+        (33, 20, 4, 4, 7),  # K=82 (KP=128): 3 row groups x 2 slabs of 16 and 4, a block idle
+        (24, 300, 2, 2, 2),  # K=12: three 104-column slabs over two blocks, block 0 takes two
+    ],
+)
+def test_cuda_source_ax_split_on_emulated_grid(emulated_train_chunk, tmp_path, n, m, r, P, grid):
+    """The columns phase's 2-D AᵀX split at its edges (the comments give the
+    split ``ax_split`` makes of each grid): the chunk on the emulated grid
+    against the plain chunk, 2e-6 of each array's largest entry, as above."""
+    rng = np.random.default_rng(n + m)
+    cfg = configs.RunConfig(
+        name="emu", variant="desmo", n=n, m=m, r=r, poly_order=P, omega_init=1.0, lr_omega=1.0,
+    )
+    spec = desmo.DesmoSpec(n, m, r, P, 1.0)
+    xt = torch.as_tensor(rng.standard_normal((n, m)).astype(np.float32))
+    batch = {"x": xt, "x_sq": torch.sum(xt * xt),
+             "pod_modes": torch.as_tensor((0.3 * rng.standard_normal((n, r))).astype(np.float32))}
+    params = desmo.Desmo(spec).params()
+    params["phi"] = torch.as_tensor((1.0 + 0.1 * rng.standard_normal((r, n))).astype(np.float32))
+    state = train_chunk.stack_seed(train.init_state(params, cfg))
+    got = run_emulated(emulated_train_chunk, tmp_path, state, batch, 3, spec, cfg, grid=grid)
+    assert_emulated_matches_plain(got, state, batch, 3, spec, cfg)
+
+
+def run_emulated_probe(exe, tmp_path, a, b, x, grid):
+    """``desmo_chunk_contract_probe``'s kernel on an emulated grid: (xb, ax)."""
+    n, k = a.shape
+    m = x.shape[1]
+    src, dst = tmp_path / "probe_in.bin", tmp_path / "probe_out.bin"
+    src.write_bytes(np.array([n, m, k, grid], np.int32).tobytes() + b"".join(
+        np.ascontiguousarray(v, np.float32).tobytes() for v in (a, b, x)))
+    proc = subprocess.run([str(exe), "probe", str(src), str(dst)], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = np.fromfile(dst, np.float32)
+    assert out.size == n * k + k * m
+    return out[:n * k].reshape(n, k), out[n * k:].reshape(k, m)
+
+
+@pytest.mark.parametrize(
+    "n, m, k, grid",
+    [
+        (70, 50, 20, 4),  # KP=32
+        (70, 50, 47, 4),  # KP=48, the cylinder's K
+        (17, 9, 60, 5),  # KP=64: one row tile, a slab narrower than an n8 tile
+        (96, 40, 108, 6),  # KP=128, aneurysm S=4's K'
+        (100, 130, 128, 3),  # K=128: every m16 tile, more slabs than blocks
+        (45, 7, 1, 2),  # K=1: A's rows padded from 1 to 4 floats
+    ],
+)
+def test_contract_probe_on_emulated_grid(emulated_train_chunk, tmp_path, n, m, k, grid):
+    """The kernel's own X·Bᵀ and AᵀX routines (3xTF32 tiles, the emulated
+    mma.sync rounding its operands to TF32 per lane) against the products in
+    float64, to the 5e-6 of max|ref| the card holds them to, with X centred
+    over its rows and (K > 1) a constant column in A, whose sums cancel; at
+    K = 1 that column alone would make max|ref| the centring's own rounding."""
+    rng = np.random.default_rng(n * k + m)
+    a = rng.standard_normal((n, k)).astype(np.float32)
+    if k > 1:
+        a[:, 0] = 1.0
+    b = rng.standard_normal((k, m)).astype(np.float32)
+    x = rng.standard_normal((n, m)).astype(np.float32)
+    x = (x - x.mean(axis=0, keepdims=True)).astype(np.float32)
+    xb, ax = run_emulated_probe(emulated_train_chunk, tmp_path, a, b, x, grid)
+    for got, ref in ((xb, x.astype(np.float64) @ b.astype(np.float64).T),
+                     (ax, a.astype(np.float64).T @ x.astype(np.float64))):
+        assert np.isfinite(got).all()
+        assert np.abs(got - ref).max() <= 5e-6 * np.abs(ref).max()
+
+
+def test_contract_probe_takes_the_plain_version_on_the_cpu():
+    """On CPU tensors the probe is its plain version and counts no launch;
+    it refuses what the kernel does not take."""
+    rng = np.random.default_rng(0)
+    a, b, x = (torch.as_tensor(rng.standard_normal(s).astype(np.float32)) for s in ((30, 12), (12, 20), (30, 20)))
+    launches = train_chunk.contract_probe.launches
+    xb, ax = train_chunk.contract_probe(a, b, x)
+    assert train_chunk.contract_probe.launches == launches
+    torch.testing.assert_close(xb, x @ b.T, rtol=0, atol=0)
+    torch.testing.assert_close(ax, a.T @ x, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        train_chunk.contract_probe(a.double(), b, x)
+    with pytest.raises(ValueError):
+        train_chunk.contract_probe(torch.zeros((30, 129)), torch.zeros((129, 20)), x)
