@@ -34,10 +34,15 @@ presets at full width on synthetic data through ``runner.run``:
   partials summed, and the sharded chunk against the mega-kernel.
 
 Each path runs with every launch count set to 0 just before it and read just
-after. Then it times each kernel (the mega-kernel in its four forms, the AE
-kernel, the step kernel)
-against its plain version in turns, beside its bound, and splits the
-mega-kernel's time by phase with the kernel's own clock; the packed forms
+after. The kernels build without spills (checked from ``-Xptxas -v``), and
+the dual contraction is also held to float64 (5e-6 of max|ref|) at the
+eager losses' three shapes, on X with 16-byte rows as ``prepare_batch``
+hands it over. Then it times each kernel (the dual contraction beside the
+two cuBLAS products of its plain version, the mega-kernel in its four
+forms, the AE kernel, the step kernel)
+against its plain version in turns, beside its bound (fp32, and 3xTF32 for
+the kernels on the tensor cores), and splits the mega-kernel's and the AE
+kernel's time by phase with the kernels' own clocks; the packed forms
 beside the single-seed kernel at the same preset; the sharded path's step
 beside the mega-kernel's epoch. Each phase prints its lines; any
 failed check exits non-zero. The second-to-last line is a JSON record of the
@@ -75,8 +80,13 @@ SHARDED_FOURIER_EPOCHS = 400
 # fourier_cylinder; the kernel 8.9e-7)
 STEP_RTOL = 5e-6
 STEP_DL_RTOL = 1e-5
-# kernel vs plain: fp32 FMA against cuBLAS fp32, both accumulating in fp32
+# kernel vs plain: 3xTF32 tiles against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
+# the dual contraction against float64 at the eager losses' shapes (cylinder,
+# aneurysm with 4 packed seeds, fourier_cylinder and ae_cylinder), as phase
+# 7c holds the mega-kernel's contractions
+DUAL_SHAPES = ((3961, 1001, 47), (27000, 1000, 108), (3961, 1001, 12))
+DUAL_F64_RTOL = 5e-6
 GRAD_RTOL = 2e-4
 # mega-kernel ortho vs plain: the absolute floor of tests/test_torch_train_chunk.py
 ORTHO_ATOL = 1e-5
@@ -133,8 +143,9 @@ def contraction_flops(n: int, m: int, k: int, seeds: int = 1) -> float:
 
 def kernel_forms(log: str) -> list[tuple[str, int, int, int]]:
     """``(name, registers, bytes spilled, bytes of stack)`` of each kernel
-    function in ``-Xptxas -v``'s report, the mega-kernel's forms named by
-    their KP and form (registers -1 where the report gives none)."""
+    function in ``-Xptxas -v``'s report, the mega-kernel's forms and the dual
+    contraction's named by their KP (and form), registers -1 where the report
+    gives none."""
     import re
 
     forms, name = [], None
@@ -144,8 +155,11 @@ def kernel_forms(log: str) -> list[tuple[str, int, int, int]]:
             mangled = entry.group(1)
             chunk = re.search(r"train_chunk_kernelILi(\d+)ELb([01])E", mangled)
             probe = re.search(r"contract_probe_kernelILi(\d+)E", mangled)
+            dual = re.search(r"dual_kernelILi(\d+)E", mangled)
+            other = re.search(r"(reduce_parts_kernel|ae_chunk_kernel)", mangled)
             name = (f"{'Fourier' if chunk.group(2) == '1' else 'desmo'} KP={chunk.group(1)}" if chunk
-                    else f"probe KP={probe.group(1)}" if probe else mangled)
+                    else f"probe KP={probe.group(1)}" if probe else f"dual KP={dual.group(1)}" if dual
+                    else other.group(1) if other else mangled)
             continue
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name:
@@ -241,6 +255,13 @@ def main() -> int:
         f"{name}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack" for name, regs, spill, stack in forms))
     check(len(forms) == 12 and all(spill == 0 for _, _, spill, _ in forms),
           "the mega-kernel's forms (desmo and Fourier at KP=32/48/64/128, the probe) must build without spills")
+    for name, count in (("dual_gemm", 6), ("ae_chunk", 1)):
+        kforms = kernel_forms(_build.build_log(name))
+        print(f"[2 ptxas] {name} by kernel: " + " | ".join(
+            f"{kname}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack"
+            for kname, regs, spill, stack in kforms))
+        check(len(kforms) == count and all(spill == 0 for _, _, spill, _ in kforms),
+              f"{name}'s kernels must build without spills")
 
     counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk,
                 ae_chunk.fused_ae_chunk, shard_step.step_partials)
@@ -266,7 +287,22 @@ def main() -> int:
         errs[(n, m, k)] = max(float((ax - pax).abs().max()), float((xb - pxb).abs().max()))
         print(f"[3 dual] (n, m, K)={(n, m, k)}: max|err|/max|ref| ax {e_ax:.2e}, xb {e_xb:.2e} "
               f"(limit {CONTRACTION_RTOL:.0e}); repeat launch bit-identical")
-    cyl, k12 = (3961, 1001, 47), (3961, 1001, 12)
+        if (n, m, k) in DUAL_SHAPES:
+            # X as the eager losses hand it over (prepare_batch's 16-byte rows
+            # where m is not a multiple of 4): the same bits as contiguous X
+            xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, dev))
+            axv, xbv = dual_gemm.dual_contractions(a, b, xv)
+            rax, rxb = a.double().T @ x.double(), x.double() @ b.double().T
+            e64 = (rel_err(ax.double(), rax), rel_err(xb.double(), rxb))
+            e64_plain = (rel_err(pax.double(), rax), rel_err(pxb.double(), rxb))
+            torch.cuda.synchronize()
+            check(max(e64) <= DUAL_F64_RTOL, f"dual kernel vs float64 at {(n, m, k)}: ax, xb {e64} > {DUAL_F64_RTOL}")
+            check(torch.equal(ax, axv) and torch.equal(xb, xbv),
+                  f"dual kernel on X with 16-byte rows differs from contiguous X at {(n, m, k)}")
+            print(f"[3 dual] (n, m, K)={(n, m, k)} vs float64: max|err|/max|ref| ax {e64[0]:.2e}, xb {e64[1]:.2e} "
+                  f"(limit {DUAL_F64_RTOL:.0e}; the plain version in float32 {e64_plain[0]:.2e}, "
+                  f"{e64_plain[1]:.2e}); X with {xv.stride(0)}-float rows: the same bits")
+    cyl, k12 = DUAL_SHAPES[0], DUAL_SHAPES[2]
     for shape3 in (cyl, k12):
         a, b, x = (torch.randn(shape, generator=gen).to(dev) * s
                    for shape, s in (((shape3[0], shape3[2]), 0.3), ((shape3[2], shape3[1]), 0.3),
@@ -835,40 +871,29 @@ def main() -> int:
               f"{art.pod_error_2r:.6f}; sweep {len(art.sweep)} rows; AE kernel launches {ae_launches} = chunks, "
               "other kernels 0")
 
-    # 7. times on the card, each kernel and its plain version in turns
-    a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((cyl[0], cyl[2]), (cyl[2], cyl[1]), cyl[:2]))
-    kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
-    plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
-    k1, p1, p2, k2 = (time_ms(f, 200) for f in (kernel, plain, plain, kernel))
-    dual_ms, dual_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    n, m, k = cyl
-    dual_bound, dual_by = bound_ms(2 * (2 * n * m * k), 4 * (2 * n * k + 2 * k * m + n * m))
-    print(f"[7 time] {card}: dual_contractions at (n, m, K)={cyl}: kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, "
-          f"plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (kernel, plain, plain, kernel; 200 calls each); "
-          f"bound {dual_bound * 1e3:.1f} us ({dual_by})")
-
-    aneurysm_dual = (27000, 1000, 108)
-    n, m, k = aneurysm_dual
-    a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
-    kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
-    plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
-    k1, p1, p2, k2 = (time_ms(f, 50) for f in (kernel, plain, plain, kernel))
-    packed_dual_ms, packed_dual_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    packed_dual_bound, packed_dual_by = bound_ms(2 * (2 * n * m * k), 4 * (2 * n * k + 2 * k * m + n * m))
-    print(f"[7 time] {card}: dual_contractions at the packed eager loss' (n, m, K')={aneurysm_dual}: kernel "
-          f"{k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (50 calls each, in "
-          f"turns); bound {packed_dual_bound * 1e3:.1f} us ({packed_dual_by})")
-
-    n, m, k = k12
-    a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
-    kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
-    plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
-    k1, p1, p2, k2 = (time_ms(f, 200) for f in (kernel, plain, plain, kernel))
-    k12_dual_ms, k12_dual_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    k12_dual_bound, k12_dual_by = bound_ms(2 * (2 * n * m * k), 4 * (2 * n * k + 2 * k * m + n * m))
-    print(f"[7 time] {card}: dual_contractions at the fourier_cylinder and ae_cylinder eager losses' (n, m, K)={k12}: "
-          f"kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us, plain {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call (200 calls "
-          f"each, in turns); bound {k12_dual_bound * 1e3:.1f} us ({k12_dual_by})")
+    # 7. times on the card, each kernel and its plain version in turns; the
+    # dual contraction's plain version is the two cuBLAS fp32 products, its
+    # library yardstick (no one call computes both)
+    dual_times = {}
+    for shape3, what in zip(DUAL_SHAPES, ("the cylinder eager loss'", "the packed eager loss'",
+                                          "the fourier_cylinder and ae_cylinder eager losses'")):
+        n, m, k = shape3
+        a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
+        xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, dev))  # as the eager loss hands X over
+        kernel = lambda: dual_gemm.dual_contractions(a, b, xv)  # noqa: E731
+        plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
+        iters = 50 if n > 10_000 else 200
+        k1, p1, p2, k2 = (time_ms(f, iters) for f in (kernel, plain, plain, kernel))
+        nbytes = 4 * (2 * n * k + 2 * k * m + n * m)
+        bound, by = bound_ms(2 * (2 * n * m * k), nbytes)
+        bound3 = bound_3xtf32_ms(2 * (2 * n * m * k), 0, nbytes)
+        dual_times[shape3] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": bound, "bound_by": by,
+                              "bound_3xtf32_ms": bound3}
+        print(f"[7 time] {card}: dual_contractions at {what} (n, m, K)={shape3}: kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} "
+              f"us, the cuBLAS pair (plain version, the library yardstick) {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call "
+              f"(kernel, plain, plain, kernel; {iters} calls each); bound {bound * 1e3:.1f} us ({by}, fp32), "
+              f"{bound3 * 1e3:.1f} us (3xTF32)")
+    cyl, aneurysm_dual, k12 = DUAL_SHAPES
     n, m, k = cyl
 
     spec, st = start(preset)
@@ -1019,6 +1044,10 @@ def main() -> int:
     ae_state_bytes = 4 * 2 * (3 * mlp + 3 * aeK * m + 3 * aeK + 18 + train_chunk.SVEC)
     ae_bytes = 4 * (n * m + m + TIMED_STEPS * len(ae_chunk.METRICS)) + ae_state_bytes
     ae_bound, ae_by = bound_ms(TIMED_STEPS * ae_flops(n, m, aeK), ae_bytes)
+    # the column products with X (D6ᵀX and Xᵀ·dpre1, 2nm·256 each) as three
+    # TF32 passes on the tensor cores, the rest at the fp32 rate
+    ae_tensor = 2 * (2 * n * m * 256)
+    ae_bound3 = bound_3xtf32_ms(TIMED_STEPS * ae_tensor, TIMED_STEPS * (ae_flops(n, m, aeK) - ae_tensor), ae_bytes)
     ae_loss = autoencoder.build_loss(aspec, aepreset.beta, aepreset.l1_lambda, aepreset.ae_beta, method="fused")
     ae_eager = train.make_train_chunk(ae_loss, autoencoder.param_groups(ast.params), aepreset)
     ae_eager_ms = time_ms(lambda: ae_eager(ast, ae_batch, TIMED_STEPS), 1) / TIMED_STEPS
@@ -1026,13 +1055,17 @@ def main() -> int:
           f"{E}-epoch chunk; over {TIMED_STEPS}-epoch chunks in turns: kernel {k1 * per_epoch:.1f}/{k2 * per_epoch:.1f} "
           f"us/epoch, plain chunk {p1 * per_epoch:.1f}/{p2 * per_epoch:.1f} us/epoch; eager step "
           f"{ae_eager_ms * 1e3:.1f} us; bound {ae_bound * per_epoch:.1f} us/epoch ({ae_by}, "
-          f"{ae_flops(n, m, aeK) / 1e9:.2f} GFLOP an epoch); slice {ae_slice_sps:.1f} steps/s, eager path "
-          f"{ae_eager_sps:.1f} steps/s")
+          f"{ae_flops(n, m, aeK) / 1e9:.2f} GFLOP an epoch; 3xTF32, D6ᵀX and Xᵀ·dpre1 on the tensor cores: "
+          f"{ae_bound3 * per_epoch:.1f}); slice {ae_slice_sps:.1f} steps/s, eager path {ae_eager_sps:.1f} steps/s")
     ae_split_total = sum(ae_split.values())
+    ae_columns = sum(ae_split[k] for k in ("encoder.columns", "encoder.barrier", "columns.weights", "weights.barrier",
+                                            "columns.v6", "columns.barrier"))
     print(f"[7a split] {card}: AE kernel over a {E}-epoch chunk (kernel clock, block 0): prologue "
           f"{ae_split['prologue'] * 1e6:.1f} us once; "
           + ", ".join(f"{k} {v * 1e6 / E:.1f} us/epoch ({v / ae_split_total:.1%})"
-                      for k, v in ae_split.items() if k != "prologue"))
+                      for k, v in ae_split.items() if k != "prologue")
+          + f"; the column phases with their barriers {ae_columns * 1e6 / E:.1f} us/epoch; bound "
+          f"{ae_bound * per_epoch:.1f} us/epoch (fp32), {ae_bound3 * per_epoch:.1f} (3xTF32)")
 
     # 8a. the step kernel against its plain version at cylinder (K=47) and
     # fourier_cylinder (K=12), from one state (omega_init=1): all rows in one
@@ -1198,6 +1231,30 @@ def main() -> int:
             f"{device_us / 50 / sh['us']:.1%}"))
     torch.distributed.destroy_process_group()
 
+    # 8e. the dual contraction's device time per call beside the cuBLAS
+    # pair's, at phase 7's shapes and in turns: the kernels' own time in a
+    # profiler window of 50 calls (phase 7's CUDA events over back-to-back
+    # calls take in the host's share of a call where the host is the slower).
+    # After every timing, as the busy windows above.
+    for shape3 in DUAL_SHAPES:
+        n, m, k = shape3
+        a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
+        xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, dev))
+        turns = []
+        for fn in (lambda: dual_gemm.dual_contractions(a, b, xv), lambda: dual_gemm.dual_contractions_plain(a, b, x)) * 2:
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+            turns.append(sum(e.self_device_time_total for e in prof.key_averages()
+                             if str(e.device_type).endswith("CUDA")) / 50)
+        dual_times[shape3]["device_us"] = (turns[0] + turns[2]) / 2
+        print(f"[8e dual] {card}: dual_contractions at (n, m, K)={shape3}, device time per call: kernel "
+              f"{turns[0]:.1f}/{turns[2]:.1f} us, the cuBLAS pair {turns[1]:.1f}/{turns[3]:.1f} us (in turns, 50 "
+              "calls each)" if min(turns) > 0 else "device time not measured (the profiler saw no device event)")
+
     # 9. the records
     print(json.dumps({"kernels": [
         {
@@ -1207,10 +1264,7 @@ def main() -> int:
             "replaces": "desmo_tpu/pallas/dual_gemm.py:194",
             "launches": dual_launches,
             "max_abs_err": errs[cyl],
-            "ms": dual_ms,
-            "plain_ms": dual_plain_ms,
-            "bound_ms": dual_bound,
-            "bound_by": dual_by,
+            **dual_times[cyl],
             "library_ms": None,
         },
         {
@@ -1248,10 +1302,7 @@ def main() -> int:
             "replaces": "desmo_tpu/pallas/dual_gemm.py:71",
             "launches": packed_dual_launches,
             "max_abs_err": errs[aneurysm_dual],
-            "ms": packed_dual_ms,
-            "plain_ms": packed_dual_plain_ms,
-            "bound_ms": packed_dual_bound,
-            "bound_by": packed_dual_by,
+            **dual_times[aneurysm_dual],
             "library_ms": None,
         },
     ] + [
@@ -1262,10 +1313,7 @@ def main() -> int:
             "replaces": "desmo_tpu/pallas/dual_gemm.py:71",
             "launches": launches,
             "max_abs_err": errs[k12],
-            "ms": k12_dual_ms,
-            "plain_ms": k12_dual_plain_ms,
-            "bound_ms": k12_dual_bound,
-            "bound_by": k12_dual_by,
+            **dual_times[k12],
             "library_ms": None,
         }
         for name, launches in (
@@ -1299,6 +1347,7 @@ def main() -> int:
             "plain_ms": ae_plain_ms,
             "bound_ms": ae_bound,
             "bound_by": ae_by,
+            "bound_3xtf32_ms": ae_bound3,
             "library_ms": None,
         },
     ] + [

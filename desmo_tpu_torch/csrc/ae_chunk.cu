@@ -19,17 +19,31 @@
 // forward and backward, with their weight gradients, about 2.0; D6ᵀD6
 // (symmetric) and D6·VV 0.78; V6V6ᵀ and S_dd·V6 0.20; the K=12 dictionary
 // (X·Bᵀ, AᵀX and the Grams) 0.19. That is about 169 us at the 67 TFLOP/s
-// fp32 rate outside the tensor cores. X (15.9 MB) fits in the 50 MB L2 and
-// is read three times per epoch.
+// fp32 rate outside the tensor cores; with D6ᵀX and Xᵀ·dpre1 (4.06 GFLOP)
+// as three TF32 passes at 495 TFLOP/s and the rest (7.2) at the fp32 rate,
+// about 133 us (chip_smoke.py's bound_3xtf32_ms). X (15.9 MB) fits in the
+// 50 MB L2 and is read four times per epoch.
 //
-// Design (simple first: plain fp32 FMA, no tensor cores, no TMA, no bf16
-// hi/lo split, no TF32). The TPU kernel runs the whole funnel at full height
-// in its last row tile, because Mosaic pays per operation; on Hopper the
-// funnel is row-parallel. One persistent cooperative launch of one block of
-// 256 threads per SM; each block owns a contiguous range of rows, worked in
+// Design. The TPU kernel runs the whole funnel at full height in its last
+// row tile, because Mosaic pays per operation; on Hopper the funnel is
+// row-parallel. One persistent cooperative launch of one block of 256
+// threads per SM; each block owns a contiguous range of rows, worked in
 // tiles of 32. Every activation and every pre-activation gradient is
 // stashed in the scratch (about 1,900 floats a row), so nothing is
-// recomputed. Four phases per epoch, with a grid barrier after each:
+// recomputed. The row phases multiply in plain fp32 FMA (row_gemm). Every
+// product over the rows (the column phases) is a column job: an Lᵀ R on the
+// tensor cores (col_mma.cuh's lt_r_tile: 3xTF32 mma.sync, 64 x 128 output
+// tiles, each warp 2 m16 x 4 n8 tiles, operands staged by 16-byte cp.async
+// through a 3-stage ring and split into big and small TF32 planes once, by
+// the thread that copied them). Column sums (the biases, 1ᵀD6) are jobs with
+// a column of ones for L. A job is split over row groups: each (tile, group)
+// task writes a partial into the scratch, and the next phase sums a job's
+// partials in group order, so two launches give identical bits. The groups
+// are chosen at run time from n and G (job_groups) so that each phase's
+// tasks fill the G blocks in one round; X is staged from a copy with rows
+// padded to 16 bytes (xp), made once per launch, and A has rows of a
+// multiple of 4 floats. Five phases per epoch, with a grid barrier after
+// each:
 //   0. rows: per tile, the encoder (X·W0 and the narrow layers) to the
 //      latent, the decoder to D6; the dictionary on the latent, X·Bᵀ, dA,
 //      the coefficient and omega gradient partials and the dictionary's
@@ -37,25 +51,36 @@
 //      decoder backward to the latent; per-block partials of s1 and s2;
 //   1. rows: the latent gradient gets the ortho term (s1, s2 summed over the
 //      blocks' partials in block order, by every block alike) and the
-//      encoder backward runs to dpre1; then column tasks: D6ᵀD6, D6ᵀX, 1ᵀD6,
-//      AᵀX and AᵀA, each output tile summed over all rows by one block;
-//   2. column tasks: every MLP weight and bias gradient (Xᵀ·dpre1 and the
-//      narrow layers' aᵀ·g) with its Adamax step fused into the tile; slabs
-//      of 8 columns of m, each stepping V6 (dV6 = k (S_dd V6 + s_dᵀc6 -
-//      S_dX)), c6 and B and writing its partials of the metrics; and
-//      <S_dd, VV>;
-//   3. block 0: the metrics row, the coefficient and omega Adamax and the
+//      encoder backward runs to dpre1; then the gram jobs' tasks: D6ᵀX,
+//      D6ᵀD6, AᵀX, AᵀA and 1ᵀD6;
+//   2. the weight jobs' tasks: every MLP weight and bias gradient but V6's
+//      and c6's (Xᵀ·dpre1 and the narrow layers' aᵀ·g, 1ᵀ·g); the blocks
+//      they leave idle sum the gram jobs' partials into S_dX, S_dd, AᵀX,
+//      AᵀA and s_d;
+//   3. slabs of 8 columns of m, each stepping V6 (dV6 = k (S_dd V6 + s_dᵀc6
+//      - S_dX)), c6 and B and writing its partials of the metrics; and
+//      <S_dd, VV>, <ga, gb>;
+//   4. block 0: the metrics row, the coefficient and omega Adamax and the
 //      scheduler; the other blocks: VV = V6V6ᵀ, c6V6ᵀ and B Bᵀ of the new
-//      parameters, for the next epoch.
-// Every sum across threads or blocks runs in a fixed order and every output
-// of a column task is summed by one thread, so two launches give identical
-// bits. A per-phase clock (PhaseClock) says where the time goes. The kernel
-// allocates nothing and does not synchronise; the entry point returns the
-// launch's cudaError_t.
+//      parameters, for the next epoch, then the sums of the weight jobs'
+//      partials, each with its Adamax step (lr_z and the Adamax bias read
+//      before the scheduler's step).
+// What it does about the causes that held the column phases back (measured
+// on the H100, PERF.md): each task was one output tile summed over all n
+// rows by one block, 178 and 191 tasks on 132 blocks, so two rounds with the
+// second mostly idle; now 124 and 132 tasks in one round. Each task walked
+// its rows in 32-row chunks through registers, with two barriers per chunk,
+// scalar loads of X and fp32 FMA; now the chunks arrive by cp.async ahead of
+// use and the products run on the tensor cores. Every sum across threads or
+// blocks runs in a fixed order. A per-phase clock (PhaseClock) says where
+// the time goes. The kernel allocates nothing and does not synchronise; the
+// entry point returns the launch's cudaError_t.
 
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <stddef.h>
+
+#include "col_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -64,9 +89,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRT = 32;    // rows per tile of the row phases
 constexpr int kKC = 32;    // contraction chunk of the row products
-constexpr int kCP = 32;    // column tasks: output rows per tile
-constexpr int kCQ = 64;    // column tasks: output columns per tile
-constexpr int kCR = 32;    // column tasks: rows of the contraction per staged chunk
+constexpr int kCP = 32;    // next epoch's Grams (col_tile): output rows per tile
+constexpr int kCQ = 64;    // next epoch's Grams: output columns per tile
+constexpr int kCR = 32;    // next epoch's Grams: rows of the contraction per staged chunk
+constexpr int kTP = 64;    // column jobs (lt_r_tile): output rows per tile; kColTQ columns
 constexpr int kSlab = 8;   // columns of m per V6 slab task
 constexpr int kH = 256;    // first hidden width
 constexpr int kL = 7;      // layers per side
@@ -76,10 +102,13 @@ constexpr int kMaxP = 8;
 constexpr int kMetrics = 6;  // rec, ortho, l1, total, max |omega * lat|, ae
 constexpr int kPart0 = 32;   // per-block partials of phase 0: s1, s2, max|arg|, gcoef (K), gomega (3r)
 constexpr int kPart2 = 8;    // per-slab partials: <S_dX, V6>, (s_d V6)·c6, xcol·c6, |c6|², <ax, B>
-constexpr int kGemmFloats = kKC * kRT + kKC * kH;  // the row products' staging, the largest scratch use
+// the staging of the products: the row products', or the column jobs' ring, the larger
+constexpr int kGemmFloats = kKC * kRT + kKC * kH > col_ring_floats(kTP) ? kKC * kRT + kKC * kH : col_ring_floats(kTP);
+constexpr int kGramJobs = 5;     // phase 1's column jobs: D6ᵀX, D6ᵀD6, AᵀX, AᵀA, 1ᵀD6
+constexpr int kWeightJobs = 26;  // phase 2's: the 13 weight gradients but V6's, then the 13 bias gradients but c6's
 enum Phase {
   kPrologue, kRowsForward, kRowsDictionary, kRowsDecoder, kRowsBarrier, kEncBackward, kEncColumns,
-  kEncBarrier, kColWeights, kColV6, kColBarrier, kFinalize, kPhases
+  kEncBarrier, kColWeights, kColWeightsBarrier, kColV6, kColBarrier, kFinalize, kPhases
 };
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
@@ -133,45 +162,125 @@ __host__ __device__ inline Mlp make_mlp(int m) {
   return M;
 }
 
-// Offsets (in floats) into the scratch for a grid of G blocks. a[l] is the
-// output of encoder layer l (a[6] the latent), d[l] the decoder's
-// activation l (d[1..6]; d[0] is the latent), g[l] the gradient of encoder
-// layer l's pre-activation and e[l] that of decoder activation l's.
+// The column jobs: every product over the rows that the epoch needs, each
+// an Lᵀ R (lt_r_tile) split over row groups, each (tile, group) task writing
+// a partial that the next phase sums in group order. Phase 1 (gram, j <
+// kGramJobs): D6ᵀX, D6ᵀD6, AᵀX, AᵀA and 1ᵀD6 (L a column of ones). Phase 2
+// (weights): gW_l = inᵀ g_l for layers l < 13 (encoder 0..6, decoder 0..5),
+// then the biases' 1ᵀ g_l (encoder 0..6, decoder 0..5). P x Q is the job's
+// output.
+__host__ __device__ inline void job_shape(int phase, int j, int m, int K, const Mlp& M, int* P, int* Q) {
+  if (phase == 1) {
+    const int Ps[kGramJobs] = {kH, kH, K, K, 1}, Qs[kGramJobs] = {m, kH, m, K, kH};
+    *P = Ps[j];
+    *Q = Qs[j];
+  } else if (j < 2 * kL - 1) {
+    *P = M.in[j];
+    *Q = M.out[j];
+  } else {
+    *P = 1;
+    *Q = M.out[j - (2 * kL - 1)];  // bias l = j - 13: encoder layers 0..6, then decoder layers 0..5 (7..12)
+  }
+}
+
+__host__ __device__ inline int job_count(int phase) { return phase == 1 ? kGramJobs : kWeightJobs; }
+__host__ __device__ inline int job_tiles(int P, int Q) { return ((P + kTP - 1) / kTP) * ((Q + kColTQ - 1) / kColTQ); }
+// a job whose tiles keep every warp busy, split over several row groups
+__host__ __device__ inline bool job_heavy(int P, int Q) { return P >= 64 && Q >= 64; }
+
+// Row groups of a phase's jobs, heavy and light: the split of the G blocks
+// in one round whose smaller count is largest (a task's time goes with its
+// rows, about alike for both kinds), the heavy ones the more on a tie; at
+// least 2 kColRows rows a group; one each where the tiles outnumber G.
+struct JobGroups {
+  int heavy, light;
+};
+
+__host__ __device__ inline JobGroups job_groups(int phase, int n, int m, int K, int G) {
+  const Mlp M = make_mlp(m);
+  int heavy = 0, light = 0;
+  for (int j = 0; j < job_count(phase); ++j) {
+    int P, Q;
+    job_shape(phase, j, m, K, M, &P, &Q);
+    (job_heavy(P, Q) ? heavy : light) += job_tiles(P, Q);
+  }
+  const int most = n / (2 * kColRows) > 1 ? n / (2 * kColRows) : 1;
+  JobGroups best{1, 1};
+  for (int gh = 1; gh <= most && heavy * gh + light <= G; ++gh) {
+    int gl = light > 0 ? (G - heavy * gh) / light : gh;
+    gl = gl < most ? gl : most;
+    const int score = gh < gl ? gh : gl, best_score = best.heavy < best.light ? best.heavy : best.light;
+    if (score >= best_score) best = JobGroups{gh, gl};
+  }
+  return best;
+}
+
+// Floats of a phase's partials: groups x P x Q per job, each job's rounded to 4.
+__host__ __device__ inline long long job_part_floats(int phase, int n, int m, int K, int G) {
+  const Mlp M = make_mlp(m);
+  const JobGroups g = job_groups(phase, n, m, K, G);
+  long long o = 0;
+  for (int j = 0; j < job_count(phase); ++j) {
+    int P, Q;
+    job_shape(phase, j, m, K, M, &P, &Q);
+    o += ((job_heavy(P, Q) ? g.heavy : g.light) * (long long)P * Q + 3) / 4 * 4;
+  }
+  return o;
+}
+
+// Offsets (in floats) into the scratch for a grid of G blocks, each a
+// multiple of 4 (16-byte aligned). a[l] is the output of encoder layer l
+// (a[6] the latent), d[l] the decoder's activation l (d[1..6]; d[0] is the
+// latent), g[l] the gradient of encoder layer l's pre-activation and e[l]
+// that of decoder activation l's. A (n, K) has row stride lda = K rounded up
+// to 4 (zero beyond K); xp holds X with rows padded to mp = m rounded up to
+// 4 floats (zero beyond m), copied at the launch's start, so that the column
+// jobs stage it by 16-byte copies; jp1 and jp2 hold the column jobs'
+// partials of phases 1 and 2.
 struct Layout {
   long long a[kL], g[kL], d[kL], e[kL];
-  long long A, dlp, sdd, sdx, sd, ax, ga, vv, cv, gb, part0, part2, sddvv, timer, total;
-  int nslab;
+  long long A, dlp, sdd, sdx, sd, ax, ga, vv, cv, gb, part0, part2, sddvv, xp, jp1, jp2, timer, total;
+  int nslab, lda, mp;
 };
 
 __host__ __device__ inline Layout make_layout(int n, int m, int K, int G) {
   Layout L;
   long long o = 0;
+  auto take = [&](long long floats) {
+    const long long at = o;
+    o += (floats + 3) / 4 * 4;
+    return at;
+  };
   for (int l = 0; l < kL; ++l) {
-    L.a[l] = o; o += (long long)n * enc_width(l + 1, m);
-    L.g[l] = o; o += (long long)n * enc_width(l + 1, m);
+    L.a[l] = take((long long)n * enc_width(l + 1, m));
+    L.g[l] = take((long long)n * enc_width(l + 1, m));
   }
   L.d[0] = L.a[kL - 1];
   L.e[0] = -1;
   for (int l = 1; l < kL; ++l) {
-    L.d[l] = o; o += (long long)n * enc_width(kL - l, m);
-    L.e[l] = o; o += (long long)n * enc_width(kL - l, m);
+    L.d[l] = take((long long)n * enc_width(kL - l, m));
+    L.e[l] = take((long long)n * enc_width(kL - l, m));
   }
   L.nslab = (m + kSlab - 1) / kSlab;
-  L.A = o;     o += (long long)n * K;
-  L.dlp = o;   o += (long long)n * kR;
-  L.sdd = o;   o += (long long)kH * kH;
-  L.sdx = o;   o += (long long)kH * m;
-  L.sd = o;    o += kH;
-  L.ax = o;    o += (long long)K * m;
-  L.ga = o;    o += K * K;
-  L.vv = o;    o += (long long)kH * kH;
-  L.cv = o;    o += kH;
-  L.gb = o;    o += K * K;
-  L.part0 = o; o += (long long)G * kPart0;
-  L.part2 = o; o += (long long)L.nslab * kPart2;
-  L.sddvv = o; o += 1;
-  o += o & 1;
-  L.timer = o; o += 2 * kPhases;  // kPhases unsigned 64-bit ns counters
+  L.lda = (K + 3) / 4 * 4;
+  L.mp = (m + 3) / 4 * 4;
+  L.A = take((long long)n * L.lda);
+  L.dlp = take((long long)n * kR);
+  L.sdd = take((long long)kH * kH);
+  L.sdx = take((long long)kH * m);
+  L.sd = take(kH);
+  L.ax = take((long long)K * m);
+  L.ga = take(K * K);
+  L.vv = take((long long)kH * kH);
+  L.cv = take(kH);
+  L.gb = take(K * K);
+  L.part0 = take((long long)G * kPart0);
+  L.part2 = take((long long)L.nslab * kPart2);
+  L.sddvv = take(2);
+  L.xp = take((long long)n * L.mp);
+  L.jp1 = take(job_part_floats(1, n, m, K, G));
+  L.jp2 = take(job_part_floats(2, n, m, K, G));
+  L.timer = take(2 * kPhases);  // kPhases unsigned 64-bit ns counters
   L.total = o;
   return L;
 }
@@ -183,7 +292,20 @@ constexpr int kPersistFloats = kThreads /* red */ + kMaxK * kMaxP /* ftab */ + k
                                kMaxK * kMaxK /* gb */ + kMaxK /* cacc */ + 8 /* oacc */ + kRT * 4 /* aug */ +
                                4 * kRT * kLd /* D, V, A, Y */ + kRT * kR /* dl */ + 8 /* s1, s2 */ +
                                kMaxK * kSlab * 2 /* B slab, new */ + 4 * kSlab /* slab columns */;
-constexpr int kSmemFloats = kGemmFloats + kPersistFloats;
+// a column job: its operands, its output P x Q, its row groups, and where its
+// partials (groups, P, Q) and its sums go (an offset into the scratch in
+// phase 1, into the MLP tensors in phase 2)
+struct ColJob {
+  ColOperand l, r;
+  int P, Q, groups, tiles;
+  long long part, dst;
+};
+constexpr int kJobFloats = (int)((sizeof(ColJob) + 15) / 16 * 4);
+constexpr int kJobsFloats = (kGramJobs + kWeightJobs) * kJobFloats;
+// the Layout and the Mlp offsets live in shared memory, so that no thread
+// carries them in registers through the launch
+constexpr int kLayoutFloats = (int)((sizeof(Layout) + 15) / 16 * 4), kMlpFloats = (int)((sizeof(Mlp) + 15) / 16 * 4);
+constexpr int kSmemFloats = kGemmFloats + kJobsFloats + kLayoutFloats + kMlpFloats + kPersistFloats;
 
 #ifndef DESMO_EMULATED_GRID
 __device__ __forceinline__ float* shared_base() {
@@ -381,25 +503,13 @@ __device__ void col_tile(Mat L, Mat R, int n, int P, int Q, int p0, int q0, floa
 
 __host__ __device__ inline int tiles(int v, int w) { return (v + w - 1) / w; }
 
-// Column sums of a row-major (n, Q <= kThreads) matrix: thread q adds its
-// column in row order, four interleaved partial sums.
-template <typename Epi>
-__device__ void col_sums(const float* R, int n, int Q, Epi epi) {
-  const int q = threadIdx.x;
-  if (q >= Q) return;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  int i = 0;
-  for (; i + 4 <= n; i += 4)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) s[u] += R[(long long)(i + u) * Q + q];
-  for (; i < n; ++i) s[0] += R[(long long)i * Q + q];
-  epi(q, (s[0] + s[1]) + (s[2] + s[3]));
-}
-
 // Shared memory of a block: the staging of the products, then the row
 // phases' persistent arrays.
 struct Smem {
   float* gemm;  // kGemmFloats
+  ColJob* jobs; // kGramJobs + kWeightJobs
+  Layout* layout;
+  Mlp* mlp;
   float* red;   // kThreads
   int* ft;      // (T, P) factor table
   float *c, *om, *gb, *cacc, *oacc;
@@ -411,6 +521,9 @@ __device__ Smem carve(float* base) {
   Smem s;
   float* p = base;
   s.gemm = p; p += kGemmFloats;
+  s.jobs = reinterpret_cast<ColJob*>(p); p += kJobsFloats;
+  s.layout = reinterpret_cast<Layout*>(p); p += kLayoutFloats;
+  s.mlp = reinterpret_cast<Mlp*>(p); p += kMlpFloats;
   s.red = p;  p += kThreads;
   s.ft = reinterpret_cast<int*>(p); p += kMaxK * kMaxP;
   s.c = p;    p += kMaxK;
@@ -523,8 +636,10 @@ __device__ void row_phase(const Args& a, const Layout& L, const Mlp& M, const Sm
       s.D[i * kLd + k] = d;
       s.V[i * kLd + k] = v;
       s.A[i * kLd + k] = d * ce;
-      if (i < rows) w[L.A + (long long)(r0 + i) * K + k] = d * ce;
+      if (i < rows) w[L.A + (long long)(r0 + i) * L.lda + k] = d * ce;
     }
+    for (int e = t; e < rows * (L.lda - K); e += kThreads)
+      w[L.A + (long long)(r0 + e / (L.lda - K)) * L.lda + K + e % (L.lda - K)] = 0.f;
     // xb = X Bᵀ into Y
     row_gemm<1>(rows_of(a.x, r0, m), rows, m, Mat{a.b, 1, m}, K, s.gemm,
                 [&](int i, int k, float v) { s.Y[i * kLd + k] = v; });
@@ -661,84 +776,132 @@ __device__ inline void which_job(int task, const int* counts, int jobs, int* job
   *idx = task;
 }
 
-// Phase 1, columns: S_dX = D6ᵀX, S_dd = D6ᵀD6, AᵀX, AᵀA and s_d = 1ᵀD6.
-__device__ void gram_tasks(const Args& a, const Layout& L, const Smem& s) {
-  const int n = a.n, m = a.m, K = a.K;
-  float* w = a.work;
-  const Mat d6{w + L.d[kL - 1], kH, 1}, X{a.x, m, 1}, A{w + L.A, K, 1};
-  const int counts[5] = {tiles(kH, kCP) * tiles(m, kCQ), tiles(kH, kCP) * tiles(kH, kCQ), tiles(m, kCQ), 1, 1};
-  const int total = counts[0] + counts[1] + counts[2] + counts[3] + counts[4];
-  for (int task = blockIdx.x; task < total; task += gridDim.x) {
-    int job, i;
-    which_job(task, counts, 5, &job, &i);
-    if (job == 0) {
-      const int qt = tiles(m, kCQ);
-      col_tile(d6, X, n, kH, m, (i / qt) * kCP, (i % qt) * kCQ, s.gemm,
-               [&](int p, int q, float v) { w[L.sdx + (long long)p * m + q] = v; });
-    } else if (job == 1) {
-      const int qt = tiles(kH, kCQ);
-      col_tile(d6, d6, n, kH, kH, (i / qt) * kCP, (i % qt) * kCQ, s.gemm,
-               [&](int p, int q, float v) { w[L.sdd + (long long)p * kH + q] = v; });
-    } else if (job == 2) {
-      col_tile(A, X, n, K, m, 0, i * kCQ, s.gemm, [&](int p, int q, float v) { w[L.ax + (long long)p * m + q] = v; });
-    } else if (job == 3) {
-      col_tile(A, A, n, K, K, 0, 0, s.gemm, [&](int p, int q, float v) { w[L.ga + p * K + q] = v; });
-    } else {
-      col_sums(w + L.d[kL - 1], n, kH, [&](int q, float v) { w[L.sd + q] = v; });
+// Builds both phases' column jobs into shared memory (thread 0; the caller
+// syncs). Their operands lie in the scratch for the whole launch.
+__device__ void build_jobs(const Args& a, const Layout& L, const Mlp& M, ColJob* jobs) {
+  if (threadIdx.x != 0) return;
+  const int n = a.n, m = a.m, K = a.K, G = gridDim.x;
+  const float* w = a.work;
+  const ColOperand X = col_operand(w + L.xp, L.mp, m), D6 = col_operand(w + L.d[kL - 1], kH, kH),
+                   A = col_operand(w + L.A, L.lda, K), ones = col_operand(nullptr, 0, 1);
+  for (int phase = 1; phase <= 2; ++phase) {
+    const JobGroups g = job_groups(phase, n, m, K, G);
+    long long part = phase == 1 ? L.jp1 : L.jp2;
+    for (int j = 0; j < job_count(phase); ++j) {
+      ColJob& J = jobs[phase == 1 ? j : kGramJobs + j];
+      job_shape(phase, j, m, K, M, &J.P, &J.Q);
+      J.groups = job_heavy(J.P, J.Q) ? g.heavy : g.light;
+      J.tiles = job_tiles(J.P, J.Q);
+      J.part = part;
+      part += ((long long)J.groups * J.P * J.Q + 3) / 4 * 4;
+      if (phase == 1) {
+        const ColOperand ls[kGramJobs] = {D6, D6, A, A, ones}, rs[kGramJobs] = {X, D6, X, A, D6};
+        const long long dst[kGramJobs] = {L.sdx, L.sdd, L.ax, L.ga, L.sd};
+        J.l = ls[j];
+        J.r = rs[j];
+        J.dst = dst[j];
+      } else if (j < 2 * kL - 1) {
+        // gW_l = inᵀ · g: in the layer's input activation, g its pre-activation gradient
+        const int l = j, dl = l - kL;
+        J.l = l == 0 ? X : col_operand(w + (l < kL ? L.a[l - 1] : L.d[dl]), J.P, J.P);
+        J.r = col_operand(w + (l < kL ? L.g[l] : L.e[dl + 1]), J.Q, J.Q);
+        J.dst = M.w[l];
+      } else {
+        const int l = j - (2 * kL - 1);
+        J.l = ones;
+        J.r = col_operand(w + (l < kL ? L.g[l] : L.e[l - kL + 1]), J.Q, J.Q);
+        J.dst = M.b[l];
+      }
     }
   }
 }
 
-// Phase 2, columns: every MLP weight and bias gradient but V6's and c6's,
-// each with its Adamax step (lr_z), and <S_dd, VV> and <ga, gb> for the
-// metrics. Jobs: encoder weights 0..6, decoder weights 7..12 (layers 0..5),
-// encoder biases 13..19, decoder biases 20..25, the two sums 26.
-__device__ void weight_tasks(const Args& a, const Layout& L, const Mlp& M, const Smem& s) {
-  const int n = a.n;
+// Tasks of a list of nj column jobs: (job, group, tile) in that order.
+__device__ inline int job_task_count(const ColJob* jobs, int nj) {
+  int total = 0;
+  for (int j = 0; j < nj; ++j) total += jobs[j].tiles * jobs[j].groups;
+  return total;
+}
+
+// Task `task` of a job list: the partial of one output tile over one row
+// group, into the job's partials. Every thread of the block must call it.
+__device__ void job_task(const ColJob* jobs, int n, float* w, float* ring, int task) {
+  int j = 0;
+  while (task >= jobs[j].tiles * jobs[j].groups) {
+    task -= jobs[j].tiles * jobs[j].groups;
+    ++j;
+  }
+  const ColJob& J = jobs[j];
+  const int grp = task / J.tiles, tile = task % J.tiles, qt = (J.Q + kColTQ - 1) / kColTQ;
+  const int p0 = (tile / qt) * kTP, q0 = (tile % qt) * kColTQ;
+  const int rg = (n + J.groups - 1) / J.groups, i0 = min(n, grp * rg), i1 = min(n, i0 + rg);
+  lt_r_tile<kTP>(J.l, J.r, i0, i1, p0, q0, ring, w + J.part + (long long)grp * J.P * J.Q + (long long)p0 * J.Q + q0,
+                 J.Q);
+}
+
+// Sum task `task` of `count` over a job list: its share of the outputs'
+// entries (in job order), each the sum of its job's partials in group
+// order, passed to epi(job, entry, value), entry = p Q + q.
+template <typename Epi>
+__device__ void job_sums(const ColJob* jobs, int nj, const float* w, int task, int count, Epi epi) {
+  long long total = 0;
+  for (int j = 0; j < nj; ++j) total += (long long)jobs[j].P * jobs[j].Q;
+  const long long chunk = (total + count - 1) / count, e0 = task * chunk, e1 = e0 + chunk < total ? e0 + chunk : total;
+  long long base = 0;
+  for (int j = 0; j < nj && base < e1; ++j) {
+    const ColJob& J = jobs[j];
+    const long long ej = (long long)J.P * J.Q, lo = e0 > base ? e0 : base, hi = e1 < base + ej ? e1 : base + ej;
+    for (long long e = lo + threadIdx.x; e < hi; e += kThreads) {
+      const float* part = w + J.part + (e - base);
+      float v = 0.f;
+      for (int g = 0; g < J.groups; ++g) v += part[g * ej];
+      epi(J, e - base, v);
+    }
+    base += ej;
+  }
+}
+
+// Sum tasks that go with `tasks` tile tasks in a phase of `blocks` blocks:
+// the blocks the tile tasks leave idle, or one round of all blocks.
+__device__ inline int sum_task_count(int tasks, int blocks) { return tasks < blocks ? blocks - tasks : blocks; }
+
+// Phase 1, columns: the tasks of the gram jobs (D6ᵀX, D6ᵀD6, AᵀX, AᵀA, 1ᵀD6).
+__device__ void gram_tasks(const Args& a, const Smem& s) {
+  const int total = job_task_count(s.jobs, kGramJobs);
+  for (int task = blockIdx.x; task < total; task += gridDim.x) job_task(s.jobs, a.n, a.work, s.gemm, task);
+}
+
+// Phase 2, columns: the tasks of the weight jobs (every MLP weight and bias
+// gradient but V6's and c6's), then the sums of the gram jobs' partials
+// into S_dX, S_dd, ax, ga and s_d, over the blocks the tasks leave idle.
+__device__ void weight_tasks(const Args& a, const Smem& s) {
+  const ColJob* wj = s.jobs + kGramJobs;
+  const int tasks = job_task_count(wj, kWeightJobs), sums = sum_task_count(tasks, gridDim.x);
   float* w = a.work;
+  for (int task = blockIdx.x; task < tasks + sums; task += gridDim.x) {
+    if (task < tasks) {
+      job_task(wj, a.n, w, s.gemm, task);
+    } else {
+      job_sums(s.jobs, kGramJobs, w, task - tasks, sums, [&](const ColJob& J, long long e, float v) { w[J.dst + e] = v; });
+    }
+  }
+}
+
+// Phase 3: the sums of the weight jobs' partials, each with its Adamax step
+// (lr_z and the bias read before this epoch's scheduler step), over the
+// tasks that follow the next epoch's (next_epoch_tasks) on the blocks
+// first, first + stride, ...
+__device__ void weight_steps(const Args& a, const Mlp& M, const Smem& s, int first, int stride, int before, float lr,
+                             float bias) {
+  const int sums = sum_task_count(before, stride);
   float* p = a.mlp;
   const long long Pm = M.total;
-  const float lr = a.svec[kLr0 + kLrZ], bias = 1.f - a.svec[kPow] * kB1;
-  int counts[27];
-  for (int l = 0; l < 13; ++l) counts[l] = tiles(M.in[l], kCP) * tiles(M.out[l], kCQ);  // V6 (13) is the slabs
-  for (int j = 13; j < 27; ++j) counts[j] = 1;
-  int total = 0;
-  for (int j = 0; j < 27; ++j) total += counts[j];
-  for (int task = blockIdx.x; task < total; task += gridDim.x) {
-    int job, i;
-    which_job(task, counts, 27, &job, &i);
-    if (job < 13) {
-      // gW_l = inᵀ · g over the rows: in the layer's input activation, g its pre-activation gradient
-      const int l = job, dl = l - kL;
-      const int ni = M.in[l], no = M.out[l];
-      const Mat in = l == 0 ? Mat{a.x, a.m, 1} : l < kL ? Mat{w + L.a[l - 1], ni, 1} : Mat{w + L.d[dl], ni, 1};
-      const Mat g = l < kL ? Mat{w + L.g[l], no, 1} : Mat{w + L.e[dl + 1], no, 1};
-      const int qt = tiles(no, kCQ);
-      const long long off = M.w[l];
-      col_tile(in, g, n, ni, no, (i / qt) * kCP, (i % qt) * kCQ, s.gemm, [&](int pp, int q, float v) {
-        const long long o = off + (long long)pp * no + q;
-        adamax(p + o, p + Pm + o, p + 2 * Pm + o, v, lr, bias);
-      });
-    } else if (job < 26) {
-      const bool enc = job < 20;
-      const int l = enc ? job - 13 : kL + job - 20;
-      const float* g = enc ? w + L.g[l] : w + L.e[l - kL + 1];
-      const long long off = M.b[l];
-      col_sums(g, n, M.out[l], [&](int q, float v) {
-        const long long o = off + q;
-        adamax(p + o, p + Pm + o, p + 2 * Pm + o, v, lr, bias);
-      });
-    } else {
-      float v = 0.f;
-      for (int e = threadIdx.x; e < kH * kH; e += kThreads) v = fmaf(w[L.sdd + e], w[L.vv + e], v);
-      v = block_sum(v, s.red);
-      if (threadIdx.x == 0) {
-        float u = 0.f;
-        for (int e = 0; e < a.K * a.K; ++e) u = fmaf(w[L.ga + e], w[L.gb + e], u);
-        w[L.sddvv] = v;
-        w[L.sddvv + 1] = u;
-      }
-    }
+  for (int task = first; task < before + sums; task += stride) {
+    if (task < before) continue;
+    job_sums(s.jobs + kGramJobs, kWeightJobs, a.work, task - before, sums, [&](const ColJob& J, long long e, float v) {
+      const long long o = J.dst + e;
+      adamax(p + o, p + Pm + o, p + 2 * Pm + o, v, lr, bias);
+    });
   }
 }
 
@@ -759,7 +922,19 @@ __device__ void slab_tasks(const Args& a, const Layout& L, const Mlp& M, const S
   float* cc = s.cols;            // c6 of the slab
   float* xc = s.cols + kSlab;    // xcol of the slab
   float* sv = s.cols + 2 * kSlab;  // s_d V6 of the slab
-  for (int sl = blockIdx.x; sl < L.nslab; sl += gridDim.x) {
+  for (int sl = blockIdx.x; sl <= L.nslab; sl += gridDim.x) {
+    if (sl == L.nslab) {  // the last task: <S_dd, VV> and <ga, gb> for the metrics
+      float v = 0.f;
+      for (int e = t; e < kH * kH; e += kThreads) v = fmaf(w[L.sdd + e], w[L.vv + e], v);
+      v = block_sum(v, s.red);
+      if (t == 0) {
+        float u = 0.f;
+        for (int e = 0; e < K * K; ++e) u = fmaf(w[L.ga + e], w[L.gb + e], u);
+        w[L.sddvv] = v;
+        w[L.sddvv + 1] = u;
+      }
+      continue;
+    }
     const int j0 = sl * kSlab, wd = min(kSlab, m - j0);
     __syncthreads();
     for (int e = t; e < kH * kSlab; e += kThreads) {
@@ -957,36 +1132,54 @@ __device__ void finalize(const Args& a, const Layout& L, const Smem& s, int step
 __global__ void __launch_bounds__(kThreads, 1) ae_chunk_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   const int b = blockIdx.x, G = gridDim.x;
-  const Layout L = make_layout(a.n, a.m, a.K, G);
-  const Mlp M = make_mlp(a.m);
   PhaseClock clock;
   const Smem s = carve(shared_base());
+  if (threadIdx.x == 0) {
+    *s.layout = make_layout(a.n, a.m, a.K, G);
+    *s.mlp = make_mlp(a.m);
+  }
+  __syncthreads();
+  const Layout& L = *s.layout;
+  const Mlp& M = *s.mlp;
   for (int e = threadIdx.x; e < a.T * a.P; e += kThreads) s.ft[e] = a.ftab[e];
+  build_jobs(a, L, M, s.jobs);
+  // X with rows padded to mp floats, zero beyond m, for the column jobs' 16-byte copies
+  for (long long e = (long long)b * kThreads + threadIdx.x; e < (long long)a.n * L.mp; e += (long long)G * kThreads) {
+    const long long i = e / L.mp, j = e % L.mp;
+    a.work[L.xp + e] = j < a.m ? a.x[i * a.m + j] : 0.f;
+  }
+  __syncthreads();
   next_epoch_tasks(a, L, M, s, b, G);
   grid.sync();
   clock.mark(kPrologue);
+  // tasks of next_epoch_tasks: VV's tiles, gb and cV
+  const int next_tasks = tiles(kH, kCP) * tiles(kH, kCQ) + 2;
   for (int step = 0; step < a.num_steps; ++step) {
+    // the MLP's LR and Adamax bias before this epoch's scheduler step (finalize)
+    const float lr_z = a.svec[kLr0 + kLrZ], bias_z = 1.f - a.svec[kPow] * kB1;
     row_phase(a, L, M, s, clock);
     grid.sync();
     clock.mark(kRowsBarrier);
     encoder_backward(a, L, M, s);
     clock.mark(kEncBackward);
-    gram_tasks(a, L, s);
+    gram_tasks(a, s);
     clock.mark(kEncColumns);
     grid.sync();
     clock.mark(kEncBarrier);
-    weight_tasks(a, L, M, s);
+    weight_tasks(a, s);
     clock.mark(kColWeights);
+    grid.sync();
+    clock.mark(kColWeightsBarrier);
     slab_tasks(a, L, M, s);
     clock.mark(kColV6);
     grid.sync();
     clock.mark(kColBarrier);
     if (b == 0) finalize(a, L, s, step);
-    if (G == 1) {
-      __syncthreads();
-      next_epoch_tasks(a, L, M, s, 0, 1);
-    } else if (b > 0) {
-      next_epoch_tasks(a, L, M, s, b - 1, G - 1);
+    if (G == 1 || b > 0) {
+      const int first = G == 1 ? 0 : b - 1, stride = G == 1 ? 1 : G - 1;
+      if (G == 1) __syncthreads();
+      next_epoch_tasks(a, L, M, s, first, stride);
+      weight_steps(a, M, s, first, stride, next_tasks, lr_z, bias_z);
     }
     grid.sync();
     clock.mark(kFinalize);

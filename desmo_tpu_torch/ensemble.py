@@ -176,8 +176,8 @@ def build_loss(spec, cfg: RunConfig, n_seeds: int, method: str = "factored", bet
     """Packed multi-seed loss ``(params, batch) -> (sum_s total_s, metrics)``
     with (S,) metrics ``rec``, ``ortho``, ``l1`` and ``total_s``. The seeds'
     params are disjoint, so the gradient of the sum is the stacked per-seed
-    gradient. ``method``: 'fused' reads X once per step for every seed
-    through the dual-contraction kernel (``FactoredMSEFusedBlocks``),
+    gradient. ``method``: 'fused' serves every seed with one launch per step
+    of the dual-contraction kernel (``FactoredMSEFusedBlocks``),
     'factored' uses plain products. ``betas``/``lams`` (length S) weight each
     seed's ortho and L1 terms."""
     if method not in ("factored", "fused"):
@@ -203,7 +203,7 @@ def build_loss(spec, cfg: RunConfig, n_seeds: int, method: str = "factored", bet
             x_sq = batch.get("x_sq")
             if x_sq is None:
                 x_sq = torch.sum(batch["x"] * batch["x"])
-            rec = dual_gemm.factored_mse_fused_blocks(A, B, batch["x"], x_sq, n_seeds)
+            rec = dual_gemm.factored_mse_fused_blocks(A, B, dual_gemm.batch_x(batch), x_sq, n_seeds)
         else:
             rec = factored_mse_blocks(A, B, batch["x"], batch.get("x_sq"), n_seeds)
         gram = latents.transpose(1, 2) @ latents  # (S, r, r)

@@ -422,8 +422,8 @@ def fused_ae_chunk(state: TrainState, batch: dict, num_steps: int, spec, cfg):
 # included
 PHASES = (
     "prologue", "rows.forward", "rows.dictionary", "rows.decoder", "rows.barrier",
-    "encoder.backward", "encoder.columns", "encoder.barrier", "columns.weights", "columns.v6",
-    "columns.barrier", "finalize",
+    "encoder.backward", "encoder.columns", "encoder.barrier", "columns.weights", "weights.barrier",
+    "columns.v6", "columns.barrier", "finalize",
 )
 
 

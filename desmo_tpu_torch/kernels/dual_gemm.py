@@ -6,10 +6,10 @@ The factored loss' gradients are
     dL/dA = (2/nm) (A (B Bᵀ) - X Bᵀ)      dL/dB = (2/nm) ((AᵀA) B - Aᵀ X)
 
 so both X-dependent products are known at forward time: the CUDA kernel
-(``csrc/dual_gemm.cu``) reads X once per call and returns both, and
-``FactoredMSEFused`` keeps X out of the backward pass, so X is read once per
-optimizer step. X stays fp32: the bf16 hi/lo split of the TPU kernel does not
-carry over (see the note in the CUDA source).
+(``csrc/dual_gemm.cu``) forms both in one launch, and ``FactoredMSEFused``
+keeps X out of the backward pass, so X is read in the forward pass only. X
+stays fp32: the bf16 hi/lo split of the TPU kernel does not carry over (see
+the note in the CUDA source).
 
 ``FactoredMSEFusedBlocks`` is the seed-packed form (``ensemble.py``): A (n,
 S K) and B (S K, m) hold S models side by side, one read of X serves them
@@ -35,29 +35,43 @@ from desmo_tpu_torch.kernels import _build
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dual_gemm")
-    lib.desmo_dual_tile_rows.argtypes = []
-    lib.desmo_dual_tile_rows.restype = ctypes.c_int
     lib.desmo_dual_max_k.argtypes = []
     lib.desmo_dual_max_k.restype = ctypes.c_int
-    lib.desmo_dual_splits.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.desmo_dual_splits.restype = ctypes.c_int
-    lib.desmo_dual_contractions.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
+    lib.desmo_dual_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.desmo_dual_plan.restype = ctypes.c_int
+    lib.desmo_dual_contractions.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
     lib.desmo_dual_contractions.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _plan(device_index: int, n: int, m: int) -> tuple[int, int]:
-    """``(n_tiles, n_splits)``: how many (K, m) partials of ax and (n, K)
-    partials of xb the kernel writes for an (n, m) X on this device."""
+def _plan(device_index: int, n: int, m: int, k: int) -> tuple[int, int, int, int]:
+    """``(g_r, g_x, floats, xb_at)`` for this shape on this device: how many
+    (K, m) partials of AᵀX and (n, K) partials of X·Bᵀ the kernel writes
+    (none where 1; it sums each in a fixed order), the floats of one buffer
+    for the outputs and the partials (ax, xb, AᵀX's partials, X·Bᵀ's), and
+    where X·Bᵀ's partials start in it. Raises for K above the kernel's."""
     lib = _lib()
+    if k > lib.desmo_dual_max_k():
+        raise ValueError(f"dual_contractions: K={k} exceeds the kernel's {lib.desmo_dual_max_k()}")
+    out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        n_splits = lib.desmo_dual_splits(n, m)
-    if n_splits <= 0:
-        raise RuntimeError(f"dual_contractions: device query failed with CUDA error {-n_splits}")
-    return -(-n // lib.desmo_dual_tile_rows()), n_splits
+        rc = lib.desmo_dual_plan(n, m, k, out)
+    if rc != 0:
+        raise RuntimeError(f"dual_contractions: device query failed with CUDA error {rc}")
+    gr, gx = out[0], out[1]
+    km, nk = k * m, n * k
+    xb_at = km + nk + (gr * km if gr > 1 else 0)
+    return gr, gx, xb_at + (gx * nk if gx > 1 else 0), xb_at
+
+
+def batch_x(batch: dict) -> torch.Tensor:
+    """X of a training batch for the dual contraction: ``x_aligned`` (rows
+    padded to 16 bytes, for the kernel's 16-byte copies) where
+    ``runner.prepare_batch`` made one, else ``x``."""
+    return batch.get("x_aligned", batch["x"])
 
 
 def dual_contractions_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
@@ -68,10 +82,11 @@ def dual_contractions_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
 
 def _check(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> None:
     for name, t in (("a", a), ("b", b), ("x", x)):
-        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+        rows_apart = t.dim() == 2 and t.stride(1) == 1 and t.stride(0) >= t.shape[1]
+        if t.dtype != torch.float32 or t.dim() != 2 or not (t.is_contiguous() or name == "x" and rows_apart):
             raise ValueError(
-                f"dual_contractions: {name} must be a contiguous 2-D float32 tensor, "
-                f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+                f"dual_contractions: {name} must be a contiguous 2-D float32 tensor (x: or rows of "
+                f"contiguous entries), got {t.dtype} {tuple(t.shape)} strides {t.stride()}"
             )
     n, k = a.shape
     if b.shape[0] != k or x.shape != (n, b.shape[1]):
@@ -86,31 +101,32 @@ def _check(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> None:
 
 
 def dual_contractions(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
-    """``(ax, xb) = (a.T @ x, x @ b.T)`` reading x once.
+    """``(ax, xb) = (a.T @ x, x @ b.T)`` in one launch.
 
-    a: (n, K), b: (K, m), x: (n, m), contiguous float32 on one device;
-    returns (K, m) and (n, K)."""
+    a: (n, K), b: (K, m) contiguous, x: (n, m) contiguous or with its rows
+    apart (as ``runner.prepare_batch``'s ``x_aligned``), float32 on one
+    device; returns (K, m) and (n, K)."""
     _check(a, b, x)
     if x.device.type == "cpu":
         return dual_contractions_plain(a, b, x)
     if x.device.type != "cuda":
         raise ValueError(f"dual_contractions: unsupported device {x.device}")
-    lib = _lib()
     n, k = a.shape
     m = b.shape[1]
-    if k > lib.desmo_dual_max_k():
-        raise ValueError(f"dual_contractions: K={k} exceeds the kernel's {lib.desmo_dual_max_k()}")
-    n_tiles, n_splits = _plan(x.device.index, n, m)
-    with torch.cuda.device(x.device):
-        f32 = dict(dtype=torch.float32, device=x.device)
-        ax, xb = torch.empty((k, m), **f32), torch.empty((n, k), **f32)
-        ax_part = torch.empty((n_tiles, k, m), **f32)
-        xb_part = torch.empty((n_splits, n, k), **f32)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.desmo_dual_contractions(
-            a.data_ptr(), b.data_ptr(), x.data_ptr(), ax_part.data_ptr(), xb_part.data_ptr(),
-            ax.data_ptr(), xb.data_ptr(), n, m, k, n_splits, stream,
-        )
+    gr, gx, floats, xb_at = _plan(x.device.index, n, m, k)
+    # one allocation for the outputs and the partials: the launch is short,
+    # so the host's share of a call counts
+    buf = torch.empty(floats, dtype=torch.float32, device=x.device)
+    km, base = k * m, buf.data_ptr()
+    ax, xb = buf[:km].view(k, m), buf[km:km + n * k].view(n, k)
+    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(), x.stride(0), base + 4 * (km + n * k) if gr > 1 else None,
+            base + 4 * xb_at if gx > 1 else None, base, base + 4 * km, n, m, k, gr, gx,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if x.device.index == torch.cuda.current_device():
+        rc = _lib().desmo_dual_contractions(*args)
+    else:
+        with torch.cuda.device(x.device):
+            rc = _lib().desmo_dual_contractions(*args)
     if rc != 0:
         raise RuntimeError(f"dual_contractions: kernel launch failed with CUDA error {rc}")
     dual_contractions.launches += 1

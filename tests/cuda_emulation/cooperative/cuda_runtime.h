@@ -7,12 +7,9 @@
 // reductions on a machine without a GPU; it says nothing about its speed.
 // The launch API is declared so that the entry points compile; the harness
 // runs the kernel function itself and never calls them. The primitives of
-// desmo_tpu_torch/csrc/tile_mma.cuh have stand-ins with the hardware's
-// semantics: cp.async is a plain copy (its groups complete at once), and
-// mma.sync m16n8k8 TF32 gathers the 32 lanes' fragments through a per-warp
-// scratch and a barrier over the warp's threads (the harness sets both for
-// each thread), rounds the operands to TF32 as cvt.rna.tf32.f32 does, and
-// gives each lane its own accumulator entries.
+// desmo_tpu_torch/csrc/tile_mma.cuh and col_mma.cuh take their stand-ins
+// from ../mma_emulated.h (cp.async a plain copy, mma.sync through a
+// per-warp scratch and barrier that the harness sets for each thread).
 #pragma once
 #include <barrier>
 #include <chrono>
@@ -69,65 +66,4 @@ inline cudaError_t cudaLaunchCooperativeKernel(const void*, dim3, dim3, void**, 
   return cudaErrorNotSupported;
 }
 
-// cp.async: the copy happens at once; a copy whose source is out of range fills zeros
-inline void cp_async16(float* dst, const float* src, bool valid) {
-  for (int i = 0; i < 4; ++i) dst[i] = valid ? src[i] : 0.f;
-}
-inline void cp_async_commit() {}
-template <int N>
-inline void cp_async_wait() {}
-
-inline float f32_bits(unsigned u) {
-  float f;
-  std::memcpy(&f, &u, sizeof f);
-  return f;
-}
-
-inline unsigned u32_bits(float x) {
-  unsigned u;
-  std::memcpy(&u, &x, sizeof u);
-  return u;
-}
-
-// rounded fp32 product and difference (ISO C++ does not fuse them)
-inline float fmul_rn(float a, float b) { return a * b; }
-inline float fsub_rn(float a, float b) { return a - b; }
-
-// cvt.rna.tf32.f32: 10 mantissa bits, to nearest with ties away from zero
-// (the emulated mma.sync rounds its operands so)
-inline unsigned tf32_rna(float x) {
-  unsigned u;
-  std::memcpy(&u, &x, sizeof u);
-  if ((u & 0x7f800000u) == 0x7f800000u) return u;  // inf and NaN pass
-  return (u + 0x1000u) & 0xffffe000u;
-}
-
-// A warp's barrier and its fragment scratch (2 slots of 32 lanes x 6
-// floats, used in turns, so one barrier per product suffices), set by the
-// harness for each thread; the count of products this thread has issued.
-inline thread_local std::barrier<>* emulated_warp_barrier = nullptr;
-inline thread_local float* emulated_warp_scratch = nullptr;
-inline thread_local unsigned emulated_warp_products = 0;
-constexpr int kEmulatedWarpScratch = 2 * 32 * 6;
-
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b: the lanes'
-// fragments (layouts in tile_mma.cuh) meet in the scratch; each lane forms
-// its four entries of d from the TF32 operands, the products exact and the
-// sum rounded once to fp32.
-inline void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
-  float* slot = emulated_warp_scratch + (emulated_warp_products++ & 1) * 32 * 6;
-  for (int i = 0; i < 4; ++i) slot[lane * 6 + i] = f32_bits(tf32_rna(f32_bits(a[i])));
-  for (int i = 0; i < 2; ++i) slot[lane * 6 + 4 + i] = f32_bits(tf32_rna(f32_bits(b[i])));
-  emulated_warp_barrier->arrive_and_wait();
-  for (int e = 0; e < 4; ++e) {
-    const int row = g + 8 * (e >> 1), col = 2 * q + (e & 1);
-    double sum = d[e];
-    for (int k = 0; k < 8; ++k) {
-      const double av = slot[((row % 8) * 4 + k % 4) * 6 + (row >= 8) + 2 * (k >= 4)];  // A (row, k)
-      const double bv = slot[(col * 4 + k % 4) * 6 + 4 + (k >= 4)];                    // B (k, col)
-      sum += av * bv;
-    }
-    d[e] = (float)sum;
-  }
-}
+#include "../mma_emulated.h"

@@ -377,7 +377,8 @@ def emulated_ae_chunk(tmp_path_factory):
     cpp.write_text((_build.CSRC / "ae_chunk.cu").read_text() + '\n#include "ae_harness.inc"\n')
     exe = out / "ae_chunk_emulated"
     subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), str(cpp), "-o", str(exe)],
+        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), "-I", str(_build.CSRC), str(cpp), "-o",
+         str(exe)],
         check=True, capture_output=True, timeout=240,
     )
     return exe
@@ -412,14 +413,21 @@ def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid):
 
 
 @pytest.mark.parametrize(
-    "n, m, P, steps, patience, sched_every",
+    "n, m, P, steps, patience, sched_every, grid",
     [
-        (40, 24, 2, 4, 300, 1),  # ten rows a block, a column slab per block
-        (150, 37, 3, 3, 1, 2),  # K=16; 38 rows a block, two row tiles; ragged columns; LR drops
+        # ten rows a block, a column slab per block; more column tasks than blocks
+        pytest.param(40, 24, 2, 4, 300, 1, 4, id="40-24-2-4-300-1"),
+        # K=16; 38 rows a block, two row tiles; ragged columns; LR drops
+        pytest.param(150, 37, 3, 3, 1, 2, 4, id="150-37-3-3-1-2"),
+        # the column jobs' row split: ragged row groups (phase 1: 3 of the
+        # heavy jobs, 4 of the light; phase 2: 2 and 1), m = 2 mod 4 (X
+        # padded to 72 floats a row), K=12, and blocks without rows (n = 300
+        # over 56)
+        (300, 70, 2, 2, 300, 1, 56),
     ],
 )
-def test_cuda_source_on_emulated_grid(emulated_ae_chunk, tmp_path, n, m, P, steps, patience, sched_every):
-    """Four emulated blocks against the plain chunk from the live init with
+def test_cuda_source_on_emulated_grid(emulated_ae_chunk, tmp_path, n, m, P, steps, patience, sched_every, grid):
+    """Emulated blocks against the plain chunk from the live init with
     random library parameters and omega near 1. The same fp32 arithmetic in
     another summation order: each state array held to 2e-6 of its largest
     entry, each metric to 2e-6 of its own scale."""
@@ -436,7 +444,7 @@ def test_cuda_source_on_emulated_grid(emulated_ae_chunk, tmp_path, n, m, P, step
     state = train.init_state(params, cfg)
     if patience == 1:
         state.sched = dataclasses.replace(state.sched, best=torch.tensor(0.0))
-    got = run_emulated(emulated_ae_chunk, tmp_path, state, batch, steps, spec, cfg, grid=4)
+    got = run_emulated(emulated_ae_chunk, tmp_path, state, batch, steps, spec, cfg, grid=grid)
     ref_state, ref_m = ae_chunk.ae_chunk_plain(state, batch, steps, spec, cfg)
     want = {k: getattr(ae_chunk.pack(ref_state), k).numpy() for k in STATE_ARRAYS}
     want["metrics"] = torch.stack([ref_m[k] for k in ae_chunk.METRICS], dim=1).numpy()

@@ -23,7 +23,7 @@ from desmo_tpu.pallas import (  # noqa: E402
     factored_mse_fused_split as jfused_split,
     split_snapshots,
 )
-from desmo_tpu_torch import losses  # noqa: E402
+from desmo_tpu_torch import losses, runner  # noqa: E402
 from desmo_tpu_torch.kernels import _build, dual_gemm  # noqa: E402
 
 SHAPES = [(100, 7, 50), (512, 47, 128), (700, 50, 333)]
@@ -104,6 +104,7 @@ def test_cpu_takes_the_twin_and_counts_no_launch():
         lambda a, b, x: (a.double(), b, x),
         lambda a, b, x: (a, b[:, :-1], x),
         lambda a, b, x: (a, b, x.T.contiguous().T),
+        lambda a, b, x: (a, b, torch.as_strided(x, x.shape, (x.shape[1] - 1, 1))),  # rows overlap
     ],
 )
 def test_wrapper_rejects_malformed_inputs(bad):
@@ -122,14 +123,19 @@ def test_failed_build_raises(monkeypatch, tmp_path, compiler):
 
 
 EMULATION = Path(__file__).parent / "cuda_emulation"
+# seconds for one emulated run: the products are mma.sync's, emulated with a
+# barrier over the warp's 32 threads each (about 97,000 at (700, 333, 50),
+# 4 s alone on 8 cores, and much longer beside the other test workers)
+EMULATED_RUN_TIMEOUT = 600
 
 
 @pytest.fixture(scope="module")
 def emulated_dual_gemm(tmp_path_factory):
     """``csrc/dual_gemm.cu`` compiled by the host C++ compiler against
-    ``tests/cuda_emulation``: one OS thread per CUDA thread, a barrier per
-    block. It checks the kernels' indexing, masking and fixed-order
-    reductions without a GPU."""
+    ``tests/cuda_emulation`` (and ``csrc`` for its tile headers): one OS
+    thread per CUDA thread, a barrier per block and per warp, the
+    ``cp.async`` and ``mma.sync`` stand-ins. It checks the kernels'
+    indexing, masking and fixed-order reductions without a GPU."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA source for the emulated grid")
@@ -139,7 +145,8 @@ def emulated_dual_gemm(tmp_path_factory):
     cpp.write_text(re.sub(r"<<<[^>]*>>>", "", src) + '\n#include "harness.inc"\n')
     exe = out / "dual_gemm_emulated"
     subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), str(cpp), "-o", str(exe)],
+        [gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), "-I", str(_build.CSRC), str(cpp), "-o",
+         str(exe)],
         check=True, capture_output=True, timeout=240,
     )
     return exe
@@ -148,13 +155,80 @@ def emulated_dual_gemm(tmp_path_factory):
 @pytest.mark.parametrize(
     "n,m,k",
     # every K template (16/32/48/64/128), ragged rows and columns, one tile
-    # and many column splits; the packed widths of the ensemble's eager loss
-    # (fourier_cylinder S=8: K'=96; aneurysm S=4: K'=108) and K'=128
+    # and many column slabs; the packed widths of the ensemble's eager loss
+    # (fourier_cylinder S=8: K'=96; aneurysm S=4: K'=108) and K'=128; then
+    # the AᵀX split's edges: n under one xb tile and one row group (20),
+    # several ragged row groups at K'=108 and 128, ragged slabs (259 = 2 x
+    # 128 + 3, 131), m = 1 and 3 mod 4 (X's and B's rows not 16-byte
+    # aligned: the 4-byte copies), K=47 and 33 (A's rows not aligned), and
+    # sixteen row groups over two slabs
     [(5, 3, 1), (64, 33, 16), (33, 257, 32), (130, 70, 47), (97, 40, 64), (700, 333, 50),
-     (70, 45, 96), (65, 40, 108), (40, 33, 128)],
+     (70, 45, 96), (65, 40, 108), (40, 33, 128),
+     (20, 9, 12), (300, 41, 108), (257, 259, 128), (190, 131, 47), (129, 7, 33), (1000, 130, 12)],
 )
 def test_cuda_source_on_emulated_grid(emulated_dual_gemm, n, m, k):
+    """The kernels on an emulated grid with the wrapper's plan, run twice:
+    ax and xb against float64 at 5e-6 of max|ref|, the two runs bit for bit."""
     proc = subprocess.run(
-        [str(emulated_dual_gemm), str(n), str(m), str(k)], capture_output=True, text=True, timeout=120
+        [str(emulated_dual_gemm), str(n), str(m), str(k)], capture_output=True, text=True,
+        timeout=EMULATED_RUN_TIMEOUT,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "n,m,k,ldx",
+    # X as a view with its rows apart, the padding NaN: rows of 16 bytes (m =
+    # 1 and 3 mod 4, as runner.prepare_batch pads them), and a stride that
+    # is not a multiple of 4 (the 4-byte copies)
+    [(130, 70, 47, 72), (190, 131, 47, 132), (300, 41, 108, 44), (65, 33, 12, 35)],
+)
+def test_cuda_source_on_emulated_grid_with_row_stride(emulated_dual_gemm, n, m, k, ldx):
+    """The kernels on X whose rows lie ldx floats apart: the padding never
+    reaches ax or xb."""
+    proc = subprocess.run(
+        [str(emulated_dual_gemm), str(n), str(m), str(k), str(ldx)], capture_output=True, text=True,
+        timeout=EMULATED_RUN_TIMEOUT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("m", [33, 35, 36])
+def test_prepare_batch_pads_rows_only_where_needed(m):
+    """``x_aligned``, a view of a zero-padded copy with 16-byte rows, only
+    where m is not a multiple of 4."""
+    x = np.random.default_rng(m).standard_normal((20, m)).astype(np.float32)
+    batch = runner.prepare_batch(x, None, torch.device("cpu"))
+    assert ("x_aligned" in batch) == (m % 4 != 0)
+    assert dual_gemm.batch_x(batch) is (batch["x"] if m % 4 == 0 else batch["x_aligned"])
+    if m % 4:
+        xa = batch["x_aligned"]
+        assert xa.shape == (20, m) and xa.stride() == ((m + 3) // 4 * 4, 1) and torch.equal(xa, batch["x"])
+        row = xa.as_strided((20, xa.stride(0)), xa.stride())
+        assert torch.all(row[:, m:] == 0)
+
+
+def test_fused_loss_on_aligned_rows_matches_contiguous_x():
+    """The fused loss and its gradients on ``prepare_batch``'s X with 16-byte
+    rows equal those on contiguous X, through the wrapper and the model's
+    loss."""
+    from desmo_tpu_torch.models import desmo as desmo_model
+
+    n, m, r = 60, 33, 2
+    x = np.random.default_rng(5).standard_normal((n, m)).astype(np.float32)
+    pod_modes = torch.as_tensor(np.linalg.svd(x, full_matrices=False)[0][:, :r].copy())
+    spec = desmo_model.DesmoSpec(n, m, r, 2, 1.0)
+    loss_fn = desmo_model.build_loss(spec, 1e-3, 1e-4, method="fused")
+    out = []
+    for aligned in (False, True):
+        batch = runner.prepare_batch(x, pod_modes, torch.device("cpu"))
+        assert "x_aligned" in batch
+        if not aligned:
+            del batch["x_aligned"]
+        params = {k: v.clone().requires_grad_(True) for k, v in desmo_model.Desmo(spec).params().items()}
+        total, metrics = loss_fn(params, batch)
+        grads = torch.autograd.grad(total, list(params.values()))
+        out.append((total.detach(), {k: v.detach() for k, v in metrics.items()}, grads))
+    (t0, m0, g0), (t1, m1, g1) = out
+    assert torch.equal(t0, t1) and all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(u, v) for u, v in zip(g0, g1))

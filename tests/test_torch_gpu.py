@@ -60,6 +60,22 @@ def test_kernel_matches_twin(cuda, n, k, m):
     assert torch.equal(ax, ax2) and torch.equal(xb, xb2)  # fixed-order reductions
 
 
+@pytest.mark.parametrize("n,k,m", [(3961, 47, 1001), (3961, 12, 1001), (700, 50, 333)])
+def test_kernel_on_rows_apart_matches_contiguous(cuda, n, k, m):
+    """X as ``prepare_batch`` hands it to the eager losses (rows padded to 16
+    bytes where m is not a multiple of 4): the same bits as contiguous X, and
+    float64 to 5e-6 of max|ref|."""
+    a, b, x = _inputs(n, k, m, cuda)
+    xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, cuda))
+    assert xv.stride(0) % 4 == 0 and torch.equal(xv, x)
+    ax, xb = dual_gemm.dual_contractions(a, b, x)
+    axv, xbv = dual_gemm.dual_contractions(a, b, xv)
+    assert torch.equal(ax, axv) and torch.equal(xb, xbv)
+    rax, rxb = a.double().T @ x.double(), x.double() @ b.double().T
+    assert (ax.double() - rax).abs().max() <= 5e-6 * rax.abs().max()
+    assert (xb.double() - rxb).abs().max() <= 5e-6 * rxb.abs().max()
+
+
 @pytest.mark.parametrize("k", [47, 12])
 def test_fused_loss_grads_match_autograd_of_factored_mse(cuda, k):
     a, b, x = _inputs(3961, k, 1001, cuda, seed=1, scale=0.3)
