@@ -36,8 +36,8 @@ presets at full width on synthetic data through ``runner.run``:
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels build without spills (checked from ``-Xptxas -v``), and
 the dual contraction is also held to float64 (5e-6 of max|ref|) at the
-eager losses' three shapes, on X with 16-byte rows as ``prepare_batch``
-hands it over. Then it times each kernel (the dual contraction beside the
+eager losses' three shapes, and gives the same bits on X as a view with
+16-byte rows. Then it times each kernel (the dual contraction beside the
 two cuBLAS products of its plain version, the mega-kernel in its four
 forms, the AE kernel, the step kernel)
 against its plain version in turns, beside its bound (fp32, and 3xTF32 for
@@ -128,8 +128,8 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def bound_3xtf32_ms(contraction_flops: float, other_flops: float, nbytes: float) -> float:
-    """The least time under the mega-kernel's scheme: its two contractions
-    with X as three TF32 passes on the tensor cores, the rest at the fp32
+    """The least time with the products at fp32 grade on the tensor cores:
+    ``contraction_flops`` as three TF32 passes, ``other_flops`` at the fp32
     rate, or the bytes at the memory rate, whichever is longer."""
     return 1e3 * max(3 * contraction_flops / PEAK_TF32 + other_flops / PEAK_FP32, nbytes / PEAK_BYTES)
 
@@ -211,6 +211,17 @@ def step_bytes(n: int, m: int, k: int, r: int) -> float:
     return 4 * (n * m + 2 * n * r + k * m + k * k + k + 3 * r + n * r + k * m + k * k + r * r + k + 3 * r + 1)
 
 
+def rows_16b(x):
+    """x as a view whose rows lie a multiple of 16 bytes apart (a zero-padded
+    copy), as a caller may hand the dual contraction X."""
+    import torch
+
+    n, m = x.shape
+    xv = torch.zeros((n, (m + 3) // 4 * 4), dtype=x.dtype, device=x.device)[:, :m]
+    xv.copy_(x)
+    return xv
+
+
 def reset_launches(*counters) -> None:
     for fn in counters:
         fn.launches = 0
@@ -288,9 +299,8 @@ def main() -> int:
         print(f"[3 dual] (n, m, K)={(n, m, k)}: max|err|/max|ref| ax {e_ax:.2e}, xb {e_xb:.2e} "
               f"(limit {CONTRACTION_RTOL:.0e}); repeat launch bit-identical")
         if (n, m, k) in DUAL_SHAPES:
-            # X as the eager losses hand it over (prepare_batch's 16-byte rows
-            # where m is not a multiple of 4): the same bits as contiguous X
-            xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, dev))
+            # X as a view with 16-byte rows: the same bits as contiguous X
+            xv = rows_16b(x)
             axv, xbv = dual_gemm.dual_contractions(a, b, xv)
             rax, rxb = a.double().T @ x.double(), x.double() @ b.double().T
             e64 = (rel_err(ax.double(), rax), rel_err(xb.double(), rxb))
@@ -879,11 +889,14 @@ def main() -> int:
                                           "the fourier_cylinder and ae_cylinder eager losses'")):
         n, m, k = shape3
         a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
-        xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, dev))  # as the eager loss hands X over
-        kernel = lambda: dual_gemm.dual_contractions(a, b, xv)  # noqa: E731
+        kernel = lambda: dual_gemm.dual_contractions(a, b, x)  # noqa: E731
         plain = lambda: dual_gemm.dual_contractions_plain(a, b, x)  # noqa: E731
         iters = 50 if n > 10_000 else 200
         k1, p1, p2, k2 = (time_ms(f, iters) for f in (kernel, plain, plain, kernel))
+        # where m is not a multiple of 4, X's rows take 4-byte copies: the
+        # same call on a view with 16-byte rows, for the cost of that
+        xv = rows_16b(x) if m % 4 else None
+        k16 = time_ms(lambda: dual_gemm.dual_contractions(a, b, xv), iters) if m % 4 else None
         nbytes = 4 * (2 * n * k + 2 * k * m + n * m)
         bound, by = bound_ms(2 * (2 * n * m * k), nbytes)
         bound3 = bound_3xtf32_ms(2 * (2 * n * m * k), 0, nbytes)
@@ -892,7 +905,8 @@ def main() -> int:
         print(f"[7 time] {card}: dual_contractions at {what} (n, m, K)={shape3}: kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} "
               f"us, the cuBLAS pair (plain version, the library yardstick) {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us per call "
               f"(kernel, plain, plain, kernel; {iters} calls each); bound {bound * 1e3:.1f} us ({by}, fp32), "
-              f"{bound3 * 1e3:.1f} us (3xTF32)")
+              f"{bound3 * 1e3:.1f} us (3xTF32)" + ("" if k16 is None else
+                                                    f"; X with 16-byte rows: kernel {k16 * 1e3:.1f} us"))
     cyl, aneurysm_dual, k12 = DUAL_SHAPES
     n, m, k = cyl
 
@@ -1044,10 +1058,10 @@ def main() -> int:
     ae_state_bytes = 4 * 2 * (3 * mlp + 3 * aeK * m + 3 * aeK + 18 + train_chunk.SVEC)
     ae_bytes = 4 * (n * m + m + TIMED_STEPS * len(ae_chunk.METRICS)) + ae_state_bytes
     ae_bound, ae_by = bound_ms(TIMED_STEPS * ae_flops(n, m, aeK), ae_bytes)
-    # the column products with X (D6ᵀX and Xᵀ·dpre1, 2nm·256 each) as three
-    # TF32 passes on the tensor cores, the rest at the fp32 rate
-    ae_tensor = 2 * (2 * n * m * 256)
-    ae_bound3 = bound_3xtf32_ms(TIMED_STEPS * ae_tensor, TIMED_STEPS * (ae_flops(n, m, aeK) - ae_tensor), ae_bytes)
+    # every product of the epoch (ae_flops counts products only) as three
+    # TF32 passes on the tensor cores: all of them are fp32-grade work the
+    # card can do at that rate
+    ae_bound3 = bound_3xtf32_ms(TIMED_STEPS * ae_flops(n, m, aeK), 0, ae_bytes)
     ae_loss = autoencoder.build_loss(aspec, aepreset.beta, aepreset.l1_lambda, aepreset.ae_beta, method="fused")
     ae_eager = train.make_train_chunk(ae_loss, autoencoder.param_groups(ast.params), aepreset)
     ae_eager_ms = time_ms(lambda: ae_eager(ast, ae_batch, TIMED_STEPS), 1) / TIMED_STEPS
@@ -1055,7 +1069,7 @@ def main() -> int:
           f"{E}-epoch chunk; over {TIMED_STEPS}-epoch chunks in turns: kernel {k1 * per_epoch:.1f}/{k2 * per_epoch:.1f} "
           f"us/epoch, plain chunk {p1 * per_epoch:.1f}/{p2 * per_epoch:.1f} us/epoch; eager step "
           f"{ae_eager_ms * 1e3:.1f} us; bound {ae_bound * per_epoch:.1f} us/epoch ({ae_by}, "
-          f"{ae_flops(n, m, aeK) / 1e9:.2f} GFLOP an epoch; 3xTF32, D6ᵀX and Xᵀ·dpre1 on the tensor cores: "
+          f"{ae_flops(n, m, aeK) / 1e9:.2f} GFLOP an epoch; all of it in 3xTF32 on the tensor cores: "
           f"{ae_bound3 * per_epoch:.1f}); slice {ae_slice_sps:.1f} steps/s, eager path {ae_eager_sps:.1f} steps/s")
     ae_split_total = sum(ae_split.values())
     ae_columns = sum(ae_split[k] for k in ("encoder.columns", "encoder.barrier", "columns.weights", "weights.barrier",
@@ -1239,9 +1253,10 @@ def main() -> int:
     for shape3 in DUAL_SHAPES:
         n, m, k = shape3
         a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
-        xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, dev))
+        xv = rows_16b(x)
         turns = []
-        for fn in (lambda: dual_gemm.dual_contractions(a, b, xv), lambda: dual_gemm.dual_contractions_plain(a, b, x)) * 2:
+        for fn in (lambda: dual_gemm.dual_contractions(a, b, x), lambda: dual_gemm.dual_contractions_plain(a, b, x),
+                   lambda: dual_gemm.dual_contractions(a, b, xv)) * 2:
             fn()
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1250,10 +1265,11 @@ def main() -> int:
                 torch.cuda.synchronize()
             turns.append(sum(e.self_device_time_total for e in prof.key_averages()
                              if str(e.device_type).endswith("CUDA")) / 50)
-        dual_times[shape3]["device_us"] = (turns[0] + turns[2]) / 2
+        dual_times[shape3]["device_us"] = (turns[0] + turns[3]) / 2
         print(f"[8e dual] {card}: dual_contractions at (n, m, K)={shape3}, device time per call: kernel "
-              f"{turns[0]:.1f}/{turns[2]:.1f} us, the cuBLAS pair {turns[1]:.1f}/{turns[3]:.1f} us (in turns, 50 "
-              "calls each)" if min(turns) > 0 else "device time not measured (the profiler saw no device event)")
+              f"{turns[0]:.1f}/{turns[3]:.1f} us, the cuBLAS pair {turns[1]:.1f}/{turns[4]:.1f} us, the kernel on "
+              f"X with 16-byte rows {turns[2]:.1f}/{turns[5]:.1f} us (in turns, 50 calls each)" if min(turns) > 0
+              else "device time not measured (the profiler saw no device event)")
 
     # 9. the records
     print(json.dumps({"kernels": [

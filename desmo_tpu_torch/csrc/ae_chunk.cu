@@ -19,10 +19,11 @@
 // forward and backward, with their weight gradients, about 2.0; D6ᵀD6
 // (symmetric) and D6·VV 0.78; V6V6ᵀ and S_dd·V6 0.20; the K=12 dictionary
 // (X·Bᵀ, AᵀX and the Grams) 0.19. That is about 169 us at the 67 TFLOP/s
-// fp32 rate outside the tensor cores; with D6ᵀX and Xᵀ·dpre1 (4.06 GFLOP)
-// as three TF32 passes at 495 TFLOP/s and the rest (7.2) at the fp32 rate,
-// about 133 us (chip_smoke.py's bound_3xtf32_ms). X (15.9 MB) fits in the
-// 50 MB L2 and is read four times per epoch.
+// fp32 rate outside the tensor cores. Every one of these products is
+// fp32-grade work the tensor cores can do in three TF32 passes at 495
+// TFLOP/s, so the bound at fp32 grade is about 68 us (chip_smoke.py's
+// bound_3xtf32_ms over all 11.3 GFLOP). X (15.9 MB) fits in the 50 MB L2
+// and is read four times per epoch.
 //
 // Design. The TPU kernel runs the whole funnel at full height in its last
 // row tile, because Mosaic pays per operation; on Hopper the funnel is

@@ -44,9 +44,10 @@
 // aligned and 4-byte ones where not; each thread splits the pieces it
 // copied into big and small TF32 planes once, so a fragment load is two
 // shared loads, and each warp's products go pass by pass over its 2 m16 x
-// 2-4 n8 tiles. runner.prepare_batch hands the eager losses X with rows
-// padded to 16 bytes where m is not a multiple of 4 (m = 1001: the 4-byte
-// copies cost about 7 us of the call); xb zeroes the padding it copies.
+// 2-4 n8 tiles. X's rows take the 4-byte copies where m (or ldx) is not a
+// multiple of 4, as at m = 1001; a caller that holds X with 16-byte rows
+// (ldx a multiple of 4) gets the 16-byte ones (PERF.md has both times); xb
+// zeroes the padding it copies.
 // What bounds it now (measured on the H100, PERF.md): at the cylinder the
 // host's share of a call and the launches' fixed costs; at (27000, 1000,
 // 108) the instruction stream of the copies, splits and products more than
@@ -95,8 +96,6 @@ __host__ __device__ constexpr int smem_floats(int KP) {
   return xb_ring_floats(KP) > col_ring_floats(kAxTP, kStages) ? xb_ring_floats(KP) : col_ring_floats(kAxTP, kStages);
 }
 
-// The launch's split: n_xb row tiles of xb, each over gx column ranges of
-// xcols columns (a multiple of kXbCols); g_r row groups x g_c slabs of AᵀX.
 // The launch's split: n_xb row tiles of xb, each over gx column ranges of
 // xcols columns (a multiple of kXbCols); g_r row groups of rg rows (a
 // multiple of kXbRows) x g_c slabs x g_p tiles of kAxTP of K of AᵀX. The blocks go

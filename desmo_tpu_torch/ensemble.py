@@ -203,7 +203,7 @@ def build_loss(spec, cfg: RunConfig, n_seeds: int, method: str = "factored", bet
             x_sq = batch.get("x_sq")
             if x_sq is None:
                 x_sq = torch.sum(batch["x"] * batch["x"])
-            rec = dual_gemm.factored_mse_fused_blocks(A, B, dual_gemm.batch_x(batch), x_sq, n_seeds)
+            rec = dual_gemm.factored_mse_fused_blocks(A, B, batch["x"], x_sq, n_seeds)
         else:
             rec = factored_mse_blocks(A, B, batch["x"], batch.get("x_sq"), n_seeds)
         gram = latents.transpose(1, 2) @ latents  # (S, r, r)

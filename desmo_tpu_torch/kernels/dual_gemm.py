@@ -50,9 +50,9 @@ def _lib() -> ctypes.CDLL:
 def _plan(device_index: int, n: int, m: int, k: int) -> tuple[int, int, int, int]:
     """``(g_r, g_x, floats, xb_at)`` for this shape on this device: how many
     (K, m) partials of AᵀX and (n, K) partials of X·Bᵀ the kernel writes
-    (none where 1; it sums each in a fixed order), the floats of one buffer
-    for the outputs and the partials (ax, xb, AᵀX's partials, X·Bᵀ's), and
-    where X·Bᵀ's partials start in it. Raises for K above the kernel's."""
+    (none where 1; it sums each in a fixed order), the floats of the scratch
+    that holds them (AᵀX's partials, then X·Bᵀ's; 0 where there are none),
+    and where X·Bᵀ's partials start in it. Raises for K above the kernel's."""
     lib = _lib()
     if k > lib.desmo_dual_max_k():
         raise ValueError(f"dual_contractions: K={k} exceeds the kernel's {lib.desmo_dual_max_k()}")
@@ -62,16 +62,8 @@ def _plan(device_index: int, n: int, m: int, k: int) -> tuple[int, int, int, int
     if rc != 0:
         raise RuntimeError(f"dual_contractions: device query failed with CUDA error {rc}")
     gr, gx = out[0], out[1]
-    km, nk = k * m, n * k
-    xb_at = km + nk + (gr * km if gr > 1 else 0)
-    return gr, gx, xb_at + (gx * nk if gx > 1 else 0), xb_at
-
-
-def batch_x(batch: dict) -> torch.Tensor:
-    """X of a training batch for the dual contraction: ``x_aligned`` (rows
-    padded to 16 bytes, for the kernel's 16-byte copies) where
-    ``runner.prepare_batch`` made one, else ``x``."""
-    return batch.get("x_aligned", batch["x"])
+    xb_at = gr * k * m if gr > 1 else 0
+    return gr, gx, xb_at + (gx * n * k if gx > 1 else 0), xb_at
 
 
 def dual_contractions_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
@@ -104,8 +96,9 @@ def dual_contractions(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
     """``(ax, xb) = (a.T @ x, x @ b.T)`` in one launch.
 
     a: (n, K), b: (K, m) contiguous, x: (n, m) contiguous or with its rows
-    apart (as ``runner.prepare_batch``'s ``x_aligned``), float32 on one
-    device; returns (K, m) and (n, K)."""
+    apart (``x.stride(0) >= m``; a stride that is a multiple of 4 lets the
+    kernel copy X's rows 16 bytes at a time), float32 on one device; returns
+    (K, m) and (n, K)."""
     _check(a, b, x)
     if x.device.type == "cpu":
         return dual_contractions_plain(a, b, x)
@@ -114,13 +107,14 @@ def dual_contractions(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):
     n, k = a.shape
     m = b.shape[1]
     gr, gx, floats, xb_at = _plan(x.device.index, n, m, k)
-    # one allocation for the outputs and the partials: the launch is short,
-    # so the host's share of a call counts
-    buf = torch.empty(floats, dtype=torch.float32, device=x.device)
-    km, base = k * m, buf.data_ptr()
-    ax, xb = buf[:km].view(k, m), buf[km:km + n * k].view(n, k)
-    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(), x.stride(0), base + 4 * (km + n * k) if gr > 1 else None,
-            base + 4 * xb_at if gx > 1 else None, base, base + 4 * km, n, m, k, gr, gx,
+    # the outputs in one allocation (the launch is short, so the host's share
+    # of a call counts); the partials in a scratch of their own, freed on
+    # return, so that a caller who keeps ax or xb does not keep them
+    out = torch.empty(k * m + n * k, dtype=torch.float32, device=x.device)
+    ax, xb = out[:k * m].view(k, m), out[k * m:].view(n, k)
+    part = torch.empty(floats, dtype=torch.float32, device=x.device) if floats else None
+    args = (a.data_ptr(), b.data_ptr(), x.data_ptr(), x.stride(0), part.data_ptr() if gr > 1 else None,
+            part.data_ptr() + 4 * xb_at if gx > 1 else None, ax.data_ptr(), xb.data_ptr(), n, m, k, gr, gx,
             torch.cuda.current_stream(x.device).cuda_stream)
     if x.device.index == torch.cuda.current_device():
         rc = _lib().desmo_dual_contractions(*args)

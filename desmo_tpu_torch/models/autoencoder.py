@@ -243,7 +243,7 @@ def build_loss(spec: AESpec, beta: float, l1_lambda: float, ae_beta: float, meth
         if method == "fused":
             if x_sq is None:
                 x_sq = torch.sum(x * x)
-            rec = dual_gemm.factored_mse_fused(A, B, dual_gemm.batch_x(batch), x_sq)
+            rec = dual_gemm.factored_mse_fused(A, B, x, x_sq)
         elif method == "factored":
             rec = losses.factored_mse(A, B, x, x_sq)
         else:

@@ -179,7 +179,7 @@ def build_loss(spec: FourierSpec, beta: float, l1_lambda: float, method: str = "
         if method == "fused":
             if x_sq is None:
                 x_sq = torch.sum(batch["x"] * batch["x"])
-            rec = dual_gemm.factored_mse_fused(A, B, dual_gemm.batch_x(batch), x_sq)
+            rec = dual_gemm.factored_mse_fused(A, B, batch["x"], x_sq)
         elif method == "factored":
             rec = losses.factored_mse(A, B, batch["x"], x_sq)
         else:

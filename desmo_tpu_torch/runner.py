@@ -309,16 +309,9 @@ def prepare_batch(x: np.ndarray, pod_modes: torch.Tensor | None, device: torch.d
     modes, on ``device``; with ``pod_modes=None`` (the AE variant, whose
     latent comes from its encoder) X's column sums ``x_colsum`` instead. The
     TPU's bf16 hi/lo planes of X do not carry over: the CUDA kernels read
-    fp32 X. Where m is not a multiple of 4, also ``x_aligned``: X as a view
-    of a copy whose rows are padded with zeros to 16 bytes, which the dual
-    contraction's kernel stages by 16-byte copies (the fused losses take it
-    through ``kernels.dual_gemm.batch_x``); made once per run."""
+    fp32 X."""
     xd = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
     batch = {"x": xd, "x_sq": torch.sum(xd * xd)}
-    n, m = xd.shape
-    if m % 4:
-        batch["x_aligned"] = torch.zeros((n, (m + 3) // 4 * 4), dtype=torch.float32, device=device)[:, :m]
-        batch["x_aligned"].copy_(xd)
     if pod_modes is None:
         batch["x_colsum"] = torch.sum(xd, dim=0)
     else:

@@ -12,8 +12,7 @@ builds its own kernels), in the order A, B, B, A, and prints:
   eager losses' shapes (n, m, K) = (3961, 1001, 47) (cylinder), (27000, 1000,
   108) (aneurysm with 4 packed seeds) and (3961, 1001, 12) (fourier_cylinder
   and ae_cylinder): µs per call by CUDA events over 200 calls (50 at
-  aneurysm), X as that checkout's ``runner.prepare_batch`` hands it to the
-  fused loss, beside the two cuBLAS fp32 products of the plain version
+  aneurysm), X contiguous, beside the two cuBLAS fp32 products of the plain version
   (``dual_contractions_plain``) timed in the same turn;
 - the AE kernel (``kernels.ae_chunk``) at ae_cylinder (n=3961, m=1001, K=12,
   synthetic data, the preset's init): µs per epoch of a ``--steps``-epoch
@@ -67,12 +66,11 @@ def turn(tree: str, steps: int) -> dict:
     out: dict = {"dual": {}, "cublas": {}}
     rng = np.random.default_rng(0)
     for n, m, k in SHAPES:
-        a, b, xs = (torch.as_tensor(rng.standard_normal(s, dtype=np.float32), device=dev)
+        a, b, x = (torch.as_tensor(rng.standard_normal(s, dtype=np.float32), device=dev)
                     for s in ((n, k), (k, m), (n, m)))
-        x = getattr(dual_gemm, "batch_x", lambda bt: bt["x"])(runner.prepare_batch(xs.cpu().numpy(), None, dev))
         iters = 50 if n > 10_000 else 200
         out["dual"][str((n, m, k))] = 1e3 * time_ms(lambda: dual_gemm.dual_contractions(a, b, x), iters)
-        out["cublas"][str((n, m, k))] = 1e3 * time_ms(lambda: dual_gemm.dual_contractions_plain(a, b, xs), iters)
+        out["cublas"][str((n, m, k))] = 1e3 * time_ms(lambda: dual_gemm.dual_contractions_plain(a, b, x), iters)
     cfg = configs.get("ae_cylinder")
     x_np, _ = runner.load_data(cfg, synthetic=True)
     batch = runner.prepare_batch(x_np, None, dev)

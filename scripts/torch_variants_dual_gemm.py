@@ -16,11 +16,10 @@ partial sums alone); ``copyonly`` with no products and no split (the
 cp.async staging alone). At (n, m, K) = (3961, 1001, 47), (27000, 1000,
 108), (3961, 1001, 12) and (3961, 1000, 47) it prints µs per call by CUDA
 events over back-to-back calls (200, 50 at n = 27000), for m not a multiple
-of 4 also on X with 16-byte rows (``+aligned``, as ``runner.prepare_batch``
-hands it to the eager losses), beside the two cuBLAS fp32 products, then
-the device time per call of ``base``'s kernels and cuBLAS's from a
-``torch.profiler`` window of 20 calls each. Prints the card's name and
-power limit first.
+of 4 also on X as a view with 16-byte rows (``+aligned``), beside the two
+cuBLAS fp32 products, then the device time per call of ``base``'s kernels
+and cuBLAS's from a ``torch.profiler`` window of 20 calls each. Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations

@@ -179,7 +179,7 @@ def test_cuda_source_on_emulated_grid(emulated_dual_gemm, n, m, k):
 @pytest.mark.parametrize(
     "n,m,k,ldx",
     # X as a view with its rows apart, the padding NaN: rows of 16 bytes (m =
-    # 1 and 3 mod 4, as runner.prepare_batch pads them), and a stride that
+    # 1 and 3 mod 4, padded to a multiple of 4), and a stride that
     # is not a multiple of 4 (the 4-byte copies)
     [(130, 70, 47, 72), (190, 131, 47, 132), (300, 41, 108, 44), (65, 33, 12, 35)],
 )
@@ -193,25 +193,37 @@ def test_cuda_source_on_emulated_grid_with_row_stride(emulated_dual_gemm, n, m, 
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def _rows_16b(x: torch.Tensor) -> torch.Tensor:
+    """x as a view of a zero-padded copy whose rows lie a multiple of 16
+    bytes apart."""
+    n, m = x.shape
+    xv = torch.zeros((n, (m + 3) // 4 * 4), dtype=x.dtype)[:, :m]
+    xv.copy_(x)
+    return xv
+
+
 @pytest.mark.parametrize("m", [33, 35, 36])
-def test_prepare_batch_pads_rows_only_where_needed(m):
-    """``x_aligned``, a view of a zero-padded copy with 16-byte rows, only
-    where m is not a multiple of 4."""
-    x = np.random.default_rng(m).standard_normal((20, m)).astype(np.float32)
-    batch = runner.prepare_batch(x, None, torch.device("cpu"))
-    assert ("x_aligned" in batch) == (m % 4 != 0)
-    assert dual_gemm.batch_x(batch) is (batch["x"] if m % 4 == 0 else batch["x_aligned"])
-    if m % 4:
-        xa = batch["x_aligned"]
-        assert xa.shape == (20, m) and xa.stride() == ((m + 3) // 4 * 4, 1) and torch.equal(xa, batch["x"])
-        row = xa.as_strided((20, xa.stride(0)), xa.stride())
-        assert torch.all(row[:, m:] == 0)
+def test_wrapper_takes_x_with_rows_apart_on_the_cpu(m):
+    """On the CPU the wrapper takes X as a view with its rows apart through
+    its plain version: the same bits as contiguous X, and no launch. (The
+    kernel's row stride is held on the emulated grid and on the card.)"""
+    rng = np.random.default_rng(m)
+    a, b, x = (torch.as_tensor(rng.standard_normal(s, dtype=np.float32)) for s in ((20, 7), (7, m), (20, m)))
+    xv = _rows_16b(x)
+    assert xv.stride() == ((m + 3) // 4 * 4, 1) and torch.equal(xv, x)
+    before = dual_gemm.dual_contractions.launches
+    ax, xb = dual_gemm.dual_contractions(a, b, x)
+    axv, xbv = dual_gemm.dual_contractions(a, b, xv)
+    assert torch.equal(ax, axv) and torch.equal(xb, xbv)
+    assert dual_gemm.dual_contractions.launches == before
 
 
 def test_fused_loss_on_aligned_rows_matches_contiguous_x():
-    """The fused loss and its gradients on ``prepare_batch``'s X with 16-byte
-    rows equal those on contiguous X, through the wrapper and the model's
-    loss."""
+    """The fused loss and its gradients on a batch whose X has 16-byte rows
+    equal those on contiguous X, through the model's loss and the wrapper's
+    plain path (the CPU's; the kernel's row stride is held by
+    ``test_cuda_source_on_emulated_grid_with_row_stride`` and, on the card,
+    ``test_kernel_on_rows_apart_matches_contiguous``)."""
     from desmo_tpu_torch.models import desmo as desmo_model
 
     n, m, r = 60, 33, 2
@@ -222,9 +234,9 @@ def test_fused_loss_on_aligned_rows_matches_contiguous_x():
     out = []
     for aligned in (False, True):
         batch = runner.prepare_batch(x, pod_modes, torch.device("cpu"))
-        assert "x_aligned" in batch
-        if not aligned:
-            del batch["x_aligned"]
+        assert batch["x"].is_contiguous()
+        if aligned:
+            batch["x"] = _rows_16b(batch["x"])
         params = {k: v.clone().requires_grad_(True) for k, v in desmo_model.Desmo(spec).params().items()}
         total, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(total, list(params.values()))

@@ -62,11 +62,12 @@ def test_kernel_matches_twin(cuda, n, k, m):
 
 @pytest.mark.parametrize("n,k,m", [(3961, 47, 1001), (3961, 12, 1001), (700, 50, 333)])
 def test_kernel_on_rows_apart_matches_contiguous(cuda, n, k, m):
-    """X as ``prepare_batch`` hands it to the eager losses (rows padded to 16
-    bytes where m is not a multiple of 4): the same bits as contiguous X, and
-    float64 to 5e-6 of max|ref|."""
+    """X as a view whose rows are padded to 16 bytes (the kernel's 16-byte
+    copies where m is not a multiple of 4): the same bits as contiguous X,
+    and float64 to 5e-6 of max|ref|."""
     a, b, x = _inputs(n, k, m, cuda)
-    xv = dual_gemm.batch_x(runner.prepare_batch(x.cpu().numpy(), None, cuda))
+    xv = torch.zeros((n, (m + 3) // 4 * 4), device=cuda)[:, :m]
+    xv.copy_(x)
     assert xv.stride(0) % 4 == 0 and torch.equal(xv, x)
     ax, xb = dual_gemm.dual_contractions(a, b, x)
     axv, xbv = dual_gemm.dual_contractions(a, b, xv)
