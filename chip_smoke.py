@@ -27,11 +27,14 @@ presets at full width on synthetic data through ``runner.run``:
   dual-contraction kernel), 100 epochs, and with ``chunk_method="megakernel"``
   through the AE kernel, one launch per 2,000-epoch chunk, 10,000 epochs;
 - the space-sharded path (``runner.run(device_mesh=parallel.make_mesh(1))``,
-  a one-rank NCCL group): cylinder, 4,000 epochs, and fourier_cylinder, 400,
-  through the sharded step kernel (``csrc/shard_step.cu``), one launch and
-  one all-reduce per epoch. Before it the step kernel is held against its
-  plain version over all rows and over 2 and 3 uneven shards with their
-  partials summed, and the sharded chunk against the mega-kernel.
+  a one-rank NCCL group): cylinder and fourier_cylinder, 4,000 epochs each,
+  through the sharded step kernel (``csrc/shard_step.cu``): one launch (the
+  previous step's update, then this step's partials) and one all-reduce a
+  step, the steps after a chunk's first replayed from a CUDA graph, and one
+  more launch a chunk for its last update. Before it the step kernel is
+  held against its plain version: the partials over all rows and
+  over 2 and 3 uneven shards with their partials summed, and the update;
+  and the sharded chunk against the mega-kernel.
 
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels build without spills (checked from ``-Xptxas -v``), and
@@ -42,10 +45,10 @@ two cuBLAS products of its plain version, the mega-kernel in its four
 forms, the AE kernel, the step kernel)
 against its plain version in turns, beside its bound (fp32, and 3xTF32 for
 the kernels on the tensor cores), and splits the mega-kernel's and the AE
-kernel's time by phase with the kernels' own clocks; the packed forms
-beside the single-seed kernel at the same preset; the sharded path's step
-beside the mega-kernel's epoch. Each phase prints its lines; any
-failed check exits non-zero. The second-to-last line is a JSON record of the
+kernel's and the step kernel's time by phase with the kernels' own
+clocks; the packed forms beside the single-seed kernel at the same preset;
+the sharded path's step beside the mega-kernel's epoch, with its busy
+share. Each phase prints its lines; any failed check exits non-zero. The second-to-last line is a JSON record of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Exits non-zero
 without printing a result when no CUDA device is available.
 """
@@ -56,6 +59,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -71,7 +75,7 @@ STATE_STEPS = 30
 TIMED_STEPS = 50
 AE_EAGER_EPOCHS = 100
 SHARDED_EPOCHS = 4_000
-SHARDED_FOURIER_EPOCHS = 400
+SHARDED_FOURIER_EPOCHS = 4_000
 # the step kernel against its plain version evaluated in float64: the dual
 # contraction's contract on every summed partial, and dl. The plain version
 # in float32 is no yardstick here: cuBLAS sums AᵀX over n in one long chain,
@@ -143,9 +147,9 @@ def contraction_flops(n: int, m: int, k: int, seeds: int = 1) -> float:
 
 def kernel_forms(log: str) -> list[tuple[str, int, int, int]]:
     """``(name, registers, bytes spilled, bytes of stack)`` of each kernel
-    function in ``-Xptxas -v``'s report, the mega-kernel's forms and the dual
-    contraction's named by their KP (and form), registers -1 where the report
-    gives none."""
+    function in ``-Xptxas -v``'s report, the mega-kernel's, the step kernel's
+    and the dual contraction's forms named by their KP (and form), registers
+    -1 where the report gives none."""
     import re
 
     forms, name = [], None
@@ -155,9 +159,11 @@ def kernel_forms(log: str) -> list[tuple[str, int, int, int]]:
             mangled = entry.group(1)
             chunk = re.search(r"train_chunk_kernelILi(\d+)ELb([01])E", mangled)
             probe = re.search(r"contract_probe_kernelILi(\d+)E", mangled)
+            step = re.search(r"step_kernelILi(\d+)ELb([01])E", mangled)
             dual = re.search(r"dual_kernelILi(\d+)E", mangled)
             other = re.search(r"(reduce_parts_kernel|ae_chunk_kernel)", mangled)
             name = (f"{'Fourier' if chunk.group(2) == '1' else 'desmo'} KP={chunk.group(1)}" if chunk
+                    else f"step {'Fourier' if step.group(2) == '1' else 'desmo'} KP={step.group(1)}" if step
                     else f"probe KP={probe.group(1)}" if probe else f"dual KP={dual.group(1)}" if dual
                     else other.group(1) if other else mangled)
             continue
@@ -199,16 +205,26 @@ def ae_flops(n: int, m: int, k: int) -> float:
             + 2 * 256 * 256 * m + 4 * n * m * k + 2 * n * k * k + n * k * (k + 1) + m * k * (k + 1))
 
 
-def step_flops(n: int, m: int, k: int) -> float:
-    """Operations of one launch of the step kernel over n rows: AᵀX and XBᵀ
-    (2nmK each), A·gb (2nK²) and the symmetric AᵀA (nK(K+1))."""
-    return 4 * n * m * k + 2 * n * k * k + n * k * (k + 1)
+def step_flops(n: int, m: int, k: int, nf: int = 0) -> float:
+    """Operations of one launch of the step kernel over n rows: the update
+    and the partials of one step, the work of one mega-kernel epoch
+    (``chunk_flops``): AᵀX and XBᵀ (2nmK each), A·gb (2nK²), ga·B (2K²m),
+    the symmetric AᵀA and BBᵀ, and the Fourier form's series forward and
+    backward."""
+    return chunk_flops(n, m, k, nf)
 
 
-def step_bytes(n: int, m: int, k: int, r: int) -> float:
-    """Bytes one launch must move: X, the POD modes and phi of its rows, B,
-    gb, c and omega read once; dl, the partial sums and max_arg written once."""
-    return 4 * (n * m + 2 * n * r + k * m + k * k + k + 3 * r + n * r + k * m + k * k + r * r + k + 3 * r + 1)
+def step_bytes(n: int, m: int, k: int, r: int, nf: int = 0) -> float:
+    """Bytes one launch must move: X and the POD modes of its rows read
+    once; the state read and written once (phi with its moments over its
+    rows; B with its moments, or the Fourier form's series and periods with
+    theirs and the t points read; c and omega with theirs; the scheduler
+    vector); the partial sums, dl and gb read and written once; a metrics
+    row and max_arg written."""
+    temporal = 3 * k * (2 * nf + 1) + 3 * k if nf else 3 * k * m
+    state = 3 * r * n + temporal + 3 * k + 9 * r + 16
+    sums = k * m + k * k + r * r + k + 3 * r
+    return 4 * (n * m + n * r + (m if nf else 0) + 2 * (state + sums + n * r + k * k) + 5)
 
 
 def rows_16b(x):
@@ -266,7 +282,7 @@ def main() -> int:
         f"{name}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack" for name, regs, spill, stack in forms))
     check(len(forms) == 12 and all(spill == 0 for _, _, spill, _ in forms),
           "the mega-kernel's forms (desmo and Fourier at KP=32/48/64/128, the probe) must build without spills")
-    for name, count in (("dual_gemm", 6), ("ae_chunk", 1)):
+    for name, count in (("dual_gemm", 6), ("ae_chunk", 1), ("shard_step", 8)):
         kforms = kernel_forms(_build.build_log(name))
         print(f"[2 ptxas] {name} by kernel: " + " | ".join(
             f"{kname}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack"
@@ -275,7 +291,7 @@ def main() -> int:
               f"{name}'s kernels must build without spills")
 
     counters = (dual_gemm.dual_contractions, train_chunk.fused_train_chunk, train_chunk.fused_ensemble_chunk,
-                ae_chunk.fused_ae_chunk, shard_step.step_partials)
+                ae_chunk.fused_ae_chunk, shard_step.step)
 
     # 3. the dual contraction against its plain version at the main path's shapes
     gen = torch.Generator().manual_seed(0)
@@ -1082,9 +1098,13 @@ def main() -> int:
           f"{ae_bound * per_epoch:.1f} us/epoch (fp32), {ae_bound3 * per_epoch:.1f} (3xTF32)")
 
     # 8a. the step kernel against its plain version at cylinder (K=47) and
-    # fourier_cylinder (K=12), from one state (omega_init=1): all rows in one
-    # call, and the same rows as 2 and 3 uneven shards with their partials
-    # summed, as the ranks of a mesh would sum them
+    # fourier_cylinder (K=12), from one state (omega_init=1): the partials
+    # alone (step_partials: the counter at 0) over all rows in one launch and
+    # over 2 and 3 uneven shards with their partials summed, as the ranks of
+    # a mesh would sum them, against the plain version in float64; then the
+    # prologue: from the kernel's state after one step, the update of that
+    # step followed by the next step's partials, against step_plain in
+    # float64 on the same state and sums
     def step_args(cfg, st):
         cs = train_chunk.pack_seeds(train_chunk.stack_seed(st), [cfg.beta], [cfg.l1_lambda])
         if cs.series is None:
@@ -1136,6 +1156,40 @@ def main() -> int:
               "vs float64: " + ", ".join(f"{key} {v:.2e}" for key, v in plain_err.items())
               + f"; max_arg equal to the float32 plain's; two launches bit-identical; max |kernel - plain (float64)| "
               f"{step_checks[cfg.name]['max_abs']:.3e}")
+        buf = shard_step.make_buffers(train_chunk.pack_seeds(train_chunk.stack_seed(st_s), [cfg.beta], [cfg.l1_lambda]),
+                                      batch_of[cfg.name], 2, spec_s, cfg, n)
+        shard_step.step(buf, spec_s)  # step 0's partials; on one rank they are the summed ones
+        ref = buf.to("cpu", torch.float64)
+        twice = [buf.clone(), buf.clone()]
+        for run in twice:
+            shard_step.step(run, spec_s)
+        torch.cuda.synchronize()
+        shard_step.step_plain(ref, spec_s)
+        got = twice[0]
+        fields = ("sums", "dl", "gb", "met", "max_arg", "count")
+        same = all(torch.equal(getattr(twice[0], f), getattr(twice[1], f)) for f in fields) and all(
+            torch.equal(getattr(twice[0].cs, f), getattr(twice[1].cs, f)) for f in ("phi", "coef", "omega", "svec"))
+        params = ("phi", "coef", "omega") + (("series", "periods") if got.nf else ("b",))
+        e_met = {key: abs(float(got.met[0, i]) - float(ref.met[0, i])) / abs(float(ref.met[0, i]))
+                 for i, key in enumerate(shard_step.ROW_METRICS)}
+        met_ok = all(abs(float(got.met[0, i]) - float(ref.met[0, i])) <= 2e-4 * abs(float(ref.met[0, i]))
+                     + (ORTHO_ATOL if key == "ortho" else 0.0) for i, key in enumerate(shard_step.ROW_METRICS))
+        e_par = {f: rel_err(getattr(got.cs, f)[0].double().cpu(), getattr(ref.cs, f)[0]) for f in params}
+        e_next = {"dl": rel_err(got.dl.double().cpu(), ref.dl)}
+        e_next.update({name: rel_err(g.double().cpu(), w) for name, g, w in zip(
+            parts, shard_step.split_sums(got.sums, k, m, r), shard_step.split_sums(ref.sums, k, m, r))})
+        same_lrs = torch.equal(got.cs.svec[0, :5].double().cpu(), ref.cs.svec[0, :5].to(torch.float32).double())
+        print(f"[8a prologue] {cfg.name}: the update of step 0 and the partials of step 1 in one launch vs step_plain "
+              f"in float64 from the kernel's state: metrics row 0 " + ", ".join(f"{key} {v:.2e}" for key, v in e_met.items())
+              + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute); params " + ", ".join(
+                  f"{key} {v:.2e}" for key, v in e_par.items()) + " of max|param| (limit 1e-5); the next partials "
+              + ", ".join(f"{key} {v:.2e}" for key, v in e_next.items())
+              + f" (limits: dl {STEP_DL_RTOL:.0e}, the sums {STEP_RTOL:.0e}); LRs equal {same_lrs}; two launches "
+              f"bit-identical {same}")
+        check(met_ok and max(e_par.values()) <= 1e-5 and same and same_lrs and e_next["dl"] <= STEP_DL_RTOL
+              and all(e_next[name] <= STEP_RTOL for name in parts),
+              f"{cfg.name}: step kernel's prologue vs step_plain beyond its limits: metrics {e_met}, params {e_par}, "
+              f"next partials {e_next}, LRs equal {same_lrs}, launches identical {same}")
 
     # 8b. the sharded chunk on a one-rank NCCL group against the mega-kernel
     mesh = parallel.make_mesh(1, device=dev)
@@ -1165,23 +1219,24 @@ def main() -> int:
 
     # 8c. the slice over the mesh: runner.run through the sharded step kernel
     sharded_runs = {}
-    for cfg, data, epochs in ((preset, x_np, SHARDED_EPOCHS),
-                              (dataclasses.replace(fpreset, checkpoint_every=200), fx_np, SHARDED_FOURIER_EPOCHS)):
+    for cfg, data, epochs in ((preset, x_np, SHARDED_EPOCHS), (fpreset, fx_np, SHARDED_FOURIER_EPOCHS)):
         with tempfile.TemporaryDirectory() as tmp:
             reset_launches(*counters)
             t0 = time.perf_counter()
             art = runner.run(cfg, data, out_dir=tmp, num_epochs=epochs, echo=False, device=dev, device_mesh=mesh)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = shard_step.step_partials.launches
+            launches = shard_step.step.launches
+            chunks = -(-epochs // cfg.checkpoint_every)
             others = sum(fn.launches for fn in counters) - launches
             hist = art.history
             check(all(bool(np.isfinite(hist[key]).all()) and hist[key].shape == (epochs,) for key in hist),
                   f"sharded {cfg.name} history")
             check(hist["rec"][-1] < hist["rec"][0], f"sharded {cfg.name} rec did not fall: {hist['rec'][0]} -> "
                   f"{hist['rec'][-1]}")
-            check(launches == epochs and others == 0,
-                  f"sharded {cfg.name}: step kernel launched {launches} times in {epochs} epochs, other kernels {others}")
+            check(launches == epochs + chunks and others == 0,
+                  f"sharded {cfg.name}: step kernel launched {launches} times in {epochs} epochs of {chunks} chunks "
+                  f"(one more launch a chunk), other kernels {others}")
             files = set(os.listdir(art.out_dir))
             want = {f"{cfg.name}_r{cfg.r}_final.pt", "state_final.npz"} | {
                 f"state_epoch{e}.npz" for e in range(cfg.checkpoint_every, epochs + 1, cfg.checkpoint_every)}
@@ -1193,63 +1248,146 @@ def main() -> int:
                   f"{epochs} epochs in {wall:.1f} s (POD, sweep and exports included), {art.steps_per_sec:.1f} steps/s "
                   f"over chunks 2-{epochs // cfg.checkpoint_every}; rec {hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; "
                   f"relative error {art.relative_error:.6f}, POD(r) {art.pod_error_r:.6f}; sweep {len(art.sweep)} rows; "
-                  f"step kernel launches {launches} = epochs, other kernels 0")
+                  f"step kernel launches {launches} = epochs + chunks ({epochs} + {chunks}), other kernels 0")
 
-    # 8d. times: the step kernel and its plain version in turns; the sharded
-    # step split into the kernel, the two all-reduces and the rest (the host's
-    # update ops and the gaps between), and against the mega-kernel's epoch
+    # 8d. times at cylinder and fourier_cylinder as configured: the step
+    # kernel (one launch: a step's update and partials) and its plain version
+    # (step_plain) in turns, beside the bounds (fp32; 3xTF32 for the two
+    # contractions with X); the kernel's clock by part over a 500-step chunk;
+    # the sharded step over space=1 as the chunk (make_sharded_fused_chunk,
+    # its set-up and capture included) in turns with the mega-kernel's epoch,
+    # and, on buffers built beforehand, the loop of launch and all-reduce in
+    # turns with the replays of a CUDA graph of one step
     step_times, sharded_steps = {}, {}
+    timed_steps = 500
     for name, iters in ((preset.name, 200), (fpreset.name, 200)):
-        sc = step_checks[name]
-        n, m, k, r = sc["shape"]
-        kernel = lambda: shard_step.step_partials(*sc["args"], sc["spec"], n)  # noqa: E731
-        plain = lambda: shard_step.step_partials_plain(*sc["args"], sc["spec"], n)  # noqa: E731
-        k1, p1, p2, k2 = (time_ms(f, iters) for f in (kernel, plain, plain, kernel))
-        bound, by = bound_ms(step_flops(n, m, k), step_bytes(n, m, k, r))
-        step_times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by)
-        flat = torch.zeros((k * m + k * k + r * r + k + 3 * r,), device=dev)
-        mx = torch.zeros((1,), device=dev)
-        ar_ms = time_ms(lambda: (mesh.all_reduce(mx, "max"), mesh.all_reduce(flat, "sum")), iters)
+        n, m, k, r = step_checks[name]["shape"]
         cfg = preset if name == preset.name else fpreset
         spec_s, st_s = (start if name == preset.name else fstart)(cfg)
-        chunk = shard_step.make_sharded_fused_chunk(spec_s, cfg, mesh)
+        nf = train_chunk.n_fourier(spec_s, cfg)
         local = parallel.shard_batch(batch_of[name], mesh)
-        steps = 500
-        sharded = lambda: chunk(st_s, local, steps)  # noqa: E731
-        mega = lambda: train_chunk.fused_train_chunk(st_s, batch_of[name], steps, spec_s, cfg)  # noqa: E731
-        a1, b1, b2, a2 = (time_ms(f, 1) * 1e3 / steps for f in (sharded, mega, mega, sharded))
-        step_us = (a1 + a2) / 2
-        rest_us = step_us - 1e3 * (step_times[name]["ms"] + ar_ms)
-        sharded_steps[name] = dict(chunk=chunk, state=st_s, local=local, us=step_us)
-        print(f"[8d time] {card}: {name} (n, m, K)=({n}, {m}, {k}): step kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us per "
-              f"launch, plain version {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us (kernel, plain, plain, kernel; {iters} calls "
-              f"each); bound {bound * 1e3:.1f} us ({by}, {step_flops(n, m, k) / 1e9:.3f} GFLOP); sharded step over "
-              f"{steps}-step chunks {a1:.1f}/{a2:.1f} us against the mega-kernel's epoch {b1:.1f}/{b2:.1f} us "
-              f"(sharded, mega, mega, sharded): kernel {1e3 * step_times[name]['ms']:.1f} + all-reduces (max, sum; "
-              f"{ar_ms * 1e3:.1f} alone) + the rest {rest_us:.1f} us (the host's update ops and the gaps); end to end "
-              f"{sharded_runs[name]['sps']:.1f} steps/s against the mega-kernel path's "
-              f"{slice_sps if name == preset.name else fslice_sps:.1f}")
-    # the device's busy time per sharded step: a profiler window of 50 steps,
-    # the time of its device events (the kernels and copies, not the host
-    # operations that launched them) over the unprofiled step time above. It
-    # runs after every timing: the profiler's tracing can stay attached.
-    for name, sh in sharded_steps.items():
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            sh["chunk"](sh["state"], sh["local"], 50)
+
+        def buffers(steps):
+            cs = train_chunk.pack_seeds(train_chunk.stack_seed(st_s), [cfg.beta], [cfg.l1_lambda])
+            return shard_step.make_buffers(cs, local, steps, spec_s, cfg, n)
+
+        kbuf = buffers(4 * iters + 8)
+        pbuf = kbuf.clone()
+        k1, p1, p2, k2 = (time_ms(f, iters) for f in (lambda: shard_step.step(kbuf, spec_s),
+                                                       lambda: shard_step.step_plain(pbuf, spec_s),
+                                                       lambda: shard_step.step_plain(pbuf, spec_s),
+                                                       lambda: shard_step.step(kbuf, spec_s)))
+        flops, nbytes = step_flops(n, m, k, nf), step_bytes(n, m, k, r, nf)
+        bound, by = bound_ms(flops, nbytes)
+        bound3 = bound_3xtf32_ms(contraction_flops(n, m, k), flops - contraction_flops(n, m, k), nbytes)
+        launch_ms = (k1 + k2) / 2
+        step_times[name] = dict(ms=launch_ms, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by,
+                                bound_3xtf32_ms=bound3)
+        split = shard_step.phase_split(spec_s, cfg, mesh, st_s, local, timed_steps)
+        per_launch = {key: v * 1e6 / (timed_steps + 1) for key, v in split.items()}
+        flat = torch.zeros_like(kbuf.sums)
+        ar_ms = time_ms(lambda: mesh.all_reduce(flat, "sum"), iters)
+        lbuf, rbuf = buffers(8 * timed_steps + 8), buffers(8 * timed_steps + 8)
+
+        def loop(steps=timed_steps, lbuf=lbuf, spec_s=spec_s):
+            for _ in range(steps):
+                shard_step.step(lbuf, spec_s)
+                mesh.all_reduce(lbuf.sums, "sum")
+
+        shard_step.step(rbuf, spec_s)
+        mesh.all_reduce(rbuf.sums, "sum")
+        graph = shard_step.capture(rbuf, spec_s, mesh)
+
+        def replay(steps=timed_steps, graph=graph):
+            for _ in range(steps):
+                graph.replay()
+
+        chunk = shard_step.make_sharded_fused_chunk(spec_s, cfg, mesh)
+        whole = lambda: chunk(st_s, local, timed_steps)  # noqa: E731
+        mega = lambda: train_chunk.fused_train_chunk(st_s, batch_of[name], timed_steps, spec_s, cfg)  # noqa: E731
+        c1, g1, g2, c2 = (time_ms(f, 3) * 1e3 / timed_steps for f in (whole, mega, mega, whole))
+        # the loop against the replays: 10 rounds of loop, replays, replays,
+        # loop; a pair is a round's first or second half
+        rounds = [[time_ms(f, 1) * 1e3 / timed_steps for f in (loop, replay, replay, loop)] for _ in range(10)]
+        loops = [t for rd in rounds for t in (rd[0], rd[3])]
+        replays = [t for rd in rounds for t in (rd[1], rd[2])]
+        won = sum(r < u for r, u in zip(replays, loops))
+        # the busy share: the kernel's own clock (each launch from its entry
+        # to its end) over the wall time, both in one window of the loop and
+        # one of the replays
+        busy = {}
+        for how, fn, b in (("the loop", loop, lbuf), ("the replays", replay, rbuf)):
             torch.cuda.synchronize()
-        device_us = sum(e.self_device_time_total for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-        print(f"[8d busy] {card}: {name} sharded step: " + (
-            "device time not measured (the profiler saw no device event)" if device_us <= 0 else
-            f"{device_us / 50:.1f} us of device time a step against {sh['us']:.1f} us a step, a busy share of "
-            f"{device_us / 50 / sh['us']:.1%}"))
+            before = sum(shard_step.clock(b, spec_s).values())
+            t0 = time.perf_counter()
+            fn()
+            kernel_s = sum(shard_step.clock(b, spec_s).values()) - before  # synchronizes
+            busy[how] = (kernel_s * 1e6 / timed_steps, (time.perf_counter() - t0) * 1e6 / timed_steps)
+        sharded_steps[name] = dict(chunk=chunk, state=st_s, local=local)
+        contractions = per_launch["rows.xb"] + per_launch["ax"]
+        print(f"[8d time] {card}: {name} (n, m, K)=({n}, {m}, {k}): step kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us per "
+              f"launch (a step's update and partials), plain version (step_plain) {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us "
+              f"(kernel, plain, plain, kernel; {iters} calls each); bound {bound * 1e3:.1f} us ({by}, fp32, "
+              f"{flops / 1e9:.3f} GFLOP), {bound3 * 1e3:.1f} us (3xTF32); the launch at {launch_ms / bound:.1f}x "
+              f"and {launch_ms / bound3:.1f}x")
+        print(f"[8d clock] {card}: {name} step kernel over a {timed_steps}-step chunk ({timed_steps + 1} launches; "
+              f"kernel clock, block 0), us per launch: " + ", ".join(f"{key} {v:.1f}" for key, v in per_launch.items())
+              + f"; X·Bᵀ + AᵀX (rows.xb + ax) {contractions:.1f} us")
+        print(f"[8d step] {card}: {name} sharded step over space=1, us per step over {timed_steps}-step runs: the "
+              f"chunk as train.fit calls it (set-up and capture included) {c1:.1f}/{c2:.1f} in turns with the "
+              f"mega-kernel's epoch {g1:.1f}/{g2:.1f} (chunk, mega, mega, chunk; 3 runs each); on buffers built "
+              f"beforehand, in 10 rounds of loop, replays, replays, loop (2 runs each): the loop of launch and "
+              f"all-reduce median {statistics.median(loops):.1f} (" + "/".join(f"{t:.1f}" for t in loops)
+              + f"), the replays of a CUDA graph of one step median {statistics.median(replays):.1f} ("
+              + "/".join(f"{t:.1f}" for t in replays) + f"), the replays faster in {won} of {len(loops)} pairs; "
+              f"alone: the kernel {launch_ms * 1e3:.1f}, the all-reduce {ar_ms * 1e3:.1f} (one rank: the host's "
+              f"time); end to end {sharded_runs[name]['sps']:.1f} steps/s (8c) against the mega-kernel path's "
+              f"{slice_sps if name == preset.name else fslice_sps:.1f}")
+        print(f"[8d busy] {card}: {name} sharded step over {timed_steps} steps, the step kernel by its own clock "
+              "against the wall time, us a step: " + ", ".join(
+                  f"{how} {k_us:.1f} in {w_us:.1f}, a busy share of {k_us / w_us:.1%}" for how, (k_us, w_us)
+                  in busy.items()))
+    # the sharded chunk by the device's work: in one profiler window of a
+    # 200-step chunk, the step kernel's launches the profiler saw against
+    # those ``step.launches`` counted, and the time of the device events by
+    # kind (the step kernel, NCCL's all-reduce, the rest) and the window's
+    # wall time, both a step, the profiler's own host time included. After
+    # every timing: the profiler's tracing can stay attached.
+    window_steps = 200
+    for name, sh in sharded_steps.items():
+        sh["chunk"](sh["state"], sh["local"], 10)
+        torch.cuda.synchronize()
+        counted = shard_step.step.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sh["chunk"](sh["state"], sh["local"], window_steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / window_steps
+        counted = shard_step.step.launches - counted
+        work_by = {"the step kernel": 0.0, "the all-reduce": 0.0, "the rest": 0.0}
+        seen = 0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+                what = ("the step kernel" if "step_kernel" in e.key else
+                        "the all-reduce" if "nccl" in e.key.lower() else "the rest")
+                work_by[what] += e.self_device_time_total / window_steps
+                seen += e.count if what == "the step kernel" else 0
+        device_us = sum(work_by.values())
+        print(f"[8d work] {card}: {name} sharded chunk of {window_steps} steps under the profiler: step kernel "
+              f"launches seen {seen}, counted {counted}; " + (
+                  "device time not measured (the profiler saw no device event)" if device_us <= 0 else
+                  f"{device_us:.1f} us of device time a step (" + ", ".join(f"{k} {v:.1f}" for k, v in work_by.items())
+                  + f") in {wall_us:.1f} us of wall time a step with the profiler attached"))
+        check(device_us <= 0 or seen == counted == window_steps + 1,
+              f"{name}: the profiler saw {seen} step kernel launches, step.launches counted {counted}, in a "
+              f"{window_steps}-step chunk")
     torch.distributed.destroy_process_group()
 
     # 8e. the dual contraction's device time per call beside the cuBLAS
     # pair's, at phase 7's shapes and in turns: the kernels' own time in a
     # profiler window of 50 calls (phase 7's CUDA events over back-to-back
     # calls take in the host's share of a call where the host is the slower).
-    # After every timing, as the busy windows above.
+    # After every timing, as the profiled windows above.
     for shape3 in DUAL_SHAPES:
         n, m, k = shape3
         a, b, x = (torch.randn(shape, generator=gen).to(dev) for shape in ((n, k), (k, m), (n, m)))
@@ -1377,9 +1515,10 @@ def main() -> int:
             **step_times[preset_name],
             "library_ms": None,
         }
-        for name, preset_name in (("step_partials (cylinder over space=1)", preset.name),
-                                  ("step_partials (fourier_cylinder over space=1)", fpreset.name))
+        for name, preset_name in (("step (cylinder over space=1)", preset.name),
+                                  ("step (fourier_cylinder over space=1)", fpreset.name))
     ]}))
+    check(kind == torch.cuda.get_device_name(dev), f"the device record's kind {kind!r} is not the card's name")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

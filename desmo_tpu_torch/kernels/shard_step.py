@@ -4,57 +4,85 @@ the ranks of a ``space`` mesh. Port of ``desmo_tpu/pallas/shard_step.py``
 one seed, desmo and Fourier forms.
 
 Rank k owns a contiguous block of rows (``parallel.row_range``): its rows of
-X, of the POD modes and of phi with phi's Adamax moments. Each step:
+X, of the POD modes and of phi with phi's Adamax moments. A chunk of
+``num_steps`` steps is ``num_steps`` launches of ``csrc/shard_step.cu``
+(:func:`step`), each followed by one SUM all-reduce of its partial sums, and
+one launch more that runs the prologue alone. Launch s:
 
-1. (Fourier) B from the series (``train_chunk.series_forward``), and
-   ``gb = B Bᵀ``;
-2. one launch of ``csrc/shard_step.cu`` over the rank's rows
-   (:func:`step_partials`): the rows' latent gradient ``dl`` without the
-   ortho term, and the partial sums ``ax = AᵀX``, ``ga = AᵀA``, the latent
-   Gram ``latᵀlat``, the coefficient gradient ``sum(dA * D)``, the omega
-   gradient and ``max |omega * lat|``. ``dA`` is normalised by the global
-   ``n m``, never by the rank's row count;
-3. ``max_arg`` all-reduced with MAX, then the other partials, one buffer,
-   with SUM;
-4. the replicated update, the same on every rank from the all-reduced sums:
-   the metrics, the Adamax of B (Fourier: of the series and the periods,
-   through ``series_backward``), of c (with ``lam * sign(c)``) and of omega,
-   and the plateau scheduler;
-5. the row-local phi Adamax, whose ortho term ``beta * lat (sign(latᵀlat) *
-   offdiag)`` needs the all-reduced latent Gram, so it is added here and not
-   in the kernel.
+1. (s > 0, the prologue) the replicated update of step s - 1 from its
+   all-reduced sums, the same on every rank: the metrics row s - 1 of the
+   pre-update parameters; the Adamax of B (Fourier: of the series and the
+   periods, through ``series_backward``), of c (with ``lam * sign(c)``) and
+   of omega; the plateau scheduler; and the row-local phi Adamax, whose
+   ortho term ``beta * lat (sign(latᵀlat) * offdiag)`` needs the summed
+   latent Gram and step s - 1's ``dl``;
+2. (the rows) B (Fourier: from the series, ``series_forward``), ``gb = B
+   Bᵀ``, and over the rank's rows the latent gradient ``dl`` without the
+   ortho term and the partial sums ``ax = AᵀX``, ``ga = AᵀA``, the latent
+   Gram ``latᵀlat``, the coefficient gradient ``sum(dA * D)`` and the omega
+   gradient into one buffer; ``dA`` is normalised by the global ``n m``,
+   never by the rank's row count. ``max |omega * lat|`` goes to row s of a
+   (num_steps,) buffer, which one MAX all-reduce per chunk reduces over the
+   ranks.
 
-Updating phi at the end of each step equals the single-device mega-kernel's
-delayed sweep (nothing reads phi in between), so its chunk
+Updating phi at the start of the next launch equals the single-device
+mega-kernel's delayed sweep (nothing reads phi in between), so its chunk
 (``kernels.train_chunk``) is this one's reference on one device. The state
 between the steps is the mega-kernel's layout (``train_chunk.ChunkState``,
 one seed), with phi's rows the rank's own; the Adamax bias ``1 - b1^count``
 is a running product and the scheduler steps as in the mega-kernel
-(``_chunk_optim``).
+(``_chunk_optim``). Everything a launch reads or writes is allocated once a
+chunk (:class:`StepBuffers`), the step counter on the device, so on the card
+the chunk captures one step, the launch and its all-reduce, as a CUDA graph
+(:func:`capture`) and replays it: the host's part of a step, a launch and
+an NCCL call from Python, can take longer than the launch on a busy host.
 
-``step_partials`` takes its plain version (:func:`step_partials_plain`) for
-CPU tensors only. On a CUDA tensor it launches the kernel or raises; every
-launch adds one to ``step_partials.launches``.
+``step`` takes its plain version (:func:`step_plain`) for CPU buffers only.
+On CUDA buffers it launches the kernel or raises; every launch adds one to
+``step.launches``, and so does every replay of a captured step
+(:func:`run_steps`). :func:`step_partials` runs the partials alone from
+given parameters, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch.kernels import _build, train_chunk
-from desmo_tpu_torch.kernels._chunk_optim import _BETA, _LAM, _LR0, _POW, B1, _adamax_, sched_step_
+from desmo_tpu_torch.kernels._chunk_optim import _BETA, _LAM, _LR0, _POW, B1, SVEC, _adamax_, sched_step_
 from desmo_tpu_torch.models import fourier
 from desmo_tpu_torch.train import ChunkFn, TrainState
+
+# the metrics rows the prologue writes; the chunk adds max_arg
+ROW_METRICS = train_chunk.METRICS[:4]
+# the kernel clock's counters, in the order of ``enum Phase`` in the source:
+# from the launch's start, its Layout and tables; the prologue's update and
+# its B Bᵀ reduction with block 0's finalize; the
+# rows phase (the last part takes in the wait at its grid barrier); the
+# partials' reduction; block 0's AᵀX partial, the wait at the AᵀX split's
+# barrier and the owners' sums
+PHASES = (
+    "setup", "update", "gram", "rows.dictionary", "rows.xb", "rows.gradients", "rows.barrier", "reduce", "ax", "ax.barrier",
+    "ax.sum",
+)
+
 
 def supports_sharded(spec, cfg) -> bool:
     """Whether the sharded chunk runs this configuration: exactly the
     single-device mega-kernel's configurations (``train_chunk.supports``),
     as ``desmo_tpu.pallas.shard_step.supports_sharded`` answers."""
     return train_chunk.supports(spec, cfg)
+
+
+def sums_size(K: int, m: int, r: int) -> int:
+    """Floats of the partial sums' buffer (:func:`split_sums`)."""
+    return K * m + K * K + r * r + K + 3 * r
 
 
 def split_sums(flat: torch.Tensor, K: int, m: int, r: int) -> tuple[torch.Tensor, ...]:
@@ -66,14 +94,14 @@ def split_sums(flat: torch.Tensor, K: int, m: int, r: int) -> tuple[torch.Tensor
 
 
 def step_partials_plain(pod, x, phi, b, gb, coef, omega, spec, n_total: int):
-    """The kernel's function in plain PyTorch, the arithmetic of one epoch of
-    ``train_chunk.train_chunk_plain`` up to its sums over rows, over the
-    rows given: ``pod`` (n, r), ``x`` (n, m) and ``phi`` (r, n) of the rank,
-    ``b`` (K, m), ``gb`` = B Bᵀ (K, K), ``coef`` (K,) and ``omega`` (3r,)
-    whole; ``n_total`` is the global row count of ``dA``'s 2/(n_total m).
-    Returns ``(dl, flat, max_arg)``: ``dl`` (n, r) without the ortho term,
-    the partial sums in one buffer (:func:`split_sums`) and max |omega *
-    lat| (1,), in the inputs' floating type."""
+    """The rows part of the kernel's function in plain PyTorch, the arithmetic
+    of one epoch of ``train_chunk.train_chunk_plain`` up to its sums over
+    rows, over the rows given: ``pod`` (n, r), ``x`` (n, m) and ``phi`` (r, n)
+    of the rank, ``b`` (K, m), ``gb`` = B Bᵀ (K, K), ``coef`` (K,) and
+    ``omega`` (3r,) whole; ``n_total`` is the global row count of ``dA``'s
+    2/(n_total m). Returns ``(dl, flat, max_arg)``: ``dl`` (n, r) without the
+    ortho term, the partial sums in one buffer (:func:`split_sums`) and max
+    |omega * lat| (1,), in the inputs' floating type."""
     n, m = x.shape
     r, P = spec.r, spec.poly_order
     T = spec.num_poly_terms
@@ -109,36 +137,305 @@ def step_partials_plain(pod, x, phi, b, gb, coef, omega, spec, n_total: int):
     return dl, flat, torch.max(torch.abs(args)).reshape(1)
 
 
+@dataclasses.dataclass
+class StepBuffers:
+    """Everything the launches of one chunk read and write, allocated once
+    (:func:`make_buffers`); a launch updates them in place. ``cs`` is the
+    one-seed state in the kernel's layout, its phi the rank's rows;
+    ``count`` is the step counter s, the launches with rows so far (int32,
+    on the device: a captured step reads it there). ``xp`` (X padded to rows
+    of a multiple of 8 floats), ``work``, ``ctab``
+    (:func:`kernel_table`) and ``tpts`` are the kernel's, None on the CPU;
+    ``tw`` (2 pi t) is the plain Fourier form's."""
+
+    cs: train_chunk.ChunkState
+    pod: torch.Tensor  # (n, r)
+    x: torch.Tensor  # (n, m)
+    x_sq: torch.Tensor  # () sum(X * X) over every rank's rows
+    sums: torch.Tensor  # (sums_size,) this step's partials; all-reduced between launches
+    dl: torch.Tensor  # (n, r) the last partials' dl
+    gb: torch.Tensor  # (K, K) B Bᵀ of the B the last partials used
+    met: torch.Tensor  # (num_steps, 4) rec, ortho, l1, total
+    max_arg: torch.Tensor  # (num_steps,)
+    count: torch.Tensor  # (1,) int32
+    n_total: int
+    nf: int
+    cfg: object  # the RunConfig of the scheduler (None: no update runs)
+    xp: torch.Tensor | None = None
+    work: torch.Tensor | None = None
+    ctab: torch.Tensor | None = None
+    tpts: torch.Tensor | None = None
+    tw: torch.Tensor | None = None
+    args: tuple | None = dataclasses.field(default=None, repr=False)  # the kernel's arguments, made at first launch
+
+    def clone(self) -> StepBuffers:
+        """A copy of the buffers that a launch changes (the state, sums, dl,
+        gb, the metrics and max_arg rows, the counter), sharing the rest."""
+        cs = train_chunk.ChunkState(**{f.name: None if getattr(self.cs, f.name) is None else
+                                       getattr(self.cs, f.name).clone() for f in dataclasses.fields(self.cs)})
+        changed = {k: getattr(self, k).clone() for k in ("sums", "dl", "gb", "met", "max_arg", "count")}
+        return dataclasses.replace(self, cs=cs, args=None, **changed)
+
+    def to(self, device, dtype) -> StepBuffers:
+        """A copy of the buffers on ``device`` with the floating ones in
+        ``dtype`` (the counter stays int32), for the plain version: the
+        kernel's own buffers are left out."""
+
+        def conv(t):
+            return None if t is None else t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype,
+                                               copy=True)
+
+        cs = train_chunk.ChunkState(**{f.name: conv(getattr(self.cs, f.name))
+                                       for f in dataclasses.fields(train_chunk.ChunkState)})
+        keep = {"xp", "work", "ctab", "tpts", "tw", "n_total", "nf", "cfg", "cs", "args"}
+        out = StepBuffers(cs=cs, n_total=self.n_total, nf=self.nf, cfg=self.cfg,
+                          **{f.name: conv(getattr(self, f.name)) for f in dataclasses.fields(self)
+                             if f.name not in keep})
+        if self.nf:
+            out.tw = _tw(self.x.shape[1], torch.device(device))
+        return out
+
+
+def _tw(m: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(fourier.TWO_PI * fourier.t_points(m), device=device)  # float32 2 pi t
+
+
+def make_buffers(cs: train_chunk.ChunkState, batch: dict, num_steps: int, spec, cfg, n_total: int) -> StepBuffers:
+    """The buffers of a chunk of ``num_steps`` steps from the one-seed state
+    ``cs`` (used in place) and this rank's ``batch`` (``x``, ``pod_modes``,
+    the global ``x_sq``); the counter starts at 0, so the first launch runs
+    the partials alone. On the card: X's padded copy, the scratch (its clock
+    zeroed), the column table and the t points."""
+    x, pod = batch["x"], batch["pod_modes"]
+    n, m = x.shape
+    r = spec.r
+    K = spec.num_poly_terms + 3 * r
+    nf = 0 if cs.series is None else (cs.series.shape[2] - 1) // 2
+    dev = x.device
+    f = dict(dtype=cs.phi.dtype, device=dev)
+    buf = StepBuffers(
+        cs=cs, pod=pod, x=x, x_sq=batch["x_sq"], sums=torch.zeros((sums_size(K, m, r),), **f),
+        dl=torch.zeros((n, r), **f), gb=torch.zeros((K, K), **f), met=torch.zeros((num_steps, len(ROW_METRICS)), **f),
+        max_arg=torch.zeros((num_steps,), **f), count=torch.zeros((1,), dtype=torch.int32, device=dev),
+        n_total=n_total, nf=nf, cfg=cfg,
+    )
+    if dev.type == "cuda":
+        mp = (m + 7) // 8 * 8
+        buf.xp = torch.zeros((n, mp), **f)
+        buf.xp[:, :m] = x
+        grid = _grid(dev.index, r, spec.poly_order, K, nf)
+        lib = _lib()
+        buf.work = torch.empty((lib.desmo_step_workspace(n, m, r, K, nf, grid),), **f)
+        off = lib.desmo_step_timer_offset(n, m, r, K, nf, grid)
+        buf.work[off:off + 2 * len(PHASES)] = 0.0
+        buf.ctab = _kernel_table(spec, dev)
+        if nf:
+            buf.tpts = torch.as_tensor(fourier.t_points(m), device=dev)
+    if nf:
+        buf.tw = _tw(m, dev)
+    return buf
+
+
+def step_plain(buf: StepBuffers, spec, rows: bool = True) -> None:
+    """The kernel's function in plain PyTorch, in place on ``buf``: with the
+    counter s > 0 the update of step s - 1 from the summed partials in
+    ``buf.sums`` (the metrics row s - 1, the Adamax of c, phi, B or the
+    series and periods, and omega, the scheduler step), then, with
+    ``rows``, step s's partials (:func:`step_partials_plain`) with gb, dl,
+    the sums and max_arg row s, and the counter advanced. The arithmetic of
+    the update, in order, is the one the chunk ran after each step's
+    partials before the kernel took it over."""
+    cs, x, pod = buf.cs, buf.x, buf.pod
+    s = int(buf.count)
+    m = x.shape[1]
+    r = spec.r
+    K = spec.num_poly_terms + 3 * r
+    nm = float(buf.n_total * m)
+    phi, phi_mu, phi_nu = cs.phi.unbind(0)  # (r, n_loc) each
+    if buf.nf:
+        zc, zc_mu, zc_nu = cs.series.unbind(0)
+        per, per_mu, per_nu = cs.periods.unbind(0)
+    else:
+        bm, b_mu, b_nu = cs.b.unbind(0)
+    c, c_mu, c_nu = cs.coef.unbind(0)
+    om, om_mu, om_nu = cs.omega.unbind(0)
+    sv = cs.svec
+    beta, lam = sv[0, _BETA], sv[0, _LAM]
+    if s > 0:
+        if buf.nf:
+            bm, harmonics, th_b = train_chunk.series_forward(zc, per, buf.tw)
+        offdiag = 1.0 - torch.eye(r, dtype=x.dtype, device=x.device)
+        ax, ga, latg, gcoef, gomega = split_sums(buf.sums, K, m, r)
+        # metrics of the pre-update parameters
+        rec = (torch.sum(ga * buf.gb) - 2.0 * torch.sum(ax * bm) + buf.x_sq) / nm
+        ortho = 0.5 * torch.sum(torch.abs(latg * offdiag))
+        l1 = torch.sum(torch.abs(c))
+        total = rec + beta * ortho + lam * l1
+        buf.met[s - 1] = torch.stack([rec, ortho, l1, total])
+        # the ortho term of phi's gradient, from the summed Gram's sign
+        lat = pod * phi.T
+        g_phi = ((buf.dl + beta * (lat @ (torch.sign(latg) * offdiag))) * pod).T
+        g_coef = gcoef + lam * torch.sign(c)
+        g_b = (2.0 / nm) * (ga @ bm - ax)
+        # Adamax with the LRs in force before this step's scheduler step
+        bias = 1.0 - sv[0, _POW] * B1
+        lrs = sv[0, _LR0:_LR0 + 5].clone()
+        _adamax_(c, c_mu, c_nu, g_coef, lrs[0], bias)
+        _adamax_(phi, phi_mu, phi_nu, g_phi, lrs[1], bias)
+        if buf.nf:
+            g_zc, g_per = train_chunk.series_backward(g_b, zc, per, harmonics, th_b)
+            _adamax_(zc, zc_mu, zc_nu, g_zc, lrs[2], bias)
+            _adamax_(per, per_mu, per_nu, g_per, lrs[4], bias)
+        else:
+            _adamax_(bm, b_mu, b_nu, g_b, lrs[2], bias)
+        _adamax_(om, om_mu, om_nu, gomega, lrs[3], bias)
+        sched_step_(sv, total.reshape(1), buf.cfg)
+    if rows:
+        if buf.nf:
+            bm = train_chunk.series_forward(zc, per, buf.tw)[0]
+        buf.gb.copy_(bm @ bm.T)
+        dl, flat, max_arg = step_partials_plain(pod, x, phi, bm, buf.gb, c, om, spec, buf.n_total)
+        buf.dl.copy_(dl)
+        buf.sums.copy_(flat)
+        buf.max_arg[s] = max_arg[0]
+        buf.count += 1
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("shard_step")
-    lib.desmo_step_grid.argtypes = [ctypes.c_int] * 3
+    lib.desmo_step_grid.argtypes = [ctypes.c_int] * 4
     lib.desmo_step_grid.restype = ctypes.c_int
-    lib.desmo_step_workspace.argtypes = [ctypes.c_int] * 4
+    lib.desmo_step_workspace.argtypes = [ctypes.c_int] * 6
     lib.desmo_step_workspace.restype = ctypes.c_longlong
-    lib.desmo_step_partials.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.desmo_step_partials.restype = ctypes.c_int
+    lib.desmo_step_timer_offset.argtypes = [ctypes.c_int] * 6
+    lib.desmo_step_timer_offset.restype = ctypes.c_longlong
+    lib.desmo_step.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    lib.desmo_step.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _grid(device_index: int, r: int, P: int, K: int) -> int:
+def _grid(device_index: int, r: int, P: int, K: int, nf: int) -> int:
     """Blocks of the cooperative launch on this device: one per SM when one
-    fits there; raises when the device cannot launch it."""
+    fits there; raises when the device cannot launch it. Sets the kernel's
+    shared memory limit on the device, which a launch needs."""
     with torch.cuda.device(device_index):
-        grid = _lib().desmo_step_grid(r, P, K)
+        grid = _lib().desmo_step_grid(r, P, K, nf)
     if grid <= 0:
         raise RuntimeError(
-            "step_partials: no cooperative launch on this device "
+            "shard_step.step: no cooperative launch on this device "
             f"(CUDA error {-grid}: cooperative launch unsupported or no block fits an SM)"
         )
     return grid
 
 
+def kernel_table(spec) -> np.ndarray:
+    """The kernel's int32 table of the shape: the one-seed column table of
+    ``train_chunk.column_table`` (K, 4 + P), then the polynomial backward's
+    lane lists: the offsets ``d_off`` (r + 1) and, for each latent lane j in
+    turn, the entries ``k P + p`` (ascending) whose factor p of polynomial
+    column k is lane j + 1 (K P, zero beyond their count)."""
+    ct = train_chunk.column_table(spec, 1)
+    K, P = ct.shape[0], ct.shape[1] - 4
+    lanes = [[e for e in range(K * P) if ct[e // P, 1] == 0 and ct[e // P, 4 + e % P] == j + 1] for j in range(spec.r)]
+    d_tp = np.zeros(K * P, np.int32)
+    flat = [e for lane in lanes for e in lane]
+    d_tp[:len(flat)] = flat
+    d_off = np.cumsum([0] + [len(lane) for lane in lanes]).astype(np.int32)
+    return np.concatenate([ct.reshape(-1), d_off, d_tp])
+
+
 @functools.cache
-def _column_table(spec, device: torch.device) -> torch.Tensor:
-    """The one-seed column table of ``train_chunk.column_table``, on ``device``."""
-    return torch.as_tensor(train_chunk.column_table(spec, 1), device=device).contiguous()
+def _kernel_table(spec, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(kernel_table(spec), device=device).contiguous()
+
+
+def _launch_args(buf: StepBuffers, spec) -> tuple[tuple, tuple]:
+    """The arguments of ``desmo_step`` before and after its rows flag, from
+    buffers that stay where they are for the chunk."""
+    x, cs, cfg = buf.x, buf.cs, buf.cfg
+    n, m = x.shape
+    r, P = spec.r, spec.poly_order
+    K = spec.num_poly_terms + 3 * r
+    grid = _grid(x.device.index, r, P, K, buf.nf)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    sched = (1, 0.0, 1.0, 0.0) if cfg is None else (int(cfg.sched_every), float(cfg.patience),
+                                                    float(cfg.sched_factor), float(cfg.sched_min_lr))
+    head = (buf.pod.data_ptr(), buf.xp.data_ptr(), buf.x_sq.data_ptr(), buf.ctab.data_ptr(), ptr(buf.tpts),
+            cs.phi.data_ptr(), ptr(cs.b), ptr(cs.series), ptr(cs.periods), cs.coef.data_ptr(), cs.omega.data_ptr(),
+            cs.svec.data_ptr(), buf.sums.data_ptr(), buf.dl.data_ptr(), buf.gb.data_ptr(), buf.met.data_ptr(),
+            buf.max_arg.data_ptr(), buf.count.data_ptr(), buf.work.data_ptr(), n, m, r, P, K, buf.nf, buf.n_total)
+    return head, (sched[0], buf.met.shape[0], grid) + sched[1:]
+
+
+def step(buf: StepBuffers, spec, rows: bool = True) -> None:
+    """One launch of ``csrc/shard_step.cu`` on ``buf`` (in place): the
+    update from the previous step's summed partials when the counter is
+    above 0, then, with ``rows``, this step's partials; the function of
+    :func:`step_plain`, which runs instead for CPU buffers. A launch made
+    while a CUDA graph captures the stream launches nothing and is not
+    counted (:func:`capture`)."""
+    x = buf.x
+    if x.device.type == "cpu":
+        step_plain(buf, spec, rows)
+        return
+    if x.device.type != "cuda" or buf.cs.phi.dtype != torch.float32:
+        raise ValueError(f"shard_step.step: needs float32 buffers on the CPU or a CUDA device, got "
+                         f"{buf.cs.phi.dtype} on {x.device}")
+    if buf.args is None:
+        buf.args = _launch_args(buf, spec)
+    head, tail = buf.args
+    with torch.cuda.device(x.device):
+        rc = _lib().desmo_step(*head, int(rows), *tail, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"shard_step.step: kernel launch failed with CUDA error {rc}")
+    if not torch.cuda.is_current_stream_capturing():
+        step.launches += 1
+
+
+def run_steps(buf: StepBuffers, spec, mesh, num_steps: int) -> None:
+    """A chunk's launches on ``buf``: ``num_steps`` steps, each one launch
+    and one SUM all-reduce of its partials over ``mesh``; then the prologue
+    alone for the last step's update, and one MAX all-reduce of the
+    max_arg rows. On the card the first step runs as it is (its all-reduce
+    sets up the communicator) and the rest replay a CUDA graph of one step
+    (:func:`capture`), each replay counted as the launch it makes; on the
+    CPU the same loop runs the plain versions."""
+    step(buf, spec)
+    mesh.all_reduce(buf.sums, "sum")
+    if buf.x.device.type == "cuda" and num_steps > 1:
+        graph = capture(buf, spec, mesh)
+        for _ in range(num_steps - 1):
+            graph.replay()
+            step.launches += 1
+    else:
+        for _ in range(num_steps - 1):
+            step(buf, spec)
+            mesh.all_reduce(buf.sums, "sum")
+    step(buf, spec, rows=False)
+    mesh.all_reduce(buf.max_arg, "max")
+
+
+def capture(buf: StepBuffers, spec, mesh) -> torch.cuda.CUDAGraph:
+    """A CUDA graph of one step on the card's buffers ``buf``, its launch
+    and the SUM all-reduce of its partials over ``mesh``; each replay runs
+    the next step, as the device counter says. Captured on a side stream,
+    as ``torch.cuda.graph`` captures, without its garbage collection and
+    cache release (tens of ms a chunk). The communicator must have run an
+    all-reduce before; the capture runs no step."""
+    graph, side, main = torch.cuda.CUDAGraph(), torch.cuda.Stream(buf.x.device), torch.cuda.current_stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        step(buf, spec)
+        mesh.all_reduce(buf.sums, "sum")
+        graph.capture_end()
+    main.wait_stream(side)
+    return graph
 
 
 def _check(pod, x, phi, b, gb, coef, omega, spec, n_total: int) -> None:
@@ -163,39 +460,57 @@ def _check(pod, x, phi, b, gb, coef, omega, spec, n_total: int) -> None:
 
 
 def step_partials(pod, x, phi, b, gb, coef, omega, spec, n_total: int):
-    """One step's forward and gradient partials over the rows given, in one
-    launch of ``csrc/shard_step.cu``; the arguments and results of
-    :func:`step_partials_plain`, which runs instead for CPU tensors."""
+    """One step's forward and gradient partials over the rows given, from
+    these parameters (B given as it is, in any form): on the card one launch
+    of :func:`step` with the counter at 0 (the partials alone), which forms
+    B Bᵀ itself; :func:`step_partials_plain`, which takes ``gb`` as given,
+    for CPU tensors. Returns ``(dl, flat, max_arg)``."""
     _check(pod, x, phi, b, gb, coef, omega, spec, n_total)
     if x.device.type == "cpu":
         return step_partials_plain(pod, x, phi, b, gb, coef, omega, spec, n_total)
-    n, m = x.shape
-    r, P = spec.r, spec.poly_order
-    K = spec.num_poly_terms + 3 * r
-    lib = _lib()
-    grid = _grid(x.device.index, r, P, K)
-    with torch.cuda.device(x.device):
-        f32 = dict(dtype=torch.float32, device=x.device)
-        dl = torch.empty((n, r), **f32)
-        flat = torch.empty((K * m + K * K + r * r + K + 3 * r,), **f32)
-        max_arg = torch.empty((1,), **f32)
-        work = torch.empty((lib.desmo_step_workspace(n, r, K, grid),), **f32)
-        ctab = _column_table(spec, x.device)
-        rc = lib.desmo_step_partials(
-            pod.data_ptr(), x.data_ptr(), phi.data_ptr(), b.data_ptr(), gb.data_ptr(), coef.data_ptr(),
-            omega.data_ptr(), ctab.data_ptr(), dl.data_ptr(), flat.data_ptr(), max_arg.data_ptr(), work.data_ptr(),
-            n, m, r, P, K, n_total, grid, torch.cuda.current_stream(x.device).cuda_stream,
+
+    def state(t):
+        return torch.stack([t, torch.zeros_like(t), torch.zeros_like(t)]).contiguous()
+
+    cs = train_chunk.ChunkState(phi=state(phi), coef=state(coef), omega=state(omega), b=state(b),
+                                svec=torch.zeros((1, SVEC), dtype=torch.float32, device=x.device))
+    buf = make_buffers(cs, {"x": x, "pod_modes": pod, "x_sq": torch.zeros((), device=x.device)}, 1, spec, None,
+                       n_total)
+    step(buf, spec)
+    return buf.dl, buf.sums, buf.max_arg
+
+
+def _row_metrics(buf: StepBuffers) -> dict:
+    metrics = {k: buf.met[:, i] for i, k in enumerate(ROW_METRICS)}
+    metrics["max_arg"] = buf.max_arg
+    return metrics
+
+
+def run_chunk(spec, cfg, mesh, state: TrainState, batch: dict, num_steps: int):
+    """One chunk of :func:`make_sharded_fused_chunk` from ``state``; returns
+    ``(state, metrics, buffers)``."""
+    if num_steps < 1:
+        raise ValueError(f"sharded chunk needs num_steps >= 1, got {num_steps}")
+    device_mod.fp32_matmul()
+    r = spec.r
+    x = batch["x"]
+    if tuple(x.shape[1:]) != (spec.m,) or tuple(state.params["phi"].shape) != (r, x.shape[0]):
+        raise ValueError(
+            f"sharded chunk: x {tuple(x.shape)} and phi {tuple(state.params['phi'].shape)} are not this rank's "
+            f"rows of the spec's (n, m) = ({spec.n}, {spec.m})"
         )
-    if rc != 0:
-        raise RuntimeError(f"step_partials: kernel launch failed with CUDA error {rc}")
-    step_partials.launches += 1
-    return dl, flat, max_arg
+    stacked = train_chunk.stack_seed(state)
+    cs = train_chunk.pack_seeds(stacked, [cfg.beta], [cfg.l1_lambda])
+    buf = make_buffers(cs, batch, num_steps, spec, cfg, spec.n)
+    run_steps(buf, spec, mesh, num_steps)
+    out = train_chunk.seed_view(train_chunk.unpack_seeds(cs, stacked, num_steps), 0)
+    return out, _row_metrics(buf), buf
 
 
 def make_sharded_fused_chunk(spec, cfg, mesh) -> ChunkFn:
     """``chunk(state, batch, num_steps) -> (state, metrics)`` running each
-    step as one :func:`step_partials` launch on this rank's rows and an
-    all-reduce over ``mesh`` (``parallel.make_mesh``), the contract of
+    step as one :func:`step` launch on this rank's rows and one all-reduce
+    over ``mesh`` (``parallel.make_mesh``), the contract of
     ``train.fit(chunk=...)``. ``batch`` is this rank's
     (``parallel.shard_batch``): its rows of ``x`` and ``pod_modes``, and the
     global ``x_sq``; ``state`` holds its rows of phi and of phi's moments,
@@ -204,79 +519,37 @@ def make_sharded_fused_chunk(spec, cfg, mesh) -> ChunkFn:
     rank, as is every other part of the state."""
     if not supports_sharded(spec, cfg):
         raise ValueError(f"sharded mega-kernel does not support preset {cfg.name!r}")
-    nf = train_chunk.n_fourier(spec, cfg)
-    r = spec.r
-    T = spec.num_poly_terms
-    K = T + 3 * r
-    n, m = spec.n, spec.m
-    nm = float(n * m)
 
     def chunk(state: TrainState, batch: dict, num_steps: int):
-        if num_steps < 1:
-            raise ValueError(f"sharded chunk needs num_steps >= 1, got {num_steps}")
-        device_mod.fp32_matmul()
-        x, pod, x_sq = batch["x"], batch["pod_modes"], batch["x_sq"]
-        if tuple(x.shape[1:]) != (m,) or tuple(state.params["phi"].shape) != (r, x.shape[0]):
-            raise ValueError(
-                f"sharded chunk: x {tuple(x.shape)} and phi {tuple(state.params['phi'].shape)} are not this rank's "
-                f"rows of the spec's (n, m) = ({n}, {m})"
-            )
-        stacked = train_chunk.stack_seed(state)
-        cs = train_chunk.pack_seeds(stacked, [cfg.beta], [cfg.l1_lambda])
-        phi, phi_mu, phi_nu = cs.phi.unbind(0)  # (r, n_loc) each
-        if nf:
-            zc, zc_mu, zc_nu = cs.series.unbind(0)
-            per, per_mu, per_nu = cs.periods.unbind(0)
-            tw = torch.as_tensor(fourier.TWO_PI * fourier.t_points(m), device=x.device)  # float32 2 pi t
-        else:
-            bm, b_mu, b_nu = cs.b.unbind(0)
-        c, c_mu, c_nu = cs.coef.unbind(0)
-        om, om_mu, om_nu = cs.omega.unbind(0)
-        sv = cs.svec
-        beta, lam = sv[0, _BETA], sv[0, _LAM]
-        offdiag = 1.0 - torch.eye(r, dtype=torch.float32, device=x.device)
-        rows, maxargs = [], []
-        for _ in range(num_steps):
-            if nf:
-                bm, harmonics, th_b = train_chunk.series_forward(zc, per, tw)
-            gb = bm @ bm.T
-            dl, flat, max_arg = step_partials(pod, x, phi, bm, gb, c, om, spec, n)
-            # max_arg is a max over the ranks: reduced before the sum of the rest
-            mesh.all_reduce(max_arg, "max")
-            mesh.all_reduce(flat, "sum")
-            ax, ga, latg, gcoef, gomega = split_sums(flat, K, m, r)
-            # metrics of the pre-update parameters
-            rec = (torch.sum(ga * gb) - 2.0 * torch.sum(ax * bm) + x_sq) / nm
-            ortho = 0.5 * torch.sum(torch.abs(latg * offdiag))
-            l1 = torch.sum(torch.abs(c))
-            total = rec + beta * ortho + lam * l1
-            rows.append(torch.stack([rec, ortho, l1, total]))
-            maxargs.append(max_arg)
-            # the ortho term of phi's gradient, from the summed Gram's sign
-            lat = pod * phi.T
-            g_phi = ((dl + beta * (lat @ (torch.sign(latg) * offdiag))) * pod).T
-            g_coef = gcoef + lam * torch.sign(c)
-            g_b = (2.0 / nm) * (ga @ bm - ax)
-            # Adamax with the LRs in force before this step's scheduler step
-            bias = 1.0 - sv[0, _POW] * B1
-            lrs = sv[0, _LR0:_LR0 + 5].clone()
-            _adamax_(c, c_mu, c_nu, g_coef, lrs[0], bias)
-            _adamax_(phi, phi_mu, phi_nu, g_phi, lrs[1], bias)
-            if nf:
-                g_zc, g_per = train_chunk.series_backward(g_b, zc, per, harmonics, th_b)
-                _adamax_(zc, zc_mu, zc_nu, g_zc, lrs[2], bias)
-                _adamax_(per, per_mu, per_nu, g_per, lrs[4], bias)
-            else:
-                _adamax_(bm, b_mu, b_nu, g_b, lrs[2], bias)
-            _adamax_(om, om_mu, om_nu, gomega, lrs[3], bias)
-            sched_step_(sv, total.reshape(1), cfg)
-        out = train_chunk.seed_view(train_chunk.unpack_seeds(cs, stacked, num_steps), 0)
-        mets = torch.stack(rows)
-        metrics = {k: mets[:, i] for i, k in enumerate(train_chunk.METRICS[:4])}
-        metrics["max_arg"] = torch.cat(maxargs)
+        out, metrics, _ = run_chunk(spec, cfg, mesh, state, batch, num_steps)
         return out, metrics
 
     return chunk
 
 
-step_partials.launches = 0
+def phase_split(spec, cfg, mesh, state: TrainState, batch: dict, num_steps: int) -> dict:
+    """Seconds of a chunk's launches by part (``PHASES``), from the kernel's
+    own clock, summed over its ``num_steps + 1`` launches: block 0's thread
+    reads the card's global timer at each mark, so a part inside a phase is
+    block 0's own time and a phase's last part takes in the wait at its grid
+    barrier. Needs the card; the launches count like any other."""
+    if batch["x"].device.type != "cuda":
+        raise ValueError("phase_split: needs CUDA tensors, the plain version has no phases")
+    return clock(run_chunk(spec, cfg, mesh, state, batch, num_steps)[2], spec)
+
+
+def clock(buf: StepBuffers, spec) -> dict:
+    """Seconds by part (``PHASES``) of the kernel's own clock, summed over
+    every launch on the card's buffers ``buf`` so far (:func:`phase_split`);
+    the sum over the parts is each launch's time from its entry to its end
+    in block 0. Synchronizes with the device."""
+    if buf.work is None:
+        raise ValueError("shard_step.clock: needs the card's buffers, the plain version has no clock")
+    n, m = buf.x.shape
+    r, K = spec.r, spec.num_poly_terms + 3 * spec.r
+    off = _lib().desmo_step_timer_offset(n, m, r, K, buf.nf, _grid(buf.x.device.index, r, spec.poly_order, K, buf.nf))
+    ns = buf.work[off:off + 2 * len(PHASES)].view(torch.int64).cpu().tolist()
+    return {name: t * 1e-9 for name, t in zip(PHASES, ns)}
+
+
+step.launches = 0

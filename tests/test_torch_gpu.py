@@ -457,11 +457,11 @@ def test_step_kernel_matches_plain_version(cuda, preset):
     K = spec.num_poly_terms + 3 * r
     ref32 = shard_step.step_partials_plain(*args, spec, n)
     ref = shard_step.step_partials_plain(*(a.double() for a in args), spec, n)
-    launches = shard_step.step_partials.launches
+    launches = shard_step.step.launches
     first = shard_step.step_partials(*args, spec, n)
     again = shard_step.step_partials(*args, spec, n)
     torch.cuda.synchronize()
-    assert shard_step.step_partials.launches == launches + 2
+    assert shard_step.step.launches == launches + 2
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     for d in (1, 2, 3):
         bounds = [parallel.row_range(n, d, k) for k in range(d)]
@@ -490,11 +490,11 @@ def test_sharded_chunk_matches_mega_kernel(cuda, preset):
         cfg, spec, batch, state = _fourier_problem(cuda, preset, omega_init=1.0, lr_omega=1.0)
     chunk = shard_step.make_sharded_fused_chunk(spec, cfg, mesh)
     local = parallel.shard_batch(batch, mesh)
-    launches = shard_step.step_partials.launches
+    launches = shard_step.step.launches
     s1, m1 = chunk(state, local, 1)
     k1, mk1 = train_chunk.fused_train_chunk(state, batch, 1, spec, cfg)
     torch.cuda.synchronize()
-    assert shard_step.step_partials.launches == launches + 1
+    assert shard_step.step.launches == launches + 2  # the step, then the prologue alone
     for key in train_chunk.METRICS:
         atol = 1e-5 if key == "ortho" else 0.0
         assert (m1[key] - mk1[key]).abs().max() <= 2e-4 * mk1[key].abs().max() + atol, key
@@ -511,14 +511,93 @@ def test_sharded_chunk_matches_mega_kernel(cuda, preset):
 
 def test_runner_over_a_one_rank_mesh(cuda, tmp_path):
     """``runner.run`` over a one-rank NCCL mesh: one step kernel launch per
-    epoch, no other kernel, the exports written."""
+    epoch and one more per chunk, no other kernel, the exports written."""
     mesh = parallel.make_mesh(1, device=cuda)
     cfg = dataclasses.replace(configs.get("cylinder"), checkpoint_every=100)
     x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
-    counters = (shard_step.step_partials, train_chunk.fused_train_chunk, dual_gemm.dual_contractions)
+    counters = (shard_step.step, train_chunk.fused_train_chunk, dual_gemm.dual_contractions)
     for fn in counters:
         fn.launches = 0
     art = runner.run(cfg, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda, device_mesh=mesh)
-    assert [fn.launches for fn in counters] == [300, 0, 0]
+    assert [fn.launches for fn in counters] == [300 + 3, 0, 0]
     assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14
     assert {"state_final.npz", "cylinder_r4_final.pt"} <= {p.name for p in (tmp_path / "cylinder").iterdir()}
+
+
+def _step_buffers(cfg, spec, batch, state, num_steps):
+    cs = train_chunk.pack_seeds(train_chunk.stack_seed(state), [cfg.beta], [cfg.l1_lambda])
+    return shard_step.make_buffers(cs, batch, num_steps, spec, cfg, cfg.n)
+
+
+@pytest.mark.parametrize("preset", ["cylinder", "fourier_cylinder"])
+def test_step_kernel_update_matches_step_plain(cuda, preset):
+    """The step kernel's prologue at the preset's full width (omega_init=1):
+    from the kernel's state after one step, the launch that updates that
+    step and forms the next partials against ``step_plain`` in float64 on
+    the same state and sums: the metrics row within 2e-4 (ortho plus 1e-5
+    absolute), every parameter within 1e-5 of its largest entry, the LRs
+    equal, the next partials within 5e-6 and dl within 1e-5 of their largest
+    entries; two launches from the same buffers give the same bits."""
+    device_mod.fp32_matmul()
+    if preset == "cylinder":
+        cfg, spec, batch, state = _chunk_problem(cuda, 3961, 1001, 4, 3, omega_init=1.0, lr_omega=1.0)
+    else:
+        cfg, spec, batch, state = _fourier_problem(cuda, preset, omega_init=1.0, lr_omega=1.0)
+    K, m, r = spec.num_poly_terms + 3 * cfg.r, cfg.m, cfg.r
+    buf = _step_buffers(cfg, spec, batch, state, 2)
+    shard_step.step(buf, spec)
+    ref = buf.to("cpu", torch.float64)
+    twice = [buf.clone(), buf.clone()]
+    for run in twice:
+        shard_step.step(run, spec)
+    torch.cuda.synchronize()
+    shard_step.step_plain(ref, spec)
+    got = twice[0]
+    for f in ("sums", "dl", "gb", "met", "max_arg", "count"):
+        assert torch.equal(getattr(twice[0], f), getattr(twice[1], f)), f
+    assert int(got.count) == 2
+    for i, key in enumerate(shard_step.ROW_METRICS):
+        atol = 1e-5 if key == "ortho" else 0.0
+        assert abs(float(got.met[0, i]) - float(ref.met[0, i])) <= 2e-4 * abs(float(ref.met[0, i])) + atol, key
+    for f in ("phi", "coef", "omega") + (("series", "periods") if got.nf else ("b",)):
+        g, w = getattr(got.cs, f)[0].double().cpu(), getattr(ref.cs, f)[0]
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max(), f
+    assert torch.equal(got.cs.svec[0, :5].cpu(), ref.cs.svec[0, :5].float())
+    assert (got.dl.double().cpu() - ref.dl).abs().max() <= 1e-5 * ref.dl.abs().max()
+    for name, g, w in zip(("ax", "ga", "latg", "gcoef", "gomega"), shard_step.split_sums(got.sums, K, m, r),
+                          shard_step.split_sums(ref.sums, K, m, r)):
+        assert (g.double().cpu() - w).abs().max() <= 5e-6 * w.abs().max(), name
+
+
+@pytest.mark.parametrize("preset", ["cylinder", "fourier_cylinder"])
+def test_graph_replay_matches_the_uncaptured_loop(cuda, preset):
+    """The chunk's steps replayed from a CUDA graph of one step
+    (``run_steps``) give the bits of the same launches and all-reduces
+    called one by one, over 30 steps on a one-rank NCCL mesh; each replay
+    counts as one launch, and the profiler sees one step kernel a count."""
+    mesh = parallel.make_mesh(1, device=cuda)
+    if preset == "cylinder":
+        cfg, spec, batch, state = _chunk_problem(cuda, 3961, 1001, 4, 3)
+    else:
+        cfg, spec, batch, state = _fourier_problem(cuda, preset)
+    local = parallel.shard_batch(batch, mesh)
+    steps = 30
+    graph = _step_buffers(cfg, spec, local, state, steps)
+    launches = shard_step.step.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        shard_step.run_steps(graph, spec, mesh, steps)
+        torch.cuda.synchronize()
+    assert shard_step.step.launches == launches + steps + 1
+    assert sum(e.count for e in prof.key_averages() if "step_kernel" in e.key) == steps + 1
+    loop = _step_buffers(cfg, spec, local, state, steps)
+    for _ in range(steps):
+        shard_step.step(loop, spec)
+        mesh.all_reduce(loop.sums, "sum")
+    shard_step.step(loop, spec, rows=False)
+    mesh.all_reduce(loop.max_arg, "max")
+    torch.cuda.synchronize()
+    for f in ("sums", "dl", "gb", "met", "max_arg", "count"):
+        assert torch.equal(getattr(graph, f), getattr(loop, f)), f
+    for f in ("phi", "coef", "omega", "svec") + (("series", "periods") if graph.nf else ("b",)):
+        assert torch.equal(getattr(graph.cs, f), getattr(loop.cs, f)), f
+    assert bool(torch.isfinite(graph.met).all()) and int(graph.count) == steps

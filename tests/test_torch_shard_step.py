@@ -11,13 +11,19 @@
   the replicated state is bit-equal on every rank.
 - ``step_partials_plain`` on uneven shards against the whole rows and a
   float64 reference, and the traps of the row split: ``dA`` normalised by
-  the global n m, ``max_arg`` reduced with MAX before the SUM of the rest,
-  the ortho term's sign from the summed latent Gram.
+  the global n m, ``max_arg`` reduced with MAX (once a chunk, apart from
+  the one SUM a step), the ortho term's sign from the summed latent Gram.
+- The plain chunk (``step_plain``: the update of the previous step, then
+  the partials) against the order the chunk had before the kernel took the
+  update over (the partials, then the update), bit for bit.
 - ``supports_sharded`` against the reference's.
 - ``runner.run`` and the CLI over a mesh, and what they refuse.
 - The CUDA source (``csrc/shard_step.cu``) compiled by the host compiler and
   run on an emulated cooperative grid, whole and in uneven shards, against
-  ``step_partials_plain``.
+  ``step_plain``: the partials alone, the update of the previous step
+  followed by the partials, and the update alone (``rows=False``), desmo
+  and Fourier; and its routines marked as copies of ``csrc/train_chunk.cu``'s
+  the same text as their counterparts there.
 
 The CUDA kernel itself is held against its plain version on the card by
 ``tests/test_torch_gpu.py``.
@@ -27,6 +33,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -307,8 +314,10 @@ def test_ortho_sign_comes_from_the_summed_gram(mesh1, clusters):
 
 
 def test_max_arg_is_reduced_with_max_before_the_sum(mesh1):
-    """Trap 2: each step's first all-reduce is max_arg's, with MAX; then one
-    SUM of the other partials."""
+    """Trap 2: max_arg is a max over the ranks, never part of the SUM: each
+    step makes one SUM all-reduce of its partials, and the chunk one MAX
+    all-reduce of its (num_steps,) max_arg rows at its end (the values of
+    the reference's per-step pmax)."""
     calls = []
 
     class Recording(parallel.SpaceMesh):
@@ -319,10 +328,11 @@ def test_max_arg_is_reduced_with_max_before_the_sum(mesh1):
     rec = Recording(mesh1.group, mesh1.rank, mesh1.size, mesh1.device)
     cfg, x, modes, params = problem("desmo")
     chunk = shard_step.make_sharded_fused_chunk(port_spec(cfg), cfg, rec)
-    chunk(train.init_state(checkpoint.params_from_jax(params, "cpu"), cfg), port_batch(x, modes), 2)
+    _, mets = chunk(train.init_state(checkpoint.params_from_jax(params, "cpu"), cfg), port_batch(x, modes), 2)
     K = port_spec(cfg).num_poly_terms + 3 * cfg.r
     flat = K * cfg.m + K * K + cfg.r * cfg.r + K + 3 * cfg.r
-    assert calls == [("max", 1), ("sum", flat)] * 2
+    assert calls == [("sum", flat)] * 2 + [("max", 2)]
+    assert mets["max_arg"].shape == (2,) and bool((mets["max_arg"] > 0).all())
 
 
 def _random_inputs(n, m, r, P, seed, dtype=torch.float32):
@@ -393,14 +403,25 @@ def test_normalisation_is_by_the_global_row_count():
 
 def test_wrapper_rejects_malformed_inputs_and_counts_no_cpu_launch():
     spec, args = _random_inputs(40, 12, 2, 2, seed=1)
-    before = shard_step.step_partials.launches
+    before = shard_step.step.launches
     shard_step.step_partials(*args, spec, 40)
-    assert shard_step.step_partials.launches == before == 0
+    assert shard_step.step.launches == before == 0
     pod, x, phi, b, gb, c, om = args
     for bad in ((pod, x.double(), phi, b, gb, c, om), (pod, x, phi.T.contiguous().T, b, gb, c, om),
                 (pod, x, phi, b[:-1], gb, c, om), (pod, x, phi, b, gb, c, om[:-1])):
         with pytest.raises(ValueError):
             shard_step.step_partials(*bad, spec, 40)
+
+
+def test_clock_and_phase_split_need_the_card():
+    """The kernel's clock lives in the card's scratch: ``clock`` on buffers
+    the plain version uses, and ``phase_split`` on CPU tensors, raise."""
+    spec, cfg, cs, batch = emulated_state(24, 8, 2, 2, 0, seed=3)
+    buf = shard_step.make_buffers(cs, batch, 2, spec, cfg, 24)
+    with pytest.raises(ValueError, match="needs the card's buffers"):
+        shard_step.clock(buf, spec)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        shard_step.phase_split(spec, cfg, None, None, batch, 2)
 
 
 @pytest.mark.parametrize("r, P", [(2, 2), (4, 3), (4, 4), (8, 2), (8, 3), (9, 1)])
@@ -490,6 +511,158 @@ def test_megakernel_on_an_unsupported_preset_raises(mesh1, tmp_path):
         runner.run(cfg, synthetic.cylinder_wake(40, 20), out_dir=str(tmp_path), device="cpu", device_mesh=mesh1)
 
 
+def pre_kernel_order_chunk(spec, cfg, mesh, state, batch, num_steps):
+    """The sharded chunk in the order it ran before the step kernel took the
+    replicated update over: each step's partials (the plain version), then
+    max_arg all-reduced with MAX and the partials with SUM, then the update,
+    with PyTorch operations on the host."""
+    from desmo_tpu_torch.kernels._chunk_optim import _BETA, _LAM, _LR0, _POW, B1, _adamax_, sched_step_
+
+    nf = train_chunk.n_fourier(spec, cfg)
+    r = spec.r
+    K = spec.num_poly_terms + 3 * r
+    n, m = spec.n, spec.m
+    nm = float(n * m)
+    x, pod, x_sq = batch["x"], batch["pod_modes"], batch["x_sq"]
+    stacked = train_chunk.stack_seed(state)
+    cs = train_chunk.pack_seeds(stacked, [cfg.beta], [cfg.l1_lambda])
+    phi, phi_mu, phi_nu = cs.phi.unbind(0)
+    if nf:
+        zc, zc_mu, zc_nu = cs.series.unbind(0)
+        per, per_mu, per_nu = cs.periods.unbind(0)
+        tw = torch.as_tensor(fourier.TWO_PI * fourier.t_points(m), device=x.device)
+    else:
+        bm, b_mu, b_nu = cs.b.unbind(0)
+    c, c_mu, c_nu = cs.coef.unbind(0)
+    om, om_mu, om_nu = cs.omega.unbind(0)
+    sv = cs.svec
+    beta, lam = sv[0, _BETA], sv[0, _LAM]
+    offdiag = 1.0 - torch.eye(r, dtype=torch.float32, device=x.device)
+    rows, maxargs = [], []
+    for _ in range(num_steps):
+        if nf:
+            bm, harmonics, th_b = train_chunk.series_forward(zc, per, tw)
+        gb = bm @ bm.T
+        dl, flat, max_arg = shard_step.step_partials_plain(pod, x, phi, bm, gb, c, om, spec, n)
+        mesh.all_reduce(max_arg, "max")
+        mesh.all_reduce(flat, "sum")
+        ax, ga, latg, gcoef, gomega = shard_step.split_sums(flat, K, m, r)
+        rec = (torch.sum(ga * gb) - 2.0 * torch.sum(ax * bm) + x_sq) / nm
+        ortho = 0.5 * torch.sum(torch.abs(latg * offdiag))
+        l1 = torch.sum(torch.abs(c))
+        total = rec + beta * ortho + lam * l1
+        rows.append(torch.stack([rec, ortho, l1, total]))
+        maxargs.append(max_arg)
+        lat = pod * phi.T
+        g_phi = ((dl + beta * (lat @ (torch.sign(latg) * offdiag))) * pod).T
+        g_coef = gcoef + lam * torch.sign(c)
+        g_b = (2.0 / nm) * (ga @ bm - ax)
+        bias = 1.0 - sv[0, _POW] * B1
+        lrs = sv[0, _LR0:_LR0 + 5].clone()
+        _adamax_(c, c_mu, c_nu, g_coef, lrs[0], bias)
+        _adamax_(phi, phi_mu, phi_nu, g_phi, lrs[1], bias)
+        if nf:
+            g_zc, g_per = train_chunk.series_backward(g_b, zc, per, harmonics, th_b)
+            _adamax_(zc, zc_mu, zc_nu, g_zc, lrs[2], bias)
+            _adamax_(per, per_mu, per_nu, g_per, lrs[4], bias)
+        else:
+            _adamax_(bm, b_mu, b_nu, g_b, lrs[2], bias)
+        _adamax_(om, om_mu, om_nu, gomega, lrs[3], bias)
+        sched_step_(sv, total.reshape(1), cfg)
+    out = train_chunk.seed_view(train_chunk.unpack_seeds(cs, stacked, num_steps), 0)
+    mets = torch.stack(rows)
+    metrics = {k: mets[:, i] for i, k in enumerate(train_chunk.METRICS[:4])}
+    metrics["max_arg"] = torch.cat(maxargs)
+    return out, metrics
+
+
+@pytest.mark.parametrize("variant", ["desmo", "fourier"])
+def test_plain_chunk_equals_the_pre_kernel_order(mesh1, variant):
+    """The chunk's plain path, each launch the update of the previous step
+    and then the partials (``step_plain``), one SUM a step and one MAX a
+    chunk, equals the order it had before (each step's partials, MAX and
+    SUM, then the update) bit for bit: state, metrics and scheduler, over a
+    12-step chunk in which the scheduler cuts the LRs."""
+    cfg, x, modes, params = problem(variant)
+    cfg = dataclasses.replace(cfg, patience=2)
+    spec = port_spec(cfg)
+    state = train.init_state(checkpoint.params_from_jax(params, "cpu"), cfg)
+    # best below any total: the scheduler counts bad epochs and cuts the LRs
+    state = dataclasses.replace(state, sched=dataclasses.replace(state.sched, best=torch.tensor(0.0)))
+    got, got_m = shard_step.make_sharded_fused_chunk(spec, cfg, mesh1)(state, port_batch(x, modes), 12)
+    want, want_m = pre_kernel_order_chunk(spec, cfg, mesh1, state, port_batch(x, modes), 12)
+    for tree in ("params", "mu", "nu"):
+        for key, v in getattr(want, tree).items():
+            np.testing.assert_array_equal(getattr(got, tree)[key].numpy(), v.numpy(), err_msg=f"{tree}/{key}")
+    for key in train_chunk.METRICS:
+        np.testing.assert_array_equal(got_m[key].numpy(), want_m[key].numpy(), err_msg=key)
+    for key in ("lrs", "best", "num_bad"):
+        np.testing.assert_array_equal(getattr(got.sched, key).numpy(), getattr(want.sched, key).numpy(), err_msg=key)
+    assert (got.count, got.epoch) == (want.count, want.epoch) == (12, 12)
+    assert bool((want.sched.lrs < state.sched.lrs).any())  # the plateau scheduler stepped the LRs
+
+
+@pytest.mark.parametrize("r, P", [(2, 2), (4, 3), (4, 4), (5, 2)])
+def test_kernel_table_lists_each_lanes_factors(r, P):
+    """The step kernel's table: the one-seed column table, then for each
+    latent lane j the entries k P + p (ascending) whose factor p of a
+    polynomial column k is lane j + 1, which the polynomial backward walks;
+    every factor that is not the constant lane 0 is listed once."""
+    spec = desmo.DesmoSpec(40, 12, r, P, 1.0)
+    ct = train_chunk.column_table(spec, 1)
+    K, T = ct.shape[0], spec.num_poly_terms
+    table = shard_step.kernel_table(spec)
+    assert table.dtype == np.int32 and table.shape == (ct.size + r + 1 + K * P,)
+    np.testing.assert_array_equal(table[:ct.size], ct.reshape(-1))
+    d_off, d_tp = table[ct.size:ct.size + r + 1], table[ct.size + r + 1:]
+    for j in range(r):
+        entries = d_tp[d_off[j]:d_off[j + 1]]
+        assert list(entries) == sorted(entries)
+        assert all(ct[e // P, 4 + e % P] == j + 1 and e // P < T for e in entries)
+    assert d_off[r] == int((ct[:T, 4:] > 0).sum())
+
+
+def cuda_definition(src: str, name: str) -> str:
+    """The top-level definition of the constant, function or struct ``name``
+    in a CUDA source, a function's template line included, without comments
+    and with each run of whitespace one space."""
+    constant = re.search(rf"^constexpr int {name} = [^;]*;", src, re.M)
+    if constant:
+        return re.sub(r"\s+", " ", constant.group(0))
+    found = re.search(rf"^(?:template <[^\n]*>\n)?(?:struct {name}\b|[A-Za-z_][^\n(;]*\b{name}\s*\()", src, re.M)
+    assert found, f"no definition of {name}"
+    depth, end = 0, src.index("{", found.end())
+    for end in range(end, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        if depth == 0:
+            break
+    return re.sub(r"\s+", " ", re.sub(r"//[^\n]*", "", src[found.start():end + 1])).strip()
+
+
+# the step kernel's routines that copy the mega-kernel's unchanged (the
+# others are marked "(one seed)" or take the step's own phases)
+VERBATIM_COPIES = (
+    "kXbGroups", "kXbSplit", "kXbChunk", "kXbLd", "xb_stages", "xb_ring_floats", "xb_tile", "kMaxTiles", "kAxRows",
+    "kAxLdX", "kAxTilesN", "kAxMaxWidth", "ax_ld_a", "ax_ring_floats", "AxSplit", "ax_split", "ax_partial",
+    "ax_partials", "adamax", "block_sum", "block_max", "reduce_partials", "series_angle", "series_value",
+    "series_partial", "store_series",
+)
+
+
+@pytest.mark.parametrize("name", VERBATIM_COPIES)
+def test_step_kernel_copies_the_mega_kernels_routine(name):
+    """Each routine of ``csrc/shard_step.cu`` that copies its counterpart in
+    ``csrc/train_chunk.cu`` unchanged is marked so there and has the same
+    text, comments and spacing aside: the sharded chunk equals the
+    mega-kernel bit for bit on one rank only while the copies stay the
+    same."""
+    step_src = (_build.CSRC / "shard_step.cu").read_text()
+    chunk_src = (_build.CSRC / "train_chunk.cu").read_text()
+    marked = rf"as train_chunk\.cu(?:[^\n]*\n//)*?[^\n]*\b{name}\b"  # in the comment that starts so
+    assert re.search(marked, step_src), f"{name} is not marked as a copy"
+    assert cuda_definition(step_src, name) == cuda_definition(chunk_src, name)
+
+
 EMULATION = HERE / "cuda_emulation" / "cooperative"
 
 
@@ -497,7 +670,9 @@ EMULATION = HERE / "cuda_emulation" / "cooperative"
 def emulated_shard_step(tmp_path_factory):
     """``csrc/shard_step.cu`` compiled by the host C++ compiler against
     ``tests/cuda_emulation/cooperative``: every block's threads run at once,
-    ``this_grid().sync()`` is a barrier over all of them."""
+    ``this_grid().sync()`` is a barrier over all of them; the tile headers
+    from ``desmo_tpu_torch/csrc``, ``cp.async`` and ``mma.sync`` from
+    ``tests/cuda_emulation/mma_emulated.h``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the CUDA source for the emulated grid")
@@ -505,26 +680,149 @@ def emulated_shard_step(tmp_path_factory):
     cpp = out / "shard_step_emulated.cpp"
     cpp.write_text((_build.CSRC / "shard_step.cu").read_text() + '\n#include "shard_harness.inc"\n')
     exe = out / "shard_step_emulated"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), str(cpp), "-o", str(exe)],
-                   check=True, capture_output=True, timeout=240)
+    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I", str(EMULATION), "-I", str(_build.CSRC), str(cpp),
+                    "-o", str(exe)], check=True, capture_output=True, timeout=240)
     return exe
 
 
-def run_emulated(exe, tmp_path, args, spec, n_total, grid):
-    """One launch of the CUDA source on an emulated grid of ``grid`` blocks;
-    returns ``(dl, flat, max_arg)`` as numpy."""
-    pod, x = args[0], args[1]
-    n, m = x.shape
+def emulated_state(n, m, r, P, nf, seed):
+    """A one-seed state with Adamax moments under way, its scheduler set to
+    cut the LRs at the next step (patience 0, best below any total), and a
+    batch, all float32 from numpy's generator: ``(spec, cfg, cs, batch)``."""
+    from desmo_tpu_torch.kernels._chunk_optim import B1, SVEC
+
+    rng = np.random.default_rng(seed)
+    spec = fourier.FourierSpec(n, m, r, P, 1.0, nf, float(m)) if nf else desmo.DesmoSpec(n, m, r, P, 1.0)
+    K = spec.num_poly_terms + 3 * r
+
+    def f(*shape, scale=1.0, offset=0.0):
+        return torch.as_tensor((offset + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    def moments(t):
+        return torch.stack([t, 0.01 * t.abs(), 0.1 + t.abs()]).contiguous()
+
+    temporal = (dict(series=moments(f(K, 2 * nf + 1, scale=0.3)), periods=moments(m * (1.0 + 0.2 * f(K).abs())))
+                if nf else dict(b=moments(f(K, m, scale=0.5))))
+    cfg = configs.RunConfig(name="emulated", variant="fourier" if nf else "desmo", n=n, m=m, r=r, poly_order=P,
+                            patience=0, sched_every=1)
+    svec = torch.zeros((1, SVEC))
+    svec[0, :5] = torch.tensor([1e-3, 2e-3, 3e-3, 4e-3, 5e-3])
+    svec[0, 5:12] = torch.tensor([-1.0, B1 ** 3, 3.0, 0.0, 3.0, 0.5, 1e-3])  # best, b1^count, count, num_bad, epoch, beta, lam
+    cs = train_chunk.ChunkState(phi=moments(f(r, n, scale=0.1, offset=1.0)), coef=moments(f(K, scale=0.5)),
+                                omega=moments(f(3 * r)), svec=svec, **temporal)
+    x = f(n, m)
+    return spec, cfg, cs, {"x": x, "pod_modes": f(n, r, scale=0.3), "x_sq": torch.sum(x * x)}
+
+
+def run_emulated(exe, tmp_path, buf, spec, grid, rows=True):
+    """One launch of the CUDA source on an emulated grid of ``grid`` blocks
+    from the CPU buffers ``buf`` (``shard_step.StepBuffers``, float32);
+    returns a new ``StepBuffers`` holding what the launch left."""
+    out = buf.to("cpu", torch.float32)
+    cs, cfg = out.cs, out.cfg
+    n, m = buf.x.shape
     r, P, K = spec.r, spec.poly_order, spec.num_poly_terms + 3 * spec.r
-    header = np.array([n, m, r, P, K, n_total, grid], np.int32)
-    arrays = [a.numpy() for a in args] + [train_chunk.column_table(spec, 1)]
+    header = np.array([n, m, r, P, K, buf.n_total, grid, buf.nf, buf.met.shape[0], int(rows), cfg.sched_every],
+                      np.int32)
+    floats = np.array([cfg.patience, cfg.sched_factor, cfg.sched_min_lr, float(buf.x_sq)], np.float32)
+    state = [cs.phi] + ([cs.series, cs.periods] if buf.nf else [cs.b])
+    tail = [cs.coef, cs.omega, cs.svec, out.sums, out.dl, out.gb, out.met, out.max_arg]
+    inputs = ([out.pod, out.x, torch.as_tensor(shard_step.kernel_table(spec)), cs.phi]
+              + ([torch.as_tensor(fourier.t_points(m)), cs.series, cs.periods] if buf.nf else [cs.b])
+              + tail + [out.count])
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
-    src.write_bytes(header.tobytes() + b"".join(np.ascontiguousarray(a).tobytes() for a in arrays))
+    src.write_bytes(header.tobytes() + floats.tobytes() + b"".join(t.numpy().tobytes() for t in inputs))
     proc = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    out = np.fromfile(dst, np.float32)
-    assert out.size == n * r + K * m + K * K + r * r + K + 3 * r + 1
-    return out[:n * r].reshape(n, r), out[n * r:-1], out[-1:]
+    raw = np.fromfile(dst, np.float32)
+    o = 0
+    for t in state + tail:
+        t.copy_(torch.from_numpy(raw[o:o + t.numel()].copy()).view(t.shape))
+        o += t.numel()
+    assert raw.size == o + 1
+    out.count.copy_(torch.from_numpy(raw[o:].view(np.int32).copy()))
+    return out
+
+
+def shard_of(buf, lo, hi):
+    """Rows [lo, hi) of the buffers, as a rank holding them would: its rows
+    of X, the POD modes, phi with its moments and dl; the rest copied."""
+    out = buf.to("cpu", torch.float32)
+    out.cs.phi = out.cs.phi[:, :, lo:hi].contiguous()
+    out.pod, out.x, out.dl = out.pod[lo:hi].contiguous(), out.x[lo:hi].contiguous(), out.dl[lo:hi].contiguous()
+    return out
+
+
+def temporal_state(buf):
+    return [buf.cs.series, buf.cs.periods] if buf.nf else [buf.cs.b]
+
+
+def assert_close(got, want, rtol, what):
+    """Each part of ``got`` within ``rtol`` of the largest entry of its ``want``."""
+    for name, g, w in zip(what, got, want):
+        assert float((g.double() - w.double()).abs().max()) <= rtol * float(w.abs().max()), name
+
+
+def check_emulated_step(exe, tmp_path, spec, cfg, cs, batch):
+    """The CUDA source on emulated grids against ``step_plain``, each part to
+    2e-6 of its largest entry (the same fp32 arithmetic in another
+    summation order), max_arg exactly: four blocks over all rows, and three
+    over each of three uneven shards (partials summed as the ranks' SUM
+    would sum them), for the partials alone from the state (counter 0),
+    then the update of that step followed by the next partials (counter 1),
+    and over all rows the update alone (``rows=False``). The replicated
+    state that the shards' launches leave is the same bits in each."""
+    n, m = batch["x"].shape
+    r, K = spec.r, spec.num_poly_terms + 3 * spec.r
+    buf = shard_step.make_buffers(cs, batch, 2, spec, cfg, n)
+    bounds = _bounds(n, 3)
+    sums_names = ("ax", "ga", "latg", "gcoef", "gomega")
+    first = buf.to("cpu", torch.float32)
+    shard_step.step_plain(first, spec)
+    second = first.to("cpu", torch.float32)
+    shard_step.step_plain(second, spec)
+    for start, ref in ((buf, first), (first, second)):
+        whole_run = run_emulated(exe, tmp_path, start, spec, grid=4)
+        parts = [run_emulated(exe, tmp_path, shard_of(start, lo, hi), spec, grid=3) for lo, hi in bounds]
+        s = int(start.count)
+        summed = (torch.cat([p.dl for p in parts]), sum(p.sums for p in parts),
+                  max(float(p.max_arg[s]) for p in parts), torch.cat([p.cs.phi for p in parts], dim=2))
+        for dl, sums, max_arg, phi in ((whole_run.dl, whole_run.sums, float(whole_run.max_arg[s]), whole_run.cs.phi),
+                                       summed):
+            assert bool(torch.isfinite(sums).all()) and bool(torch.isfinite(dl).all())
+            assert_close([dl, phi[0], phi[1], phi[2]], [ref.dl, ref.cs.phi[0], ref.cs.phi[1], ref.cs.phi[2]], 2e-6,
+                         ("dl", "phi", "phi_mu", "phi_nu"))
+            assert_close(shard_step.split_sums(sums, K, m, r), shard_step.split_sums(ref.sums, K, m, r), 2e-6,
+                         sums_names)
+            assert max_arg == float(ref.max_arg[s])
+        replicated = [whole_run] + parts
+        for run in replicated:
+            assert int(run.count) == s + 1
+            assert_close([run.gb], [ref.gb], 2e-6, ["gb"])
+            state = [run.cs.coef, run.cs.omega] + temporal_state(run)
+            assert_close([t[i] for t in state for i in range(3)], [t[i] for t in [ref.cs.coef, ref.cs.omega]
+                                                                   + temporal_state(ref) for i in range(3)],
+                         2e-6, [f"state {k}" for k in range(3 * len(state))])
+            np.testing.assert_allclose(run.cs.svec.numpy(), ref.cs.svec.numpy(), rtol=2e-6)
+            if s:
+                np.testing.assert_allclose(run.met[s - 1].numpy(), ref.met[s - 1].numpy(), rtol=2e-6, atol=1e-12)
+        for run in parts:
+            for got, want in ((run.cs.coef, parts[0].cs.coef), (run.cs.omega, parts[0].cs.omega),
+                              (run.cs.svec, parts[0].cs.svec), (run.met, parts[0].met), (run.gb, parts[0].gb)):
+                assert torch.equal(got, want)
+            for got, want in zip(temporal_state(run), temporal_state(parts[0])):
+                assert torch.equal(got, want)
+    assert bool((second.cs.svec[0, :5] < first.cs.svec[0, :5]).all())  # the update cut the LRs
+    # the update alone, as the chunk's last launch runs it
+    ref = first.to("cpu", torch.float32)
+    shard_step.step_plain(ref, spec, rows=False)
+    alone = run_emulated(exe, tmp_path, first, spec, grid=3, rows=False)
+    assert int(alone.count) == 1 and torch.equal(alone.sums, first.sums) and torch.equal(alone.dl, first.dl)
+    np.testing.assert_allclose(alone.met[0].numpy(), ref.met[0].numpy(), rtol=2e-6, atol=1e-12)
+    state, want = [alone.cs.phi, alone.cs.coef, alone.cs.omega] + temporal_state(alone), [
+        ref.cs.phi, ref.cs.coef, ref.cs.omega] + temporal_state(ref)
+    assert_close([t[0] for t in state], [t[0] for t in want], 2e-6, [f"param {k}" for k in range(len(state))])
+    np.testing.assert_allclose(alone.cs.svec.numpy(), ref.cs.svec.numpy(), rtol=2e-6)
 
 
 @pytest.mark.parametrize(
@@ -538,20 +836,20 @@ def run_emulated(exe, tmp_path, args, spec, n_total, grid):
     ],
 )
 def test_cuda_source_on_emulated_grid(emulated_shard_step, tmp_path, n, m, r, P):
-    """Four emulated blocks over all rows, and three over each of three
-    uneven shards with their partials summed, against the plain version:
-    the same fp32 arithmetic in another summation order, each part held to
-    2e-6 of its largest entry; max_arg exactly."""
-    spec, args = _random_inputs(n, m, r, P, seed=n + m)
-    K = spec.num_poly_terms + 3 * r
-    ref = shard_step.step_partials_plain(*args, spec, n)
-    got = run_emulated(emulated_shard_step, tmp_path, args, spec, n, grid=4)
-    parts = [run_emulated(emulated_shard_step, tmp_path, a, spec, n, grid=3) for a in _shards(args, _bounds(n, 3))]
-    summed = (np.concatenate([p[0] for p in parts]), sum(p[1] for p in parts), max(p[2] for p in parts))
-    for dl, flat, max_arg in (got, summed):
-        assert np.isfinite(flat).all() and np.isfinite(dl).all()
-        assert np.abs(dl - ref[0].numpy()).max() <= 2e-6 * float(ref[0].abs().max())
-        for name, g, w in zip(("ax", "ga", "latg", "gcoef", "gomega"),
-                              shard_step.split_sums(torch.as_tensor(flat), K, m, r), shard_step.split_sums(ref[1], K, m, r)):
-            assert float((g - w).abs().max()) <= 2e-6 * float(w.abs().max()), name
-        assert float(max_arg[0]) == float(ref[2])
+    """The desmo form of the step kernel on emulated grids against
+    ``step_plain`` (``check_emulated_step``)."""
+    check_emulated_step(emulated_shard_step, tmp_path, *emulated_state(n, m, r, P, 0, seed=n + m))
+
+
+@pytest.mark.parametrize(
+    "n, m, r, P, nf",
+    [
+        (64, 24, 2, 2, 3),  # the fourier_cylinder regime's K=12 at nF=3
+        (37, 9, 4, 3, 10),  # K=47, ragged rows, a block with no columns, fourier_cylinder's nF
+    ],
+)
+def test_fourier_cuda_source_on_emulated_grid(emulated_shard_step, tmp_path, n, m, r, P, nf):
+    """The Fourier form of the step kernel (B from the series in the
+    prologue, the series and periods stepped through the series backward)
+    on emulated grids against ``step_plain`` (``check_emulated_step``)."""
+    check_emulated_step(emulated_shard_step, tmp_path, *emulated_state(n, m, r, P, nf, seed=n + m + nf))
