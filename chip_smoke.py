@@ -34,7 +34,14 @@ presets at full width on synthetic data through ``runner.run``:
   more launch a chunk for its last update. Before it the step kernel is
   held against its plain version: the partials over all rows and
   over 2 and 3 uneven shards with their partials summed, and the update;
-  and the sharded chunk against the mega-kernel.
+  and the sharded chunk against the mega-kernel;
+- the space-sharded path with packed seeds (``runner.run`` with
+  ``n_seeds`` over the same mesh, ``ensemble.fit(device_mesh=...)``):
+  aneurysm with 4 seeds and fourier_cylinder with 8, 4,000 epochs each,
+  through the step kernel's packed form; before it the packed step kernel
+  is held against its plain version in float64 (the partials over 1-3
+  shards, the update, the update alone, a NaN seed), and the sharded packed
+  chunk against the packed mega-kernel.
 
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels build without spills (checked from ``-Xptxas -v``), and
@@ -42,7 +49,7 @@ the dual contraction is also held to float64 (5e-6 of max|ref|) at the
 eager losses' three shapes, and gives the same bits on X as a view with
 16-byte rows. Then it times each kernel (the dual contraction beside the
 two cuBLAS products of its plain version, the mega-kernel in its four
-forms, the AE kernel, the step kernel)
+forms, the AE kernel, the step kernel in its one-seed and packed forms)
 against its plain version in turns, beside its bound (fp32, and 3xTF32 for
 the kernels on the tensor cores), and splits the mega-kernel's and the AE
 kernel's and the step kernel's time by phase with the kernels' own
@@ -76,6 +83,9 @@ TIMED_STEPS = 50
 AE_EAGER_EPOCHS = 100
 SHARDED_EPOCHS = 4_000
 SHARDED_FOURIER_EPOCHS = 4_000
+# the packed sharded slice: two of the presets' 2,000-epoch chunks, so that
+# ensemble.fit times the second
+PACKED_SHARDED_EPOCHS = 4_000
 # the step kernel against its plain version evaluated in float64: the dual
 # contraction's contract on every summed partial, and dl. The plain version
 # in float32 is no yardstick here: cuBLAS sums AᵀX over n in one long chain,
@@ -84,6 +94,14 @@ SHARDED_FOURIER_EPOCHS = 4_000
 # fourier_cylinder; the kernel 8.9e-7)
 STEP_RTOL = 5e-6
 STEP_DL_RTOL = 1e-5
+# the packed step kernel at the reference init of aneurysm S=4 (n=27000):
+# B is all ones there, so X·Bᵀ is X's row sums, which cancel to rounding;
+# float32 itself misses STEP_RTOL on AᵀX's constant row (the float32 plain
+# version 1.9e-5 of max|AᵀX|), and the kernel's gomega, for each column one
+# fmaf chain over a block's ~205 rows of same-signed terms, reaches 1.7e-5
+# (the float32 plain, a tree over all rows, 2.1e-7); after 200 epochs both
+# are within STEP_RTOL (measured on the H100)
+STEP_INIT_RTOL = 5e-5
 # kernel vs plain: 3xTF32 tiles against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
 # the dual contraction against float64 at the eager losses' shapes (cylinder,
@@ -159,11 +177,12 @@ def kernel_forms(log: str) -> list[tuple[str, int, int, int]]:
             mangled = entry.group(1)
             chunk = re.search(r"train_chunk_kernelILi(\d+)ELb([01])E", mangled)
             probe = re.search(r"contract_probe_kernelILi(\d+)E", mangled)
-            step = re.search(r"step_kernelILi(\d+)ELb([01])E", mangled)
+            step = re.search(r"step_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
             dual = re.search(r"dual_kernelILi(\d+)E", mangled)
             other = re.search(r"(reduce_parts_kernel|ae_chunk_kernel)", mangled)
             name = (f"{'Fourier' if chunk.group(2) == '1' else 'desmo'} KP={chunk.group(1)}" if chunk
-                    else f"step {'Fourier' if step.group(2) == '1' else 'desmo'} KP={step.group(1)}" if step
+                    else f"step {'Fourier' if step.group(2) == '1' else 'desmo'}"
+                         f"{' packed' if step.group(3) == '1' else ''} KP={step.group(1)}" if step
                     else f"probe KP={probe.group(1)}" if probe else f"dual KP={dual.group(1)}" if dual
                     else other.group(1) if other else mangled)
             continue
@@ -205,26 +224,30 @@ def ae_flops(n: int, m: int, k: int) -> float:
             + 2 * 256 * 256 * m + 4 * n * m * k + 2 * n * k * k + n * k * (k + 1) + m * k * (k + 1))
 
 
-def step_flops(n: int, m: int, k: int, nf: int = 0) -> float:
-    """Operations of one launch of the step kernel over n rows: the update
-    and the partials of one step, the work of one mega-kernel epoch
-    (``chunk_flops``): AᵀX and XBᵀ (2nmK each), A·gb (2nK²), ga·B (2K²m),
-    the symmetric AᵀA and BBᵀ, and the Fourier form's series forward and
+def step_flops(n: int, m: int, k: int, nf: int = 0, seeds: int = 1) -> float:
+    """Operations of one launch of the step kernel over n rows for ``seeds``
+    packed models of K = k columns each: the update and the partials of one
+    step, the work of one mega-kernel epoch (``chunk_flops``): AᵀX and XBᵀ
+    (2nmK' each), A·gb and ga·B over each seed's own block, each seed's
+    symmetric AᵀA and BBᵀ, and the Fourier form's series forward and
     backward."""
-    return chunk_flops(n, m, k, nf)
+    return chunk_flops(n, m, k, nf, seeds)
 
 
-def step_bytes(n: int, m: int, k: int, r: int, nf: int = 0) -> float:
-    """Bytes one launch must move: X and the POD modes of its rows read
-    once; the state read and written once (phi with its moments over its
-    rows; B with its moments, or the Fourier form's series and periods with
-    theirs and the t points read; c and omega with theirs; the scheduler
-    vector); the partial sums, dl and gb read and written once; a metrics
-    row and max_arg written."""
-    temporal = 3 * k * (2 * nf + 1) + 3 * k if nf else 3 * k * m
-    state = 3 * r * n + temporal + 3 * k + 9 * r + 16
-    sums = k * m + k * k + r * r + k + 3 * r
-    return 4 * (n * m + n * r + (m if nf else 0) + 2 * (state + sums + n * r + k * k) + 5)
+def step_bytes(n: int, m: int, k: int, r: int, nf: int = 0, seeds: int = 1) -> float:
+    """Bytes one launch must move for ``seeds`` packed models of K = k
+    columns and r latents each: X and the POD modes of its rows read once;
+    the state read and written once (phi with its moments over its rows; B
+    with its moments, or the Fourier form's series and periods with theirs
+    and the t points read; c and omega with theirs; the scheduler vectors);
+    the partial sums (each seed's diagonal Gram blocks), dl and the seeds'
+    blocks of gb read and written once; a metrics row per seed and max_arg
+    written."""
+    kp, rp = seeds * k, seeds * r
+    temporal = 3 * kp * (2 * nf + 1) + 3 * kp if nf else 3 * kp * m
+    state = 3 * rp * n + temporal + 3 * kp + 9 * rp + 16 * seeds
+    sums = seeds * (k * m + k * k + r * r + k + 3 * r)
+    return 4 * (n * m + n * r + (m if nf else 0) + 2 * (state + sums + n * rp + seeds * k * k) + 4 * seeds + 1)
 
 
 def rows_16b(x):
@@ -282,7 +305,8 @@ def main() -> int:
         f"{name}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack" for name, regs, spill, stack in forms))
     check(len(forms) == 12 and all(spill == 0 for _, _, spill, _ in forms),
           "the mega-kernel's forms (desmo and Fourier at KP=32/48/64/128, the probe) must build without spills")
-    for name, count in (("dual_gemm", 6), ("ae_chunk", 1), ("shard_step", 8)):
+    # the step kernel: desmo and Fourier, one seed and packed, at KP=32/48/64/128
+    for name, count in (("dual_gemm", 6), ("ae_chunk", 1), ("shard_step", 16)):
         kforms = kernel_forms(_build.build_log(name))
         print(f"[2 ptxas] {name} by kernel: " + " | ".join(
             f"{kname}: {regs} registers, {spill} bytes spilled, {stack} bytes of stack"
@@ -1170,9 +1194,9 @@ def main() -> int:
         same = all(torch.equal(getattr(twice[0], f), getattr(twice[1], f)) for f in fields) and all(
             torch.equal(getattr(twice[0].cs, f), getattr(twice[1].cs, f)) for f in ("phi", "coef", "omega", "svec"))
         params = ("phi", "coef", "omega") + (("series", "periods") if got.nf else ("b",))
-        e_met = {key: abs(float(got.met[0, i]) - float(ref.met[0, i])) / abs(float(ref.met[0, i]))
+        e_met = {key: abs(float(got.met[0, 0, i]) - float(ref.met[0, 0, i])) / abs(float(ref.met[0, 0, i]))
                  for i, key in enumerate(shard_step.ROW_METRICS)}
-        met_ok = all(abs(float(got.met[0, i]) - float(ref.met[0, i])) <= 2e-4 * abs(float(ref.met[0, i]))
+        met_ok = all(abs(float(got.met[0, 0, i]) - float(ref.met[0, 0, i])) <= 2e-4 * abs(float(ref.met[0, 0, i]))
                      + (ORTHO_ATOL if key == "ortho" else 0.0) for i, key in enumerate(shard_step.ROW_METRICS))
         e_par = {f: rel_err(getattr(got.cs, f)[0].double().cpu(), getattr(ref.cs, f)[0]) for f in params}
         e_next = {"dl": rel_err(got.dl.double().cpu(), ref.dl)}
@@ -1347,6 +1371,264 @@ def main() -> int:
               "against the wall time, us a step: " + ", ".join(
                   f"{how} {k_us:.1f} in {w_us:.1f}, a busy share of {k_us / w_us:.1%}" for how, (k_us, w_us)
                   in busy.items()))
+    # 8f. the step kernel's packed form against its plain version at the
+    # ensemble cells' full width, aneurysm S=4 (K'=108) and fourier_cylinder
+    # S=8 (K'=96), omega_init=1, the seeds jittered as ensemble.fit jitters
+    # them, each with its own beta, lambda and LR scale, from two states:
+    # after PARITY_STEPS epochs of the packed mega-kernel (STEP_RTOL) and at
+    # the reference init (STEP_INIT_RTOL). From each: the partials alone over
+    # all rows and over 2 and 3 uneven shards (summed), against step_plain in
+    # float64; from the kernel's state after that step, the update with the
+    # next partials and the update alone (rows=0), against step_plain in
+    # float64 on the same state and sums. Then a state with seed 1's phi NaN,
+    # whose metrics go non-finite while every other seed's stay finite.
+    def packed_rows_buffers(cfg, spec_s, batch, state, lo, hi, steps, betas=None, lams=None):
+        """The packed step's buffers over rows [lo, hi) of the stacked
+        ``state`` and ``batch``, as a rank holding those rows builds them."""
+        cs = train_chunk.pack_seeds(state, *train_chunk.seed_hypers(cfg, state.params["phi"].shape[0], betas, lams))
+        cs.phi = cs.phi[:, :, lo:hi].contiguous()
+        local = {"x": batch["x"][lo:hi].contiguous(), "pod_modes": batch["pod_modes"][lo:hi].contiguous(),
+                 "x_sq": batch["x_sq"]}
+        return shard_step.make_buffers(cs, local, steps, spec_s, cfg, cfg.n)
+
+    def check_packed_step(name, seeds, cfg, spec_s, pbatch, state, betas, lams, label, rtol):
+        """The agreement checks of one state; returns max |kernel - float64|
+        over the partials of all rows."""
+        n, m, r = cfg.n, cfg.m, cfg.r
+        k = spec_s.num_poly_terms + 3 * r
+        whole = packed_rows_buffers(cfg, spec_s, pbatch, state, 0, n, 2, betas, lams)
+        ref = whole.to(dev, torch.float64)
+        shard_step.step_plain(ref, spec_s)  # the partials alone
+        ref32 = whole.to(dev, torch.float32)
+        shard_step.step_plain(ref32, spec_s)
+        plain_err = {part: rel_err(g.double(), w) for part, g, w in zip(
+            parts, shard_step.split_seed_sums(ref32.sums, k, m, r, seeds),
+            shard_step.split_seed_sums(ref.sums, k, m, r, seeds))}
+        worst, same_max = {}, True
+        for d in (1, 2, 3):
+            runs = [whole] if d == 1 else [packed_rows_buffers(cfg, spec_s, pbatch, state, lo, hi, 2, betas, lams)
+                                           for lo, hi in (parallel.row_range(n, d, q) for q in range(d))]
+            for run in runs:
+                shard_step.step(run, spec_s)
+            torch.cuda.synchronize()
+            e = {"dl": rel_err(torch.cat([run.dl for run in runs]).double(), ref.dl)}
+            e.update({part: rel_err(g.double(), w) for part, g, w in zip(
+                parts, shard_step.split_seed_sums(sum(run.sums for run in runs), k, m, r, seeds),
+                shard_step.split_seed_sums(ref.sums, k, m, r, seeds))})
+            same_max &= max(float(run.max_arg[0]) for run in runs) == float(ref32.max_arg[0])
+            worst = {key: max(v, worst.get(key, 0.0)) for key, v in e.items()}
+        max_abs = max(float((whole.sums.double() - ref.sums).abs().max()), float((whole.dl.double() - ref.dl).abs().max()))
+        check(worst["dl"] <= STEP_DL_RTOL and all(worst[part] <= rtol for part in parts) and same_max,
+              f"{name} S={seeds} {label}: packed step kernel over 1-3 shards vs plain beyond its limits: {worst} "
+              f"(limit {rtol:.0e}), max_arg equal {same_max}")
+        # the update of that step and the next partials, twice from the same buffers; the update alone
+        ref = whole.to(dev, torch.float64)
+        twice = [whole.clone(), whole.clone()]
+        for run in twice:
+            shard_step.step(run, spec_s)
+        alone = whole.clone()
+        shard_step.step(alone, spec_s, rows=False)
+        torch.cuda.synchronize()
+        shard_step.step_plain(ref, spec_s)
+        ref_alone = whole.to(dev, torch.float64)
+        shard_step.step_plain(ref_alone, spec_s, rows=False)
+        got = twice[0]
+        fields = ("sums", "dl", "gb", "met", "max_arg", "count")
+        same = all(torch.equal(getattr(twice[0], f), getattr(twice[1], f)) for f in fields) and all(
+            torch.equal(getattr(twice[0].cs, f), getattr(twice[1].cs, f)) for f in ("phi", "coef", "omega", "svec"))
+        params = ("phi", "coef", "omega") + (("series", "periods") if got.nf else ("b",))
+        met_err = (got.met[0].double() - ref.met[0]).abs() - 2e-4 * ref.met[0].abs()
+        met_err[:, 1] -= ORTHO_ATOL
+        e_met = {key: float(((got.met[0, :, i].double() - ref.met[0, :, i]).abs() / ref.met[0, :, i].abs()).max())
+                 for i, key in enumerate(shard_step.ROW_METRICS)}
+        e_par = {f: max(rel_err(getattr(run.cs, f)[0].double(), getattr(want.cs, f)[0]) for run, want in
+                        ((got, ref), (alone, ref_alone))) for f in params}
+        e_next = {"dl": rel_err(got.dl.double(), ref.dl)}
+        e_next.update({part: rel_err(g.double(), w) for part, g, w in zip(
+            parts, shard_step.split_seed_sums(got.sums, k, m, r, seeds),
+            shard_step.split_seed_sums(ref.sums, k, m, r, seeds))})
+        same_lrs = all(torch.equal(run.cs.svec[:, :5].double(), want.cs.svec[:, :5].float().double())
+                       for run, want in ((got, ref), (alone, ref_alone)))
+        alone_ok = torch.equal(alone.met[0], got.met[0]) and int(alone.count) == 1
+        print(f"[8f packed step] {name} {seeds} seeds (n, m, K')=({n}, {m}, {seeds * k}) {label}, omega_init=1, "
+              f"per-seed beta, lambda and LR scale: the partials over all rows and over 2 and 3 uneven shards "
+              f"(summed) vs the plain version in float64, worst of the three: "
+              + ", ".join(f"{key} {v:.2e}" for key, v in worst.items())
+              + f" of max|ref| (limits: dl {STEP_DL_RTOL:.0e}, the sums {rtol:.0e}); the plain version in float32 vs "
+              "float64: " + ", ".join(f"{key} {v:.2e}" for key, v in plain_err.items())
+              + f"; max_arg equal to the float32 plain's {same_max}; the update and the next partials vs step_plain "
+              "in float64: metrics rows 0 " + ", ".join(f"{key} {v:.2e}" for key, v in e_met.items())
+              + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute); params (with the update alone) "
+              + ", ".join(f"{key} {v:.2e}" for key, v in e_par.items()) + " of max|param| (limit 1e-5); the next "
+              "partials " + ", ".join(f"{key} {v:.2e}" for key, v in e_next.items())
+              + f"; LRs equal {same_lrs}; the update alone writes the same metrics rows {alone_ok}; two launches "
+              f"bit-identical {same}")
+        check(bool((met_err <= 0).all()) and max(e_par.values()) <= 1e-5 and same and same_lrs and alone_ok
+              and e_next["dl"] <= STEP_DL_RTOL and all(e_next[part] <= rtol for part in parts),
+              f"{name} S={seeds} {label}: packed step kernel's update vs step_plain beyond its limits: metrics "
+              f"{e_met}, params {e_par}, next partials {e_next}, LRs equal {same_lrs}, the update alone {alone_ok}, "
+              f"launches identical {same}")
+        return max_abs
+
+    packed_steps = {}
+    for name, pc_tag, preset_cfg, seeds in (("aneurysm", "5e", apreset, 4), ("fourier_cylinder", "5ef", fpreset, 8)):
+        pc = packed_checks[pc_tag]
+        cfg = dataclasses.replace(preset_cfg, omega_init=1.0, lr_omega=1.0)
+        spec_s, pbatch = pc["make_spec"](cfg), pc["batch"]
+        n, r = cfg.n, cfg.r
+        k = spec_s.num_poly_terms + 3 * r
+        betas = np.geomspace(cfg.beta, 10.0 * cfg.beta, seeds).astype(np.float32)
+        lams = np.geomspace(cfg.l1_lambda, 10.0 * cfg.l1_lambda, seeds).astype(np.float32)
+        hst = ensemble.init_state(pc["start"](cfg, spec_s, seeds).params, cfg, seeds,
+                                  lr_scales=np.where(np.arange(seeds) % 2, 0.5, 1.0))
+        trained = train_chunk.fused_ensemble_chunk(hst, pbatch, PARITY_STEPS, spec_s, cfg, betas, lams)[0]
+        max_abs = check_packed_step(name, seeds, cfg, spec_s, pbatch, trained, betas, lams,
+                                    f"after {PARITY_STEPS} epochs", STEP_RTOL)
+        check_packed_step(name, seeds, cfg, spec_s, pbatch, hst, betas, lams, "at the reference init", STEP_INIT_RTOL)
+        bad = ensemble.init_state({**hst.params, "phi": hst.params["phi"].clone()}, cfg, seeds)
+        bad.params["phi"][1] = float("nan")
+        bbuf = packed_rows_buffers(cfg, spec_s, pbatch, bad, 0, n, 3)
+        for _ in range(3):
+            shard_step.step(bbuf, spec_s)
+        torch.cuda.synchronize()
+        others = [q for q in range(seeds) if q != 1]
+        isolated = (not bool(torch.isfinite(bbuf.met[:2, 1][:, [0, 1, 3]]).any())
+                    and bool(torch.isfinite(bbuf.met[:2, others]).all())
+                    and all(bool(torch.isfinite(shard_step.packed_seed(bbuf.cs, q, r, k).phi).all()) for q in others))
+        print(f"[8f packed step] {name}: seed 1's phi NaN: its rec, ortho and total non-finite over two updates, "
+              f"every other seed's metrics and state finite {isolated}")
+        check(isolated, f"{name} S={seeds}: a NaN seed reached another seed in the packed step kernel")
+        packed_steps[name] = dict(cfg=cfg, spec=spec_s, batch=pbatch, state=hst, betas=betas, lams=lams, seeds=seeds,
+                                  max_abs=max_abs, shape=(n, cfg.m, k, r), preset=preset_cfg, pc=pc)
+
+    # 8g. the sharded packed chunk on one rank against the packed mega-kernel
+    # (fused_ensemble_chunk) from the same state, over 1 and 25 epochs
+    for name, ps in packed_steps.items():
+        cfg, spec_s, pbatch, hst = ps["cfg"], ps["spec"], ps["batch"], ps["state"]
+        chunk = shard_step.make_sharded_fused_ensemble_chunk(spec_s, cfg, mesh, ps["seeds"], ps["betas"], ps["lams"])
+        local = parallel.shard_batch(pbatch, mesh)
+        report = []
+        for steps in (1, 25):
+            s1, m1 = chunk(hst, local, steps)
+            k1, mk1 = train_chunk.fused_ensemble_chunk(hst, pbatch, steps, spec_s, cfg, ps["betas"], ps["lams"])
+            torch.cuda.synchronize()
+            bits = all(torch.equal(m1[key], mk1[key]) for key in mk1) and all(
+                torch.equal(s1.params[key], k1.params[key]) for key in k1.params) and torch.equal(
+                s1.sched.lrs, k1.sched.lrs)
+            if not bits:
+                e = {key: float(((m1[key] - mk1[key]).abs() / mk1[key].abs()).max()) for key in ("rec", "total_s")}
+                e["params"] = max(rel_err(s1.params[key], k1.params[key]) for key in k1.params)
+                report.append(f"{steps} epoch(s): not bit for bit, " + ", ".join(f"{key} {v:.2e}" for key, v in e.items()))
+                check(steps > 1 or (max(e["rec"], e["total_s"]) <= 2e-4 and e["params"] <= 1e-5),
+                      f"{name}: sharded packed chunk, one epoch from one state: {e}")
+            else:
+                report.append(f"{steps} epoch(s): bit for bit (metrics, params, LRs)")
+        print(f"[8g sharded packed] {name} {ps['seeds']} seeds, space=1 (NCCL), omega_init=1, against the packed "
+              f"mega-kernel: " + "; ".join(report))
+
+    # 8h. the slice over the mesh with packed seeds: runner.run of aneurysm
+    # with 4 seeds and fourier_cylinder with 8, as configured, through
+    # ensemble.fit and the sharded packed chunk
+    packed_runs = {}
+    for name, preset_cfg, data, seeds in (("aneurysm", apreset, ax_np, 4), ("fourier_cylinder", fpreset, fx_np, 8)):
+        cfg = dataclasses.replace(preset_cfg, n_seeds=seeds)
+        epochs = PACKED_SHARDED_EPOCHS
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches(*counters)
+            t0 = time.perf_counter()
+            art = runner.run(cfg, data, out_dir=tmp, num_epochs=epochs, echo=False, device=dev, device_mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = shard_step.step.launches
+            chunks = -(-epochs // cfg.checkpoint_every)
+            others = sum(fn.launches for fn in counters) - launches
+            hist = art.history
+            check(all(bool(np.isfinite(hist[key]).all()) and hist[key].shape == (epochs,) for key in hist),
+                  f"sharded packed {name} history")
+            check(hist["rec"][-1] < hist["rec"][0], f"sharded packed {name} rec did not fall")
+            check(launches == epochs + chunks and others == 0,
+                  f"sharded packed {name}: step kernel launched {launches} times in {epochs} epochs of {chunks} "
+                  f"chunks, other kernels {others}")
+            files = set(os.listdir(art.out_dir))
+            check({"ensemble.json", "term_stability.json", "state_final.npz", f"{cfg.name}_r{cfg.r}_final.pt"} <= files,
+                  f"sharded packed {name}: missing records in {sorted(files)}")
+            with open(os.path.join(art.out_dir, "ensemble.json")) as fh:
+                record = json.load(fh)
+            finals = record["final_totals"]
+            check(len(finals) == seeds and record["diverged_seeds"] == [] and record["best_seed"] == int(np.argmin(finals)),
+                  f"sharded packed {name}: ensemble.json {record}")
+            check(art.state.params["phi"].shape == (cfg.r, cfg.n) and np.isfinite(art.relative_error)
+                  and len(art.sweep) == 14, f"sharded packed {name}: export, error or sweep")
+            packed_runs[name] = dict(launches=launches, sps=record["seed_steps_per_sec"])
+            print(f"[8h sharded packed] {name} n={art.config.n} m={art.config.m} with {seeds} seeds as configured over "
+                  f"space=1 (NCCL): {epochs} epochs in {wall:.1f} s (POD, sweep and exports included), "
+                  f"{record['seed_steps_per_sec']:.1f} seed-steps/s over chunks 2-{chunks}; best seed "
+                  f"{record['best_seed']}, its relative error {art.relative_error:.6f} (POD(r) {art.pod_error_r:.6f}), "
+                  f"rec {hist['rec'][0]:.6e} -> {hist['rec'][-1]:.6e}; step kernel launches {launches} = epochs + "
+                  f"chunks ({epochs} + {chunks}), other kernels 0")
+
+    # 8i. times of the packed step as configured: a launch by CUDA events in
+    # turns with its plain version on built buffers, beside its bounds (fp32;
+    # 3xTF32 for the two contractions with X); the kernel's clock by part over
+    # a 500-step chunk; the chunk in turns with the packed mega-kernel's
+    # epoch; the busy share over a graph's replays by the kernel's clock
+    packed_step_times = {}
+    for name, ps in packed_steps.items():
+        cfg, seeds = ps["preset"], ps["seeds"]
+        spec_s = ps["pc"]["make_spec"](cfg)
+        st = ps["pc"]["start"](cfg, spec_s, seeds)
+        n, m, k, r = ps["shape"]
+        nf = train_chunk.n_fourier(spec_s, cfg)
+        local = parallel.shard_batch(ps["batch"], mesh)
+        iters = 50
+        kbuf = packed_rows_buffers(cfg, spec_s, ps["batch"], st, 0, n, 4 * iters + 8)
+        pbuf = kbuf.clone()
+        k1, p1, p2, k2 = (time_ms(f, iters) for f in (lambda: shard_step.step(kbuf, spec_s),
+                                                       lambda: shard_step.step_plain(pbuf, spec_s),
+                                                       lambda: shard_step.step_plain(pbuf, spec_s),
+                                                       lambda: shard_step.step(kbuf, spec_s)))
+        flops, nbytes = step_flops(n, m, k, nf, seeds), step_bytes(n, m, k, r, nf, seeds)
+        bound, by = bound_ms(flops, nbytes)
+        cflops = contraction_flops(n, m, k, seeds)
+        bound3 = bound_3xtf32_ms(cflops, flops - cflops, nbytes)
+        launch_ms = (k1 + k2) / 2
+        packed_step_times[name] = dict(ms=launch_ms, plain_ms=(p1 + p2) / 2, bound_ms=bound, bound_by=by,
+                                  bound_3xtf32_ms=bound3)
+        split = shard_step.phase_split(spec_s, cfg, mesh, st, local, timed_steps)
+        per_launch = {key: v * 1e6 / (timed_steps + 1) for key, v in split.items()}
+        chunk = shard_step.make_sharded_fused_ensemble_chunk(spec_s, cfg, mesh, seeds)
+        whole_chunk = lambda: chunk(st, local, timed_steps)  # noqa: E731
+        mega = lambda: train_chunk.fused_ensemble_chunk(st, ps["batch"], timed_steps, spec_s, cfg)  # noqa: E731
+        c1, g1, g2, c2 = (time_ms(f, 2) * 1e3 / timed_steps for f in (whole_chunk, mega, mega, whole_chunk))
+        rbuf = packed_rows_buffers(cfg, spec_s, ps["batch"], st, 0, n, 2 * timed_steps + 8)
+        shard_step.step(rbuf, spec_s)
+        mesh.all_reduce(rbuf.sums, "sum")
+        graph = shard_step.capture(rbuf, spec_s, mesh)
+        torch.cuda.synchronize()
+        before = sum(shard_step.clock(rbuf, spec_s).values())
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            graph.replay()
+        kernel_s = sum(shard_step.clock(rbuf, spec_s).values()) - before  # synchronizes
+        busy_k, busy_w = kernel_s * 1e6 / timed_steps, (time.perf_counter() - t0) * 1e6 / timed_steps
+        contractions = per_launch["rows.xb"] + per_launch["ax"]
+        print(f"[8i time] {card}: {name} {seeds} seeds (n, m, K')=({n}, {m}, {seeds * k}) as configured: packed step "
+              f"kernel {k1 * 1e3:.1f}/{k2 * 1e3:.1f} us per launch (a step's update and partials), plain version "
+              f"(step_plain) {p1 * 1e3:.1f}/{p2 * 1e3:.1f} us (kernel, plain, plain, kernel; {iters} calls each); "
+              f"bound {bound * 1e3:.1f} us ({by}, fp32, {flops / 1e9:.3f} GFLOP, of which the contractions "
+              f"{cflops / 1e9:.3f}), {bound3 * 1e3:.1f} us (3xTF32); the launch at {launch_ms / bound:.1f}x and "
+              f"{launch_ms / bound3:.1f}x")
+        print(f"[8i clock] {card}: {name} packed step kernel over a {timed_steps}-step chunk ({timed_steps + 1} "
+              f"launches; kernel clock, block 0), us per launch: " + ", ".join(f"{key} {v:.1f}" for key, v in
+                                                                             per_launch.items())
+              + f"; the launch by the clock {sum(per_launch.values()):.1f}; X·Bᵀ + AᵀX (rows.xb + ax) "
+              f"{contractions:.1f} us")
+        print(f"[8i step] {card}: {name} sharded packed step over space=1, us per step over {timed_steps}-step runs: "
+              f"the chunk as ensemble.fit calls it (set-up and capture included) {c1:.1f}/{c2:.1f} in turns with the "
+              f"packed mega-kernel's epoch {g1:.1f}/{g2:.1f} (chunk, mega, mega, chunk; 2 runs each); the replays of "
+              f"a CUDA graph of one step: the kernel by its clock {busy_k:.1f} in {busy_w:.1f}, a busy share of "
+              f"{busy_k / busy_w:.1%}; end to end {packed_runs[name]['sps']:.1f} seed-steps/s (8h)")
+
     # the sharded chunk by the device's work: in one profiler window of a
     # 200-step chunk, the step kernel's launches the profiler saw against
     # those ``step.launches`` counted, and the time of the device events by
@@ -1517,6 +1799,19 @@ def main() -> int:
         }
         for name, preset_name in (("step (cylinder over space=1)", preset.name),
                                   ("step (fourier_cylinder over space=1)", fpreset.name))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/shard_step.cu",
+            "replaces": "desmo_tpu/pallas/shard_step.py:168 (n_seeds>1, make_sharded_fused_ensemble_chunk :478)",
+            "launches": packed_runs[preset_name]["launches"],
+            "max_abs_err": packed_steps[preset_name]["max_abs"],
+            **packed_step_times[preset_name],
+            "library_ms": None,
+        }
+        for name, preset_name in (("step (aneurysm, 4 seeds over space=1)", "aneurysm"),
+                                  ("step (Fourier form, fourier_cylinder, 8 seeds over space=1)", "fourier_cylinder"))
     ]}))
     check(kind == torch.cuda.get_device_name(dev), f"the device record's kind {kind!r} is not the card's name")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

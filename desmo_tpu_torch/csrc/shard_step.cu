@@ -7,10 +7,12 @@
 //
 // Replaces the TPU kernel desmo_tpu/pallas/shard_step.py:74 _make_step_kernel
 // and the replicated update that the reference runs as fused XLA operations
-// between its launches (shard_step.py:318-409), one seed, desmo and Fourier
-// forms. With nm = n_total * m the global count and s the launch's step
-// counter (a device integer: the launches with rows so far in the chunk, so
-// that a CUDA graph of one step can replay it):
+// between its launches (shard_step.py:318-409), desmo and Fourier forms, for
+// one seed or S seed-packed models (_build_step_call(n_seeds=S) :168, reached
+// from make_sharded_fused_ensemble_chunk :478, whose per-seed reductions and
+// updates run at :616-743). With nm = n_total * m the global count and s the
+// launch's step counter (a device integer: the launches with rows so far in
+// the chunk, so that a CUDA graph of one step can replay it):
 //   prologue, when s > 0, from the summed partials of step s - 1: the
 //     metrics row s - 1 (rec, ortho, l1, total) of the pre-update
 //     parameters; gB = 2/nm (ga B - ax); the Adamax of c (with lam sign(c)),
@@ -42,10 +44,20 @@
 // 3xTF32 a launch is bound by its bytes (the mega-kernel keeps X in L2 from
 // one epoch to the next).
 //
+// Seed packing (runtime S, 1 <= S <= kMaxSeeds), as the mega-kernel packs:
+// K is the packed width S Ks, seed s owning columns [s Ks, (s + 1) Ks) of A
+// and rows of B, latent lanes 1 + s r + j, phi rows s r + j, omega slots
+// s 3r + q and row s of the scheduler vectors; the host's column table says
+// which. Only the seeds' diagonal blocks of gb = B Bᵀ and ga = AᵀA exist (S
+// Ks² entries), so A gb, ga B and rec run over the seed's own block and one
+// seed's NaN reaches no other seed. The latent Gram, rec, l1 and sum(ax * B)
+// are per seed; each seed has its LRs, beta, lambda, plateau scheduler and
+// metrics row. S = 1 is one model.
+//
 // Design. One persistent cooperative launch of one block per SM, the
-// single-device mega-kernel's phases (csrc/train_chunk.cu) for one seed,
-// each routine a copy of its counterpart there (marked "as train_chunk.cu
-// <name>"), rearranged so that the update comes first:
+// single-device mega-kernel's phases (csrc/train_chunk.cu), each routine a
+// copy of its counterpart there (marked "as train_chunk.cu <name>"),
+// rearranged so that the update comes first:
 //   P1 (when s > 0) phi of the block's rows; each block's column slab: ax
 //      and the old B, the partial of sum(ax * B), gB, the B Adamax (desmo)
 //      or the series gradient partials (Fourier); then (when rows) the
@@ -121,9 +133,10 @@ static_assert(kXbSplit * kRT * 32 <= xb_ring_floats(32) && kXbSplit * kRT * 48 <
 
 constexpr int kMaxR = 8;
 constexpr int kMaxP = 8;
+constexpr int kMaxSeeds = 8;     // as train_chunk.cu kMaxSeeds: the packed seeds' cap
 constexpr int kCT = 4;            // column table: seed, kind (0 polynomial, 1 sin, 2 cos, 3 tanh),
                                   // latent lane, omega slot, then the P factor lanes
-constexpr int kMetrics = 4;       // rec, ortho, l1, total
+constexpr int kMetrics = 4;       // per seed: rec, ortho, l1, total
 constexpr int kMaxNf = 63;        // Fourier harmonics
 constexpr int kSerTab = 4096;     // shared floats of the series gradient's table
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -140,38 +153,51 @@ enum Phase {
 constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
 constexpr float kOneMinusB1 = (float)(1.0 - 0.9);
 constexpr float kImproved = (float)(1.0 - 1e-4);  // plateau threshold, relative
-// scheduler-vector slots
+// scheduler-vector slots, one row of kSvec floats per seed
 constexpr int kSvec = 16;
 constexpr int kLr0 = 0, kBest = 5, kPow = 6, kCount = 7, kNumBad = 8, kEpoch = 9, kBeta = 10, kLam = 11;
+// the launch's hyperparameters (Tables::hyp), kMaxSeeds entries each, seed s
+// at [h * kMaxSeeds + s]; lr_z and lr_period first, where series_update reads
+// them (train_chunk.cu's lr_ep)
+enum Hyp { kHypLrZ, kHypLrPeriod, kHypLrCoef, kHypLrPhi, kHypLrOmega, kHypBias, kHypBeta, kHypLam, kHyps };
 
 struct Args {
-  const float* pod;   // (n, r): this rank's rows
+  const float* pod;   // (n, r): this rank's rows, shared by the seeds
   const float* xp;    // (n, mp): this rank's rows of X, padded to mp = padded_m(m) with zeros
   const float* x_sq;  // sum(X * X) over every rank's rows
-  const int* ctab;    // the column table of one seed (K, kCT + P), then the lane lists: d_off (r + 1), d_tp (K P)
-  float* phi;         // (3, r, n): phi, mu, nu of this rank's rows
+  const int* ctab;    // the column table (K, kCT + P), then the lane lists: d_off (S r + 1), d_tp (K P)
+  float* phi;         // (3, S r, n): phi, mu, nu of this rank's rows
   float* b;           // desmo: (3, K, m) B, mu, nu; unused in the Fourier form
   float* coef;        // (3, K)
-  float* omega;       // (3, 3r)
-  float* svec;        // (kSvec) scheduler vector
-  float* sums;        // (K m + K K + r r + K + 3r): ax, ga, latᵀlat, gcoef, gomega
-  float* dl;          // (n, r)
-  float* gb;          // (K, K) = B Bᵀ of the B the last partials used
-  float* met;         // (num_steps, kMetrics)
+  float* omega;       // (3, 3 S r)
+  float* svec;        // (S, kSvec) scheduler vectors
+  float* sums;        // ax (K m), the seeds' blocks of ga (S Ks²), their latᵀlat (S r²), gcoef (K), gomega (3 S r)
+  float* dl;          // (n, S r)
+  float* gb;          // (S Ks²) the seeds' diagonal blocks of B Bᵀ of the B the last partials used
+  float* met;         // (num_steps, S, kMetrics)
   float* max_arg;     // (num_steps)
   int* count;         // the step counter s
   float* work;        // scratch, make_layout(...).total floats
-  int n, m, r, P, K, n_total, rows, sched_every, num_steps;  // rows s of met and max_arg exist for s < num_steps
+  int n, m, r, P, K, n_total, rows, sched_every, num_steps;  // K = S Ks; rows s of met and max_arg exist for s < num_steps
   float patience, factor, min_lr;
   // the Fourier form's (nf > 0; nf = 0 is the desmo form)
   const float* tpts;  // (m,) t_points
   float* ser;         // (3, K, nc) series coefficients, mu, nu
   float* per;         // (3, K) periods, mu, nu
   int nf;
+  int S, Ks;          // seeds, and columns per seed
 };
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
 __host__ __device__ inline int padded_m(int m) { return (m + 7) / 8 * 8; }
+
+// The seed count and a seed's width: the packed forms (kPacked) read them
+// from the launch, the one-seed forms know them (S = 1, Ks = K), so that
+// their loops over the seeds and the seeds' offsets fold away.
+template <bool kPacked>
+__device__ __forceinline__ int seed_count(const Args& a) { return kPacked ? a.S : 1; }
+template <bool kPacked>
+__device__ __forceinline__ int seed_width(const Args& a) { return kPacked ? a.Ks : a.K; }
 
 // as train_chunk.cu AxSplit, ax_split: the 2-D split of AᵀX over G blocks
 struct AxSplit {
@@ -198,7 +224,8 @@ __host__ __device__ inline AxSplit ax_split(int n, int m, int G) {
 // Fourier form's series length 2 nf + 1, 0 for the desmo form.
 struct Layout {
   long long a, part, part_max, part_cross, part_gb, part_ser, sums_ser, ser_next, gagb, timer, axp, bp, total;
-  int kk;      // K²
+  int kk;      // entries of the seeds' diagonal Gram blocks, S Ks²
+  int lg;      // entries of the seeds' latent Grams, S r²
   int es;      // entries of a block's partial: ga, latᵀlat, gcoef, gomega
   int es_ser;  // Fourier: entries of a series partial, K (nc + 1)
   int lda;     // row stride of A (n, K) in the scratch, round4(K): 16-byte rows, zero from K on
@@ -206,24 +233,26 @@ struct Layout {
   AxSplit ax;  // the AᵀX split; its partials (gr, K, m) at axp
 };
 
-__host__ __device__ inline Layout make_layout(int n, int m, int r, int K, int nc, int G) {
+__host__ __device__ inline Layout make_layout(int n, int m, int r, int Ks, int S, int nc, int G) {
   Layout L;
+  const int K = S * Ks, R = S * r;
   L.lda = round4(K);
   L.ax = ax_split(n, m, G);
-  L.kk = K * K;
-  L.es = L.kk + r * r + K + 3 * r;
+  L.kk = S * Ks * Ks;
+  L.lg = S * r * r;
+  L.es = L.kk + L.lg + K + 3 * R;
   L.es_ser = nc > 0 ? K * (nc + 1) : 0;
   const long long fourier = nc > 0;
   long long o = 0;
   L.a = o;          o += (long long)n * L.lda;
   L.part = o;       o += (long long)G * L.es;
   L.part_max = o;   o += G;
-  L.part_cross = o; o += G;
+  L.part_cross = o; o += (long long)G * S;
   L.part_gb = o;    o += (long long)G * L.kk;
   L.part_ser = o;   o += (long long)G * L.es_ser;
   L.sums_ser = o;   o += L.es_ser;
   L.ser_next = o;   o += fourier * 3LL * K * (nc + 1);  // series (3, K, nc), then periods (3, K)
-  L.gagb = o;       o += 1;
+  L.gagb = o;       o += S;  // each seed's sum(ga * gb)
   o += o & 1;
   L.timer = o;      o += 2 * kPhases;  // kPhases unsigned 64-bit ns counters, summed over launches
   L.axp = o;        o += (long long)L.ax.gr * K * m;
@@ -237,28 +266,29 @@ __host__ __device__ inline Layout make_layout(int n, int m, int r, int K, int nc
 // The Layout, kept in shared memory (so that no thread carries its offsets
 // in registers through the launch), in floats.
 constexpr int kLayoutFloats = (int)((sizeof(Layout) + 15) / 16 * 4);
-constexpr int kHyp = 8;  // the launch's LRs (5), Adamax bias, beta, lambda
 
 // Shared memory that lives through the launch: the Layout; the kernel
-// clock's counters; the column table and, for each latent lane j, the
-// entries of the table that hold lane j + 1 (offsets and entries), for the
-// polynomial backward; the launch's hyperparameters.
+// clock's counters; the column table and, for each latent lane j (of S r),
+// the entries of the table that hold lane j + 1 (offsets and entries), for
+// the polynomial backward; the launch's hyperparameters (enum Hyp).
 constexpr int kClockFloats = (2 * kPhases + 3) / 4 * 4;
-__host__ __device__ inline int table_floats(int K, int P, int r) {
-  return kLayoutFloats + kClockFloats + round4(K * (kCT + P)) + round4(r + 1) + round4(K * P) + kHyp;
+__host__ __device__ inline int table_floats(int K, int P, int R) {
+  return kLayoutFloats + kClockFloats + round4(K * (kCT + P)) + round4(R + 1) + round4(K * P) + kHyps * kMaxSeeds;
 }
 
 // Shared floats: the tables, then the largest of the phases' own.
-__host__ __device__ inline int smem_floats(int r, int K, int P, int nc) {
-  const int ld = K + 1, KP = padded_k(K), kk = K * K;
-  const int rows = round4(K) + round4(3 * r) + round4(kk) + kRT * (r + 1) + 4 * kRT * ld + xb_ring_floats(KP) +
-                   kThreads + round4(K) + round4(3 * r);
-  const int slab = round4(kk) + 3 * K * kSW + kThreads + (nc > 0 ? kSerTab : 0);
+__host__ __device__ inline int smem_floats(int r, int Ks, int S, int P, int nc) {
+  const int K = S * Ks, R = S * r, ld = K + 1, KP = padded_k(K), kk = S * Ks * Ks;
+  const int rows = round4(K) + round4(3 * R) + round4(kk) + kRT * (R + 1) + 4 * kRT * ld + xb_ring_floats(KP) +
+                   kThreads + round4(K) + round4(3 * R);
+  const int slab = 2 * round4(kk) + 3 * K * kSW + kThreads + S * kThreads + (nc > 0 ? kSerTab : 0);
   const int series = round4(K * nc) + round4(K) + K * kSW;
+  const int finalize = kThreads + 4 * kMaxSeeds + kMaxSeeds;
   int most = rows > ax_ring_floats(KP) ? rows : ax_ring_floats(KP);
   most = most > slab ? most : slab;
   most = most > series ? most : series;
-  return table_floats(K, P, r) + most;
+  most = most > finalize ? most : finalize;
+  return table_floats(K, P, R) + most;
 }
 
 #ifndef DESMO_EMULATED_GRID
@@ -347,8 +377,8 @@ constexpr int kGroup = 8;  // entries a thread carries side by side in dA and th
 // The column table and, for each latent lane j, the entries k * P + p of
 // the table whose factor p of column k is lane j + 1 (d_tp[d_off[j]] ..
 // d_tp[d_off[j + 1] - 1], in ascending order), as train_chunk.cu Tables
-// holds them; hyp holds the launch's LRs, bias, beta and lambda, read before
-// block 0's scheduler step. The host builds the lane lists
+// holds them; hyp holds each seed's LRs, bias, beta and lambda (enum Hyp),
+// read before block 0's scheduler step. The host builds the lane lists
 // (kernels/shard_step.py kernel_table: they depend on the shape alone), so
 // a launch only copies them in; train_chunk.cu build_tables forms them once
 // a chunk, which would take a fifth of a launch at cylinder here.
@@ -356,12 +386,13 @@ struct Tables {
   int* ct;
   int* d_off;
   int* d_tp;
-  float* hyp;  // lr_coef, lr_phi, lr_z, lr_omega, lr_period, bias, beta, lam
+  float* hyp;  // kHyps x kMaxSeeds
 };
 
+template <bool kPacked>
 __device__ Tables build_tables(const Args& a, float* smem) {
   Tables tb;
-  const int K = a.K, P = a.P, CT = kCT + P, R = a.r;
+  const int K = a.K, P = a.P, CT = kCT + P, R = seed_count<kPacked>(a) * a.r;
   tb.ct = reinterpret_cast<int*>(smem);
   tb.d_off = tb.ct + round4(K * CT);
   tb.d_tp = tb.d_off + round4(R + 1);
@@ -370,23 +401,31 @@ __device__ Tables build_tables(const Args& a, float* smem) {
   for (int e = threadIdx.x; e < K * CT; e += kThreads) tb.ct[e] = a.ctab[e];
   for (int e = threadIdx.x; e < R + 1; e += kThreads) tb.d_off[e] = lanes[e];
   for (int e = threadIdx.x; e < K * P; e += kThreads) tb.d_tp[e] = lanes[R + 1 + e];
-  if (threadIdx.x < 5) tb.hyp[threadIdx.x] = a.svec[kLr0 + threadIdx.x];
-  if (threadIdx.x == 5) tb.hyp[5] = 1.f - a.svec[kPow] * kB1;
-  if (threadIdx.x == 6) tb.hyp[6] = a.svec[kBeta];
-  if (threadIdx.x == 7) tb.hyp[7] = a.svec[kLam];
+  for (int e = threadIdx.x; e < kHyps * seed_count<kPacked>(a); e += kThreads) {
+    const int s = e / kHyps, h = e % kHyps;
+    const int slot = h == kHypLrZ ? kLr0 + 2 : h == kHypLrPeriod ? kLr0 + 4 : h == kHypLrCoef ? kLr0
+                   : h == kHypLrPhi ? kLr0 + 1 : h == kHypLrOmega ? kLr0 + 3 : h == kHypBias ? kPow
+                   : h == kHypBeta ? kBeta : kLam;
+    const float v = a.svec[s * kSvec + slot];
+    tb.hyp[h * kMaxSeeds + s] = h == kHypBias ? 1.f - v * kB1 : v;
+  }
   __syncthreads();
   return tb;
 }
 
-// as train_chunk.cu accumulate_gb (one seed): part_gb[k1 K + k2] += the sum
-// over the sub-slab's w columns of bn[k1][jj] * bn[k2][jj]
-__device__ void accumulate_gb(const float* bn, int w, int K, float* part_gb) {
-  for (int e = threadIdx.x; e < K * K; e += kThreads) {
-    const int k1 = e / K, k2 = e % K;
-    float g = part_gb[e];
-    for (int jj = 0; jj < w; ++jj) g = fmaf(bn[k1 * kSW + jj], bn[k2 * kSW + jj], g);
-    part_gb[e] = g;
-  }
+// as train_chunk.cu accumulate_gb, seed by seed (one division an entry):
+// part_gb[s Ks² + e] += the sum over the sub-slab's w columns of
+// Bn[k1][jj] * Bn[k2][jj] for seed s's diagonal block, k1 = s Ks + e / Ks,
+// k2 = s Ks + e % Ks
+__device__ void accumulate_gb(const float* bn, int w, int Ks, int S, float* part_gb) {
+  const int kb = Ks * Ks;
+  for (int s = 0; s < S; ++s)
+    for (int e = threadIdx.x; e < kb; e += kThreads) {
+      const int k1 = s * Ks + e / Ks, k2 = s * Ks + e % Ks;
+      float g = part_gb[s * kb + e];
+      for (int jj = 0; jj < w; ++jj) g = fmaf(bn[k1 * kSW + jj], bn[k2 * kSW + jj], g);
+      part_gb[s * kb + e] = g;
+    }
 }
 
 // as train_chunk.cu reduce_partials: out[e] = the sum over the grid's blocks
@@ -475,21 +514,22 @@ __device__ void series_partial(const Args& a, const float* gb_s, int j0, int w, 
   }
 }
 
-// as train_chunk.cu series_update (one seed): the series and period Adamax
-// from the reduced gradients and the old state, into shared memory in every
-// block (zc_s (K, nc), per_s (K)), with the launch's LRs and bias; block 0
-// also writes the new state with its moments to the scratch (ser_next),
+// as train_chunk.cu series_update: the series and period Adamax from the
+// reduced gradients and the old state, into shared memory in every block
+// (zc_s (K, nc), per_s (K)), with each row's seed's LRs of the launch (lr_ep:
+// the hyperparameters' lr_z and lr_period rows) and the launch's bias; block
+// 0 also writes the new state with its moments to the scratch (ser_next),
 // which store_series stores after the next grid barrier
-__device__ void series_update(const Args& a, const Layout& L, const float* hyp, float* zc_s, float* per_s) {
-  const int K = a.K, nc = 2 * a.nf + 1, NC = nc + 1;
+__device__ void series_update(const Args& a, const Layout& L, const float* lr_ep, float bias, float* zc_s,
+                              float* per_s) {
+  const int K = a.K, Ks = a.Ks, nc = 2 * a.nf + 1, NC = nc + 1;
   const float* sums = a.work + L.sums_ser;
   float* next = a.work + L.ser_next;
   const long long kn = (long long)K * nc;
   const bool store = blockIdx.x == 0;
-  const float bias = hyp[5];
   for (int e = threadIdx.x; e < K * nc; e += kThreads) {
     float p = a.ser[e], mu = a.ser[kn + e], nu = a.ser[2 * kn + e];
-    adamax(&p, &mu, &nu, sums[(e / nc) * NC + e % nc], hyp[2], bias);
+    adamax(&p, &mu, &nu, sums[(e / nc) * NC + e % nc], lr_ep[(e / nc) / Ks], bias);
     zc_s[e] = p;
     if (store) {
       next[e] = p;
@@ -500,7 +540,7 @@ __device__ void series_update(const Args& a, const Layout& L, const float* hyp, 
   for (int k = threadIdx.x; k < K; k += kThreads) {
     const float g = -(1.f / a.per[k]) * sums[k * NC + nc];
     float p = a.per[k], mu = a.per[K + k], nu = a.per[2 * K + k];
-    adamax(&p, &mu, &nu, g, hyp[4], bias);
+    adamax(&p, &mu, &nu, g, lr_ep[kMaxSeeds + k / Ks], bias);
     per_s[k] = p;
     if (store) {
       next[3 * kn + k] = p;
@@ -535,78 +575,91 @@ __device__ void zero_b_pad(const Args& a, const Layout& L) {
 
 // The new B's sub-slab bn (K x kSW, w columns) into the padded copy, and its
 // B Bᵀ partial.
+template <bool kPacked>
 __device__ void store_b_slab(const Args& a, const Layout& L, const float* bn, int j0, int w, float* part_gb) {
   for (int o = threadIdx.x; o < a.K * kSW; o += kThreads) {
     const int k = o / kSW, jj = o % kSW;
     if (jj < w) a.work[L.bp + (long long)k * L.mp + j0 + jj] = bn[o];
   }
-  accumulate_gb(bn, w, a.K, part_gb);
+  accumulate_gb(bn, w, seed_width<kPacked>(a), seed_count<kPacked>(a), part_gb);
 }
 
-// P1, the block's rows of phi (when update): one thread per row, as
-// train_chunk.cu column_phase's phi step (one seed), with step s - 1's dl and
-// the summed latent Gram's signs.
+// P1, the block's rows of phi (when update): one thread per row, each seed in
+// turn, as train_chunk.cu column_phase's phi step, with step s - 1's dl, the
+// summed latent Grams' signs and the launch's LRs and betas.
+template <bool kPacked>
 __device__ void phi_update(const Args& a, const float* hyp) {
-  const int n = a.n, r = a.r, G = gridDim.x;
-  const float* latg = a.sums + (long long)a.K * a.m + (long long)a.K * a.K;
-  const float lr_phi = hyp[1], bias = hyp[5], beta = hyp[6];
+  const int n = a.n, r = a.r, S = seed_count<kPacked>(a), R = S * r, G = gridDim.x, Ks = seed_width<kPacked>(a);
+  const float* latg = a.sums + (long long)a.K * a.m + (long long)S * Ks * Ks;
+  const float bias = hyp[kHypBias * kMaxSeeds];
   const int Rw = (n + G - 1) / G, row_begin = blockIdx.x * Rw, row_end = min(n, row_begin + Rw);
-  const long long rn = (long long)r * n;
+  const long long rn = (long long)R * n;
   for (int row = row_begin + threadIdx.x; row < row_end; row += kThreads) {
     float lat[kMaxR], pd[kMaxR];
     for (int j = 0; j < r; ++j) pd[j] = a.pod[(long long)row * r + j];
-    for (int j = 0; j < r; ++j) lat[j] = pd[j] * a.phi[(long long)j * n + row];
-    for (int j = 0; j < r; ++j) {
-      float dlo = 0.f;
-      for (int l = 0; l < r; ++l)
-        if (l != j) dlo = fmaf(lat[l], sgn(latg[l * r + j]), dlo);
-      const float g = (a.dl[(long long)row * r + j] + beta * dlo) * pd[j];
-      const long long o = (long long)j * n + row;
-      adamax(a.phi + o, a.phi + rn + o, a.phi + 2 * rn + o, g, lr_phi, bias);
+    for (int s = 0; s < S; ++s) {
+      const float lr_phi = hyp[kHypLrPhi * kMaxSeeds + s], beta = hyp[kHypBeta * kMaxSeeds + s];
+      const float* lg = latg + s * r * r;
+      for (int j = 0; j < r; ++j) lat[j] = pd[j] * a.phi[(long long)(s * r + j) * n + row];
+      for (int j = 0; j < r; ++j) {
+        float dlo = 0.f;
+        for (int l = 0; l < r; ++l)
+          if (l != j) dlo = fmaf(lat[l], sgn(lg[l * r + j]), dlo);
+        const float g = (a.dl[(long long)row * R + s * r + j] + beta * dlo) * pd[j];
+        const long long o = (long long)(s * r + j) * n + row;
+        adamax(a.phi + o, a.phi + rn + o, a.phi + 2 * rn + o, g, lr_phi, bias);
+      }
     }
   }
 }
 
 // P1, the block's column slab, in sub-slabs of kSW columns: the old B (desmo:
 // the state's; Fourier: from the old series) and, when update, the summed ax,
-// this block's partial of sum(ax * B), gB = 2/nm (ga B - ax) and the B Adamax
-// (desmo; as train_chunk.cu column_phase's slab, one seed) or the series
-// gradient partials (Fourier); block 0 also forms sum(ga * gb) of the old gb
-// for the metrics. Then, when rows and B is final here (desmo, or the
+// this block's partials of each seed's sum(ax * B), gB = 2/nm (ga B - ax)
+// over the row's seed block of ga and the B Adamax with the seed's lr_z
+// (desmo; as train_chunk.cu column_phase's slab) or the series gradient
+// partials (Fourier); block 0 also forms each seed's sum(ga * gb) of the old
+// gb for the metrics. Then, when rows and B is final here (desmo, or the
 // Fourier form without an update), the slab of B into its padded copy and
 // its B Bᵀ partial.
-template <bool kFourier>
+template <bool kFourier, bool kPacked>
 __device__ void slab_phase(const Args& a, const Layout& L, const float* hyp, float* smem, bool update) {
   const int t = threadIdx.x, b = blockIdx.x;
-  const int m = a.m, K = a.K;
+  const int m = a.m, K = a.K, Ks = seed_width<kPacked>(a), S = seed_count<kPacked>(a);
   const float two_nm = (float)(2.0 / ((double)a.n_total * m));
-  const float bias = hyp[5], lr_z = hyp[2];
+  const float bias = hyp[kHypBias * kMaxSeeds];
   float* ga_s = smem;
-  float* p = smem + round4(K * K);
+  float* p = smem + round4(L.kk);
   float* Bo = p;   p += K * kSW;
   float* Bn = p;   p += K * kSW;
   float* ax_s = p; p += K * kSW;
   float* red = p;  p += kThreads;
+  float* crs = p;  p += S * kThreads;  // each thread's sum(ax * B) by seed
   float* tab = p;  // Fourier: kSerTab floats
+  float* gb_s = tab + (kFourier ? kSerTab : 0);  // block 0: the old gb
   const bool gram = a.rows && !(kFourier && update);
   float* part_gb = a.work + L.part_gb + (long long)b * L.kk;
   float* part_ser = a.work + L.part_ser + (long long)b * L.es_ser;
   const long long km = (long long)K * m;
   if (update) {
     for (int e = t; e < L.kk; e += kThreads) ga_s[e] = a.sums[km + e];
+    for (int s = 0; s < S; ++s) crs[s * kThreads + t] = 0.f;
     if (kFourier)
       for (int e = t; e < L.es_ser; e += kThreads) part_ser[e] = 0.f;
-    if (b == 0) {  // sum(ga * gb) of the old gb, before P2 writes the new: 32 lanes, added in lane order
+    if (b == 0) {  // each seed's sum(ga * gb) of the old gb, before P2 writes the new: warp s's 32 lanes, added in
+                   // lane order, the old gb staged in shared memory first
+      for (int e = t; e < L.kk; e += kThreads) gb_s[e] = a.gb[e];
       __syncthreads();
+      const int lane = t % 32, warp = t / 32, kb = Ks * Ks;
       float v = 0.f;
-      if (t < 32)
-        for (int e = t; e < L.kk; e += 32) v = fmaf(ga_s[e], a.gb[e], v);
+      if (warp < S)
+        for (int e = lane; e < kb; e += 32) v = fmaf(ga_s[warp * kb + e], gb_s[warp * kb + e], v);
       red[t] = v;
       __syncthreads();
-      if (t == 0) {
+      if (lane == 0 && warp < S) {
         float u = 0.f;
-        for (int l = 0; l < 32; ++l) u += red[l];
-        a.work[L.gagb] = u;
+        for (int l = 0; l < 32; ++l) u += red[t + l];
+        a.work[L.gagb + warp] = u;
       }
     }
   }
@@ -614,7 +667,6 @@ __device__ void slab_phase(const Args& a, const Layout& L, const float* hyp, flo
     for (int e = t; e < L.kk; e += kThreads) part_gb[e] = 0.f;
     zero_b_pad(a, L);
   }
-  float cross = 0.f;
   int col_begin, col_end;
   column_slab(m, &col_begin, &col_end);
   const int nc = 2 * a.nf + 1;
@@ -639,95 +691,126 @@ __device__ void slab_phase(const Args& a, const Layout& L, const float* hyp, flo
     }
     __syncthreads();
     if (update) {
-      for (int o = t; o < K * kSW; o += kThreads) {
-        const int k = o / kSW, jj = o % kSW;
-        float nb = 0.f;
-        if (jj < w) {
-          cross = fmaf(ax_s[o], Bo[o], cross);
-          float sm = 0.f;
-          for (int l = 0; l < K; ++l) sm = fmaf(ga_s[k * K + l], Bo[l * kSW + jj], sm);
-          const float g = two_nm * (sm - ax_s[o]);
-          if (kFourier) {
-            nb = g;
-          } else {
-            const long long gi = (long long)k * m + j0 + jj;
-            adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
-            nb = a.b[gi];
+      // seed s owns the entries [s Ks kSW, (s + 1) Ks kSW)
+      for (int s = 0; s < S; ++s) {
+        const float lr_z = hyp[kHypLrZ * kMaxSeeds + s];
+        const float* gas = ga_s + s * Ks * Ks;
+        const float* bos = Bo + s * Ks * kSW;
+        float cross = crs[s * kThreads + t];
+        for (int o = s * Ks * kSW + t; o < (s + 1) * Ks * kSW; o += kThreads) {
+          const int k = o / kSW, jj = o % kSW, kl = k - s * Ks;
+          float nb = 0.f;
+          if (jj < w) {
+            cross = fmaf(ax_s[o], Bo[o], cross);
+            float sm = 0.f;
+            for (int l = 0; l < Ks; ++l) sm = fmaf(gas[kl * Ks + l], bos[l * kSW + jj], sm);
+            const float g = two_nm * (sm - ax_s[o]);
+            if (kFourier) {
+              nb = g;
+            } else {
+              const long long gi = (long long)k * m + j0 + jj;
+              adamax(a.b + gi, a.b + km + gi, a.b + 2 * km + gi, g, lr_z, bias);
+              nb = a.b[gi];
+            }
           }
+          Bn[o] = nb;
         }
-        Bn[o] = nb;
+        crs[s * kThreads + t] = cross;
       }
       __syncthreads();
       if (kFourier) series_partial(a, Bn, j0, w, tab, part_ser);
     }
-    if (gram) store_b_slab(a, L, update ? Bn : Bo, j0, w, part_gb);
+    if (gram) store_b_slab<kPacked>(a, L, update ? Bn : Bo, j0, w, part_gb);
   }
-  if (update) {
-    cross = block_sum(cross, red);
-    if (t == 0) a.work[L.part_cross + b] = cross;
-  }
+  if (update)
+    for (int s = 0; s < S; ++s) {
+      const float cross = block_sum(crs[s * kThreads + t], red);
+      if (t == 0) a.work[L.part_cross + (long long)b * S + s] = cross;
+    }
 }
 
-// P2, block 0: as train_chunk.cu seed_sums and finalize (one seed): the
-// metrics row s - 1 of the pre-update parameters (sum(ga * gb) from P1, the
-// grid's sum(ax * B) partials, the sum of |latᵀlat| off the diagonal and
-// sum |c|, each by one warp with its lane sums added in lane order), the
-// coefficient and omega Adamax and the plateau scheduler.
+// P2, block 0: as train_chunk.cu seed_sums, with each seed's sum(ga * gb)
+// from P1: out[4 s + w] for seed s = sum(ga * gb) over its block (w = 0),
+// sum(ax * B) over the grid's partials (1), the sum of |latᵀlat| off the
+// diagonal (2) and sum |c| over its columns (3). One warp per entry, lanes
+// strided over its terms, the 32 lane sums added in lane order.
+template <bool kPacked>
+__device__ void seed_sums(const Args& a, const Layout& L, const float* latg, float* out, float* red) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int S = seed_count<kPacked>(a), Ks = seed_width<kPacked>(a), r = a.r, G = gridDim.x;
+  for (int i0 = 0; i0 < 4 * S; i0 += kWarps) {
+    const int it = i0 + warp, s = it / 4, w = it % 4;
+    float v = 0.f;
+    if (it < 4 * S) {
+      if (w == 0) {
+        v = lane == 0 ? a.work[L.gagb + s] : 0.f;
+      } else if (w == 1) {
+        for (int bb = lane; bb < G; bb += 32) v += a.work[L.part_cross + (long long)bb * S + s];
+      } else if (w == 2) {
+        for (int e = lane; e < r * r; e += 32)
+          if (e / r != e % r) v += fabsf(latg[s * r * r + e]);
+      } else {
+        for (int k = lane; k < Ks; k += 32) v += fabsf(a.coef[s * Ks + k]);
+      }
+    }
+    __syncthreads();
+    red[t] = v;
+    __syncthreads();
+    if (lane == 0 && it < 4 * S) {
+      float u = 0.f;
+      for (int l = 0; l < 32; ++l) u += red[t + l];
+      out[it] = u;
+    }
+  }
+  __syncthreads();
+}
+
+// P2, block 0: as train_chunk.cu finalize, for the update of step s - 1: the
+// metrics rows s - 1 of the pre-update parameters, the coefficient and omega
+// Adamax and the plateau schedulers, each seed with its own LRs, beta and
+// lambda.
+template <bool kPacked>
 __device__ void finalize(const Args& a, const Layout& L, const Tables& tb, float* smem, int s) {
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32, G = gridDim.x;
-  const int r = a.r, K = a.K;
+  const int t = threadIdx.x;
+  const int r = a.r, K = a.K, S = seed_count<kPacked>(a), R = S * r, CT = kCT + a.P;
   float* red = smem;
-  float* ss = smem + kThreads;  // the four sums, then the total
+  float* ss = smem + kThreads;         // seed_sums' out
+  float* tot = ss + 4 * kMaxSeeds;     // total of each seed
   const float* ga = a.sums + (long long)K * a.m;
   const float* latg = ga + L.kk;
-  const float* gcoef = latg + r * r;
+  const float* gcoef = latg + L.lg;
   const float* gom = gcoef + K;
   float* sv = a.svec;
   const float powb = sv[kPow] * kB1;
   const float bias = 1.f - powb;
-  {
-    float v = 0.f;
-    if (warp == 0) {
-      v = lane == 0 ? a.work[L.gagb] : 0.f;
-    } else if (warp == 1) {
-      for (int bb = lane; bb < G; bb += 32) v += a.work[L.part_cross + bb];
-    } else if (warp == 2) {
-      for (int e = lane; e < r * r; e += 32)
-        if (e / r != e % r) v += fabsf(latg[e]);
-    } else if (warp == 3) {
-      for (int k = lane; k < K; k += 32) v += fabsf(a.coef[k]);
-    }
-    red[t] = v;
-    __syncthreads();
-    if (lane == 0 && warp < 4) {
-      float u = 0.f;
-      for (int l = 0; l < 32; ++l) u += red[t + l];
-      ss[warp] = u;
-    }
-    __syncthreads();  // the sums are written, and every read of c is done before its update
-  }
-  if (t == 0 && s - 1 < a.num_steps) {
+  seed_sums<kPacked>(a, L, latg, ss, red);  // its barriers order the reads of c before the updates
+  if (t < S) {
     const float nm = (float)((double)a.n_total * a.m);
-    const float rec = (ss[0] - 2.f * ss[1] + *a.x_sq) / nm;
-    const float ortho = 0.5f * ss[2], l1 = ss[3];
-    const float total = rec + sv[kBeta] * ortho + sv[kLam] * l1;
-    ss[4] = total;
-    float* row = a.met + (long long)(s - 1) * kMetrics;
-    row[0] = rec;
-    row[1] = ortho;
-    row[2] = l1;
-    row[3] = total;
+    const float rec = (ss[4 * t] - 2.f * ss[4 * t + 1] + *a.x_sq) / nm;
+    const float ortho = 0.5f * ss[4 * t + 2], l1 = ss[4 * t + 3];
+    const float total = rec + tb.hyp[kHypBeta * kMaxSeeds + t] * ortho + tb.hyp[kHypLam * kMaxSeeds + t] * l1;
+    tot[t] = total;
+    if (s - 1 < a.num_steps) {
+      float* row = a.met + ((long long)(s - 1) * S + t) * kMetrics;
+      row[0] = rec;
+      row[1] = ortho;
+      row[2] = l1;
+      row[3] = total;
+    }
   }
-  for (int k = t; k < K; k += kThreads) {
-    const float g = gcoef[k] + sv[kLam] * sgn(a.coef[k]);
-    adamax(a.coef + k, a.coef + K + k, a.coef + 2 * K + k, g, sv[kLr0], bias);
+  for (int k = t; k < K; k += kThreads) {  // each column's seed's lambda and LR, the launch's (tb.hyp)
+    const int seed = tb.ct[k * CT];
+    const float g = gcoef[k] + tb.hyp[kHypLam * kMaxSeeds + seed] * sgn(a.coef[k]);
+    adamax(a.coef + k, a.coef + K + k, a.coef + 2 * K + k, g, tb.hyp[kHypLrCoef * kMaxSeeds + seed], bias);
   }
-  for (int q = t; q < 3 * r; q += kThreads)
-    adamax(a.omega + q, a.omega + 3 * r + q, a.omega + 6 * r + q, gom[q], sv[kLr0 + 3], bias);
-  __syncthreads();  // every thread has read the scheduler vector, and the total is written
-  if (t == 0) {
-    const float total = ss[4];
-    const float best = sv[kBest], num_bad = sv[kNumBad], epoch = sv[kEpoch];
+  for (int q = t; q < 3 * R; q += kThreads)
+    adamax(a.omega + q, a.omega + 3 * R + q, a.omega + 6 * R + q, gom[q], tb.hyp[kHypLrOmega * kMaxSeeds + q / (3 * r)],
+           bias);
+  __syncthreads();  // every thread has read the scheduler vectors, and tot is written
+  if (t < S) {
+    float* svs = sv + t * kSvec;
+    const float total = tot[t];
+    const float best = svs[kBest], num_bad = svs[kNumBad], epoch = svs[kEpoch];
     const bool improved = total < best * kImproved;
     const float best_n = improved ? total : best;
     float nb = improved ? 0.f : num_bad + 1.f;
@@ -735,21 +818,22 @@ __device__ void finalize(const Args& a, const Layout& L, const Tables& tb, float
     if (reduce) nb = 0.f;
     if (fmodf(epoch, (float)a.sched_every) == 0.f) {
       for (int g = 0; g < 5; ++g) {
-        const float lr = sv[kLr0 + g];
-        sv[kLr0 + g] = reduce ? fmaxf(lr * a.factor, a.min_lr) : lr;
+        const float lr = svs[kLr0 + g];
+        svs[kLr0 + g] = reduce ? fmaxf(lr * a.factor, a.min_lr) : lr;
       }
-      sv[kBest] = best_n;
-      sv[kNumBad] = nb;
+      svs[kBest] = best_n;
+      svs[kNumBad] = nb;
     }
-    sv[kPow] = powb;
-    sv[kCount] = sv[kCount] + 1.f;
-    sv[kEpoch] = epoch + 1.f;
+    svs[kPow] = powb;
+    svs[kCount] = svs[kCount] + 1.f;
+    svs[kEpoch] = epoch + 1.f;
   }
 }
 
 // P3 (Fourier, when rows): as train_chunk.cu series_slab, the block's column
 // slab of the new B from the new series zc_s (K, nc) and periods per_s (K),
 // in sub-slabs, into the padded copy, and its B Bᵀ partial.
+template <bool kPacked>
 __device__ void series_slab(const Args& a, const Layout& L, const float* zc_s, const float* per_s, float* bn) {
   const int K = a.K, nc = 2 * a.nf + 1;
   float* part_gb = a.work + L.part_gb + (long long)blockIdx.x * L.kk;
@@ -771,7 +855,7 @@ __device__ void series_slab(const Args& a, const Layout& L, const float* zc_s, c
       bn[o] = v;
     }
     __syncthreads();
-    store_b_slab(a, L, bn, j0, w, part_gb);
+    store_b_slab<kPacked>(a, L, bn, j0, w, part_gb);
   }
 }
 
@@ -1008,18 +1092,18 @@ __device__ void ax_partials(const float* A, int lda, const float* x, int ldx, in
   }
 }
 
-// R1, as train_chunk.cu row_phase (one seed): forward, xb, dA, dl and the
-// per-block partials over the block's rows.
-template <int KP>
+// R1, as train_chunk.cu row_phase: forward, xb, dA, dl and the per-block
+// partials over the block's rows, with the step's gb, dl and 2/nm.
+template <int KP, bool kPacked>
 __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, float* smem, PhaseClock& clock) {
   const int t = threadIdx.x, b = blockIdx.x, G = gridDim.x;
-  const int n = a.n, m = a.m, r = a.r, P = a.P, K = a.K, ld = K + 1;
-  const int AW = r + 1, CT = kCT + P, T = K - 3 * r;
+  const int n = a.n, m = a.m, r = a.r, P = a.P, K = a.K, Ks = seed_width<kPacked>(a), ld = K + 1;
+  const int R = seed_count<kPacked>(a) * r, AW = R + 1, CT = kCT + P, T = Ks - 3 * r;
   const float two_nm = (float)(2.0 / ((double)a.n_total * m));
   const int* ct = tb.ct;
   float* p = smem;
   float* c_s = p;   p += round4(K);
-  float* om_s = p;  p += round4(3 * r);
+  float* om_s = p;  p += round4(3 * R);
   float* gb_s = p;  p += round4(L.kk);
   float* aug_s = p; p += kRT * AW;
   float* D_s = p;   p += kRT * ld;
@@ -1037,20 +1121,20 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
   float* A_g = a.work + L.a;
 
   for (int k = t; k < K; k += kThreads) { c_s[k] = a.coef[k]; cacc[k] = 0.f; }
-  for (int q = t; q < 3 * r; q += kThreads) { om_s[q] = a.omega[q]; oacc[q] = 0.f; }
+  for (int q = t; q < 3 * R; q += kThreads) { om_s[q] = a.omega[q]; oacc[q] = 0.f; }
   for (int e = t; e < L.kk; e += kThreads) gb_s[e] = a.gb[e];
-  for (int e = t; e < L.kk + r * r; e += kThreads) part[e] = 0.f;
+  for (int e = t; e < L.kk + L.lg; e += kThreads) part[e] = 0.f;
   float vmax = 0.f;
 
   const int Rw = (n + G - 1) / G, row_begin = b * Rw, row_end = min(n, row_begin + Rw);
   for (int r0 = row_begin; r0 < row_end; r0 += kRT) {
     const int rows = min(kRT, row_end - r0);
     __syncthreads();  // the tables are loaded and the previous tile is consumed
-    // [1 | lat]: lane 1 + j holds pod[row][j] * phi[j][row]
+    // [1 | lat]: lane 1 + s r + j holds pod[row][j] * phi[s r + j][row]
     for (int e = t; e < kRT * AW; e += kThreads) {
       const int i = e / AW, j = e % AW, row = r0 + i;
       float v = 0.f;
-      if (i < rows) v = j == 0 ? 1.f : a.pod[(long long)row * r + j - 1] * a.phi[(long long)(j - 1) * n + row];
+      if (i < rows) v = j == 0 ? 1.f : a.pod[(long long)row * r + (j - 1) % r] * a.phi[(long long)(j - 1) * n + row];
       aug_s[i * AW + j] = v;
     }
     __syncthreads();
@@ -1093,21 +1177,22 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
     xb_tile<KP>(a.xp, a.work + L.bp, L.mp, m, K, r0, rows, ring, Y_s, ld);
     __syncthreads();
     clock.mark(kRowsXb);
-    // dA = 2/nm (A gb - xb), in place of xb; each thread carries kGroup
-    // entries side by side
+    // dA = 2/nm (A gb - xb), in place of xb, over each column's seed block
+    // of gb; each thread carries kGroup entries side by side
     for (int e0 = 0; e0 < kRT * K; e0 += kGroup * kThreads) {
-      int ia[kGroup], ka[kGroup];
+      int ia[kGroup], ka[kGroup], ga[kGroup];
       float acc[kGroup];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
-        const int e = min(e0 + t + kThreads * u, kRT * K - 1);
-        ia[u] = (e / K) * ld;
-        ka[u] = e % K;
+        const int e = min(e0 + t + kThreads * u, kRT * K - 1), k = e % K, s = ct[k * CT];
+        ia[u] = (e / K) * ld + s * Ks;  // the row's first column of the seed
+        ka[u] = k;
+        ga[u] = s * Ks * Ks + (k - s * Ks);  // gb block s, column k - s Ks
         acc[u] = 0.f;
       }
-      for (int l = 0; l < K; ++l)
+      for (int l = 0; l < Ks; ++l)
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) acc[u] = fmaf(A_s[ia[u] + l], gb_s[ka[u] + l * K], acc[u]);
+        for (int u = 0; u < kGroup; ++u) acc[u] = fmaf(A_s[ia[u] + l], gb_s[ga[u] + l * Ks], acc[u]);
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
         const int e = e0 + t + kThreads * u;
@@ -1133,36 +1218,38 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
       cacc[k] = gc;
       if (trig) oacc[q] = go;
     }
-    // dl[row][j]: the trig part through omega, the polynomial part by the
-    // product rule
-    for (int e = t; e < rows * r; e += kThreads) {
-      const int i = e / r, j = e % r;
+    // dl[row][jl] for latent lane jl = s r + j: the trig part through omega,
+    // the polynomial part by the product rule
+    for (int e = t; e < rows * R; e += kThreads) {
+      const int i = e / R, jl = e % R, s = jl / r, j = jl % r;
       const float* ag = aug_s + i * AW;
       float trig = 0.f;
       for (int kind = 0; kind < 3; ++kind) {
-        const int q = kind * r + j, k = T + q;
+        const int q = s * 3 * r + kind * r + j, k = s * Ks + T + kind * r + j;
         trig += Y_s[i * ld + k] * c_s[k] * V_s[i * ld + k] * om_s[q];
       }
       float poly = 0.f;
-      for (int d = tb.d_off[j]; d < tb.d_off[j + 1]; ++d) {
+      for (int d = tb.d_off[jl]; d < tb.d_off[jl + 1]; ++d) {
         const int tt = tb.d_tp[d] / P, q = tb.d_tp[d] % P;
         float prod = Y_s[i * ld + tt] * c_s[tt];
         for (int u = 0; u < P; ++u)
           if (u != q) prod *= ag[ct[tt * CT + kCT + u]];
         poly += prod;
       }
-      a.dl[(long long)(r0 + i) * r + j] = trig + poly;
+      a.dl[(long long)(r0 + i) * R + jl] = trig + poly;
     }
-    // Gram partials over the tile's rows: AᵀA, kGroup entries side by side,
-    // and latᵀlat
+    // Gram partials over the tile's rows: the seeds' diagonal blocks of AᵀA,
+    // kGroup entries side by side, and their latent Grams latᵀlat; entry e
+    // = k1 Ks + k2' of the blocks stacked (S Ks, Ks), k1 the global column,
+    // its seed's block from the column table (no second division)
     for (int e0 = 0; e0 < L.kk; e0 += kGroup * kThreads) {
       int k1[kGroup], k2[kGroup];
       float g[kGroup];
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
         const int e = min(e0 + t + kThreads * u, L.kk - 1);
-        k1[u] = e / K;
-        k2[u] = e % K;
+        k1[u] = e / Ks;
+        k2[u] = ct[k1[u] * CT] * Ks + e % Ks;
         g[u] = part_ga[e];
       }
       for (int i = 0; i < rows; ++i)
@@ -1172,50 +1259,51 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
       for (int u = 0; u < kGroup; ++u)
         if (e0 + t + kThreads * u < L.kk) part_ga[e0 + t + kThreads * u] = g[u];
     }
-    for (int e = t; e < r * r; e += kThreads) {
-      const int j1 = e / r, j2 = e % r;
+    for (int e = t; e < L.lg; e += kThreads) {
+      const int s = e / (r * r), j1 = (e / r) % r, j2 = e % r;
       float g = part_lat[e];
-      for (int i = 0; i < rows; ++i) g = fmaf(aug_s[i * AW + 1 + j1], aug_s[i * AW + 1 + j2], g);
+      for (int i = 0; i < rows; ++i) g = fmaf(aug_s[i * AW + 1 + s * r + j1], aug_s[i * AW + 1 + s * r + j2], g);
       part_lat[e] = g;
     }
     __syncthreads();
     clock.mark(kRowsGradients);
   }
-  for (int k = t; k < K; k += kThreads) part[L.kk + r * r + k] = cacc[k];
-  for (int q = t; q < 3 * r; q += kThreads) part[L.kk + r * r + K + q] = oacc[q];
+  for (int k = t; k < K; k += kThreads) part[L.kk + L.lg + k] = cacc[k];
+  for (int q = t; q < 3 * R; q += kThreads) part[L.kk + L.lg + K + q] = oacc[q];
   vmax = block_max(vmax, red);
   if (t == 0) a.work[L.part_max + b] = vmax;
 }
 
-template <int KP, bool kFourier>
+template <int KP, bool kFourier, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1) step_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   PhaseClock clock(reinterpret_cast<unsigned long long*>(shared_base() + kLayoutFloats));
   const int nc = kFourier ? 2 * a.nf + 1 : 0;
   Layout* shared_layout = reinterpret_cast<Layout*>(shared_base());
-  if (threadIdx.x == 0) *shared_layout = make_layout(a.n, a.m, a.r, a.K, nc, gridDim.x);
+  if (threadIdx.x == 0)
+    *shared_layout = make_layout(a.n, a.m, a.r, seed_width<kPacked>(a), seed_count<kPacked>(a), nc, gridDim.x);
   const int s = *a.count;  // read by every block before block 0 advances it
   const bool update = s > 0;
   __syncthreads();
   const Layout& L = *shared_layout;
-  const Tables tb = build_tables(a, shared_base() + kLayoutFloats + kClockFloats);
-  float* smem = shared_base() + table_floats(a.K, a.P, a.r);  // each phase's own shared memory
+  const Tables tb = build_tables<kPacked>(a, shared_base() + kLayoutFloats + kClockFloats);
+  float* smem = shared_base() + table_floats(a.K, a.P, seed_count<kPacked>(a) * a.r);  // each phase's own shared memory
   clock.mark(kSetup);
 
   // the prologue: the update of step s - 1 (when s > 0), then gb = B Bᵀ
-  if (update) phi_update(a, tb.hyp);
-  slab_phase<kFourier>(a, L, tb.hyp, smem, update);
+  if (update) phi_update<kPacked>(a, tb.hyp);
+  slab_phase<kFourier, kPacked>(a, L, tb.hyp, smem, update);
   grid.sync();
   clock.mark(kUpdate);
   if (kFourier && update) {
     reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem);
     __syncthreads();
-    if (blockIdx.x == 0) finalize(a, L, tb, smem, s);
+    if (blockIdx.x == 0) finalize<kPacked>(a, L, tb, smem, s);
     grid.sync();
     float* zc_s = smem;
     float* per_s = zc_s + round4(a.K * nc);
-    series_update(a, L, tb.hyp, zc_s, per_s);
-    if (a.rows) series_slab(a, L, zc_s, per_s, per_s + round4(a.K));
+    series_update(a, L, tb.hyp, tb.hyp[kHypBias * kMaxSeeds], zc_s, per_s);
+    if (a.rows) series_slab<kPacked>(a, L, zc_s, per_s, per_s + round4(a.K));
     grid.sync();
     clock.mark(kUpdate);
     if (a.rows) reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.gb, smem);
@@ -1223,13 +1311,13 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(Args a) {
   } else {
     if (a.rows) reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.gb, smem);
     __syncthreads();
-    if (update && blockIdx.x == 0) finalize(a, L, tb, smem, s);
+    if (update && blockIdx.x == 0) finalize<kPacked>(a, L, tb, smem, s);
   }
   if (a.rows) {
     grid.sync();
     clock.mark(kGram);
     // the partials of step s over the rank's rows
-    row_phase<KP>(a, L, tb, smem, clock);
+    row_phase<KP, kPacked>(a, L, tb, smem, clock);
     grid.sync();
     clock.mark(kRowsBarrier);
     const long long km = (long long)a.K * a.m;
@@ -1261,24 +1349,32 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(Args a) {
   clock.store(a.work + L.timer);
 }
 
-size_t smem_bytes(int r, int K, int P, int nc) { return sizeof(float) * (size_t)smem_floats(r, K, P, nc); }
+size_t smem_bytes(int r, int Ks, int S, int P, int nc) {
+  return sizeof(float) * (size_t)smem_floats(r, Ks, S, P, nc);
+}
 
 using KernelFn = void (*)(Args);
 
-template <bool kFourier>
+template <bool kFourier, bool kPacked>
 KernelFn kernel_for_k(int K) {
   switch (padded_k(K)) {
-    case 32: return step_kernel<32, kFourier>;
-    case 48: return step_kernel<48, kFourier>;
-    case 64: return step_kernel<64, kFourier>;
-    default: return step_kernel<128, kFourier>;
+    case 32: return step_kernel<32, kFourier, kPacked>;
+    case 48: return step_kernel<48, kFourier, kPacked>;
+    case 64: return step_kernel<64, kFourier, kPacked>;
+    default: return step_kernel<128, kFourier, kPacked>;
   }
 }
 
-KernelFn kernel_for(int K, int nf) { return nf > 0 ? kernel_for_k<true>(K) : kernel_for_k<false>(K); }
+// the kernel of the packed width K = S Ks: a one-seed form at S = 1
+KernelFn kernel_for(int K, int nf, int S) {
+  if (S > 1) return nf > 0 ? kernel_for_k<true, true>(K) : kernel_for_k<false, true>(K);
+  return nf > 0 ? kernel_for_k<true, false>(K) : kernel_for_k<false, false>(K);
+}
 
-bool valid_shape(int r, int P, int K, int nf) {
-  return r >= 1 && r <= kMaxR && P >= 1 && P <= kMaxP && K > 3 * r && K <= kMaxK && nf >= 0 && nf <= kMaxNf;
+// as train_chunk.cu valid_shape
+bool valid_shape(int r, int P, int Ks, int S, int nf) {
+  return r >= 1 && r <= kMaxR && P >= 1 && P <= kMaxP && S >= 1 && S <= kMaxSeeds && Ks > 3 * r &&
+         S * Ks <= kMaxK && nf >= 0 && nf <= kMaxNf;
 }
 
 int series_length(int nf) { return nf > 0 ? 2 * nf + 1 : 0; }
@@ -1289,18 +1385,20 @@ extern "C" {
 
 // Blocks of the cooperative launch on the current device (one per SM), or a
 // negative cudaError_t: cooperative launch unsupported, or no block fits.
-// Also sets the kernel's dynamic shared memory limit, which desmo_step needs
-// (and does not set itself, so that a step can be captured in a graph).
-int desmo_step_grid(int r, int P, int K, int nf) {
-  if (!valid_shape(r, P, K, nf)) return -(int)cudaErrorInvalidValue;
+// Ks = T + 3r columns per seed, S seeds; nf is the number of Fourier
+// harmonics, 0 for the desmo form. Also sets the kernel's dynamic shared
+// memory limit, which desmo_step needs (and does not set itself, so that a
+// step can be captured in a graph).
+int desmo_step_grid(int r, int P, int Ks, int S, int nf) {
+  if (!valid_shape(r, P, Ks, S, nf)) return -(int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return -(int)err;
   if (!coop) return -(int)cudaErrorNotSupported;
-  const size_t bytes = smem_bytes(r, K, P, series_length(nf));
-  const void* kernel = (const void*)kernel_for(K, nf);
+  const size_t bytes = smem_bytes(r, Ks, S, P, series_length(nf));
+  const void* kernel = (const void*)kernel_for(S * Ks, nf, S);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
   if (err != cudaSuccess) return -(int)err;
@@ -1309,39 +1407,41 @@ int desmo_step_grid(int r, int P, int K, int nf) {
 }
 
 // Floats of scratch the launch needs for n rows and a grid of `grid` blocks.
-long long desmo_step_workspace(int n, int m, int r, int K, int nf, int grid) {
-  return make_layout(n, m, r, K, series_length(nf), grid).total;
+long long desmo_step_workspace(int n, int m, int r, int Ks, int S, int nf, int grid) {
+  return make_layout(n, m, r, Ks, S, series_length(nf), grid).total;
 }
 
 // Offset (in floats) in the scratch of the kPhases 64-bit nanosecond
 // counters (enum Phase) that every launch adds its clock to.
-long long desmo_step_timer_offset(int n, int m, int r, int K, int nf, int grid) {
-  return make_layout(n, m, r, K, series_length(nf), grid).timer;
+long long desmo_step_timer_offset(int n, int m, int r, int Ks, int S, int nf, int grid) {
+  return make_layout(n, m, r, Ks, S, series_length(nf), grid).timer;
 }
 
-// One step over this rank's n rows (see the top of this file), in place on
-// the state (phi, coef, omega, svec and either b (desmo, nf = 0; tpts, ser
-// and per unused) or ser and per (Fourier, nf > 0; b unused)), sums, dl, gb,
-// the metrics and max_arg rows and the counter; n_total is the global row
-// count. ctab is kernel_table's: the column table, then the polynomial
-// backward's lane lists. xp holds X's rows at stride padded_m(m), zero beyond m; met and
-// max_arg have num_steps rows (a launch past them writes none). rows = 0
-// runs the prologue alone. desmo_step_grid must have run for this shape on
-// the device. Returns a cudaError_t.
+// One step of S seeds of Ks columns each over this rank's n rows (see the
+// top of this file), in place on the state (phi, coef, omega, svec and
+// either b (desmo, nf = 0; tpts, ser and per unused) or ser and per
+// (Fourier, nf > 0; b unused)), sums, dl, gb, the metrics and max_arg rows
+// and the counter; n_total is the global row count. ctab is kernel_table's:
+// the column table, then the polynomial backward's lane lists. xp holds X's
+// rows at stride padded_m(m), zero beyond m; met and max_arg have num_steps
+// rows (a launch past them writes none). rows = 0 runs the prologue alone.
+// desmo_step_grid must have run for this shape on the device. Returns a
+// cudaError_t.
 int desmo_step(const float* pod, const float* xp, const float* x_sq, const int* ctab, const float* tpts,
                float* phi, float* b, float* ser, float* per, float* coef, float* omega, float* svec,
                float* sums, float* dl, float* gb, float* met, float* max_arg, int* count, float* work,
-               int n, int m, int r, int P, int K, int nf, int n_total, int rows, int sched_every, int num_steps,
-               int grid, float patience, float factor, float min_lr, void* stream) {
-  if (!valid_shape(r, P, K, nf) || n < 1 || m < 1 || n_total < n || grid < 1 || sched_every < 1 ||
+               int n, int m, int r, int P, int Ks, int S, int nf, int n_total, int rows, int sched_every,
+               int num_steps, int grid, float patience, float factor, float min_lr, void* stream) {
+  if (!valid_shape(r, P, Ks, S, nf) || n < 1 || m < 1 || n_total < n || grid < 1 || sched_every < 1 ||
       num_steps < 1 || !ctab || !count || (nf > 0 ? (!tpts || !ser || !per) : !b))
     return (int)cudaErrorInvalidValue;
   Args args{pod, xp, x_sq, ctab, phi, b, coef, omega, svec, sums, dl, gb, met, max_arg, count, work,
-            n, m, r, P, K, n_total, rows != 0, sched_every, num_steps, patience, factor, min_lr, tpts, ser, per, nf};
-  const size_t bytes = smem_bytes(r, K, P, series_length(nf));
+            n, m, r, P, S * Ks, n_total, rows != 0, sched_every, num_steps, patience, factor, min_lr,
+            tpts, ser, per, nf, S, Ks};
+  const size_t bytes = smem_bytes(r, Ks, S, P, series_length(nf));
   void* params[] = {&args};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel_for(K, nf), dim3(grid), dim3(kThreads), params,
-                                                bytes, static_cast<cudaStream_t>(stream));
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel_for(S * Ks, nf, S), dim3(grid), dim3(kThreads),
+                                                params, bytes, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,10 @@ freezing them, and keeps the best.
 On a GPU a group runs through the packed mega-kernel
 (``kernels.train_chunk.fused_ensemble_chunk``), else through the packed
 eager loop (:func:`make_ensemble_chunk`), whose fused loss reads X through
-the dual-contraction kernel at the packed width. The TPU got the extra seeds
+the dual-contraction kernel at the packed width. Over a device mesh
+(``fit(device_mesh=...)``) the seeds stay packed while their rows of phi
+shard over the ranks: a group runs through the sharded step's packed form
+(``kernels.shard_step.make_sharded_fused_ensemble_chunk``). The TPU got the extra seeds
 almost free (its matrix unit pads K to 128 lanes); on the GPU the work grows
 with S K, and what packing shares is the read of X and the per-epoch fixed
 costs.
@@ -30,7 +33,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from desmo_tpu_torch import library, optim, sparsify, train
+from desmo_tpu_torch import library, optim, parallel, sparsify, train
 from desmo_tpu_torch.configs import GROUP_ORDER, RunConfig
 from desmo_tpu_torch.kernels import dual_gemm
 from desmo_tpu_torch.kernels import train_chunk as tc
@@ -265,7 +268,8 @@ def make_ensemble_chunk(loss_fn, group_of: dict[str, str], cfg: RunConfig, n_see
     ``total_s`` (num_steps, S) and ``total`` (num_steps,)."""
     if param_shardings is not None:
         raise NotImplementedError(
-            "desmo_tpu_torch does not run the ensemble over a device mesh yet (ROADMAP queue 1, item 5: the packed sharded ensemble)"
+            "desmo_tpu_torch does not run the packed eager loop over a device mesh yet "
+            "(ROADMAP queue 1, item 5.2: the eager path over a mesh)"
         )
 
     def chunk(state: train.TrainState, batch: dict, num_steps: int):
@@ -420,12 +424,23 @@ def fit(
     ``checkpoint_fn(state, epoch)`` is called at every chunk boundary with
     the group's best live seed. ``report`` (a dict) receives ``hypers``,
     ``final_recs``, ``live_seeds`` and ``seed_params`` (the live members'
-    single-seed params, for :func:`term_stability`)."""
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "desmo_tpu_torch does not run the ensemble over a device mesh yet (ROADMAP queue 1, item 5: the packed sharded ensemble)"
-        )
+    single-seed params, for :func:`term_stability`).
+
+    ``device_mesh`` (``parallel.make_mesh``) shards the rows over its ranks:
+    ``batch`` is whole on every rank and each group's init is drawn whole and
+    broadcast from rank 0; each rank trains its rows of phi and its moments
+    (``parallel.local_rows``) through the sharded packed chunk, and the
+    metrics, so every rollback, freeze and pick of the best seed, are the
+    same on every rank. What ``checkpoint_fn``, ``report`` and the result
+    receive holds phi whole (``SpaceMesh.gather_rows``). Where
+    ``select_ensemble_chunk`` takes no kernel under a mesh (``chunk_method``
+    'scan', or seeds that do not pack) fit raises ``NotImplementedError``."""
     device = batch["x"].device
+    local_batch = batch if device_mesh is None else parallel.shard_batch(batch, device_mesh)
+
+    def whole(state: train.TrainState) -> train.TrainState:
+        return state if device_mesh is None else parallel.gather_state(state, device_mesh, spec.n)
+
     if method is None:
         method = "fused" if device.type == "cuda" else "factored"
     if hypers is None:
@@ -485,12 +500,24 @@ def fit(
                 u = torch.rand((3, spec.r), generator=g_omega)
                 params["omega"][0] *= 10.0 ** ((2.0 * u - 1.0) * omega_spread)
         params = {k: v.to(device) for k, v in params.items()}
+        if device_mesh is not None:
+            for t in params.values():  # rank 0's draws, so that the ranks cannot drift apart
+                device_mesh.broadcast(t)
         key = (S, None if betas is None else tuple(map(float, betas)), None if lams is None else tuple(map(float, lams)))
         if key not in chunk_cache:
-            chunk_cache[key] = tc.select_ensemble_chunk(spec, cfg, S, device, betas=betas, lams=lams) or \
-                make_ensemble_chunk(build_loss(spec, cfg, S, method=method, betas=betas, lams=lams), groups, cfg, S)
+            chunk = tc.select_ensemble_chunk(spec, cfg, S, device, betas=betas, lams=lams, device_mesh=device_mesh)
+            if chunk is None and device_mesh is not None:
+                raise NotImplementedError(
+                    f"desmo_tpu_torch does not run the packed eager loop over a device mesh (chunk_method="
+                    f"{cfg.chunk_method!r}, loss_method={cfg.loss_method!r}, {S} seeds of preset {cfg.name!r}) yet "
+                    "(ROADMAP queue 1, item 5.2: the eager path over a mesh)"
+                )
+            chunk_cache[key] = chunk or make_ensemble_chunk(
+                build_loss(spec, cfg, S, method=method, betas=betas, lams=lams), groups, cfg, S)
         chunk = chunk_cache[key]
         state = init_state(params, cfg, S, lr_scales=scales)
+        if device_mesh is not None:
+            state = parallel.local_state(state, device_mesh)
         chunk_size = min(cfg.checkpoint_every, num_epochs)
         done = recoveries = 0
         histories = []
@@ -499,7 +526,7 @@ def fit(
         while done < num_epochs:
             nsteps = min(chunk_size, num_epochs - done)
             t_chunk = time.perf_counter()
-            state, mets = chunk(state, batch, nsteps)
+            state, mets = chunk(state, local_batch, nsteps)
             mets = _fetch(mets)
             dt = time.perf_counter() - t_chunk
             if id(chunk) in warmed:
@@ -533,7 +560,7 @@ def fit(
             if checkpoint_fn is not None:
                 # under a sweep the best live seed is the one of lowest rec
                 live = np.where(frozen, np.inf, (mets["rec"] if hypers is not None else tot_s)[-1])
-                checkpoint_fn(seed_state(state, cfg, int(np.argmin(live))), int(state.epoch))
+                checkpoint_fn(whole(seed_state(state, cfg, int(np.argmin(live)))), int(state.epoch))
             if log is not None and (done % max(cfg.log_every, nsteps) == 0 or done == num_epochs):
                 log(f"[ensemble group {gi}] epoch {done}/{num_epochs} per-seed total: "
                     f"{np.array2string(mets['total_s'][-1], precision=6)}")
@@ -541,6 +568,7 @@ def fit(
         recs = np.where(frozen, np.inf, histories[-1]["rec"][-1])
         sels = recs if hypers is not None else finals
         hist = {k: np.concatenate([h[k] for h in histories]) for k in histories[0]}
+        state = whole(state)
         for s in range(S):
             results.append((float(finals[s]), float(sels[s]), start + s, state, s, hist))
             rec_by_seed[start + s] = float(recs[s])

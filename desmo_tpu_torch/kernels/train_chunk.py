@@ -168,27 +168,46 @@ def select_chunk(spec, cfg, device: torch.device):
     return make_chunk(spec, cfg)
 
 
-def select_ensemble_chunk(spec, cfg, n_seeds: int, device: torch.device, betas=None, lams=None):
+def select_ensemble_chunk(spec, cfg, n_seeds: int, device: torch.device, betas=None, lams=None, device_mesh=None):
     """The packed chunk policy of
-    ``desmo_tpu.pallas.train_chunk.select_ensemble_chunk`` on one device: the
-    packed mega-kernel's chunk (:func:`fused_ensemble_chunk`), or None for the
+    ``desmo_tpu.pallas.train_chunk.select_ensemble_chunk``: the packed
+    mega-kernel's chunk (:func:`fused_ensemble_chunk`), or None for the
     packed eager loop (``ensemble.make_ensemble_chunk``). ``betas``/``lams``
     (length ``n_seeds``) are the seeds' loss weights.
 
     'scan' is always the eager loop; 'megakernel' requires the kernel
     (``ValueError`` when the seeds do not pack; on the CPU it runs the plain
-    version); 'auto' takes it on a CUDA device, the eager loop on the CPU."""
+    version); 'auto' takes it on a CUDA device, the eager loop on the CPU.
+    Under a ``device_mesh`` (``parallel.make_mesh``) the kernel is the
+    sharded step's packed form
+    (``kernels.shard_step.make_sharded_fused_ensemble_chunk``), which 'auto'
+    takes on any device when the loss method is 'auto' or 'fused', as the
+    one-seed sharded chunk is taken (``runner.select_sharded_chunk``); its
+    plain version runs on the CPU."""
     method = getattr(cfg, "chunk_method", "auto")
     if method == "scan":
         return None
+    if method not in ("megakernel", "auto"):
+        raise ValueError(f"unknown chunk_method {method!r}")
+    if device_mesh is not None:
+        from desmo_tpu_torch.kernels import shard_step
+
+        if not shard_step.supports_sharded_packed(spec, cfg, n_seeds):
+            if method == "megakernel":
+                raise ValueError(
+                    f"chunk_method='megakernel' with a device mesh but preset {cfg.name!r} at S={n_seeds} has no "
+                    "sharded seed-packed kernel — see kernels.shard_step.supports_sharded_packed"
+                )
+            return None
+        if method == "auto" and getattr(cfg, "loss_method", "auto") not in ("auto", "fused"):
+            return None
+        return shard_step.make_sharded_fused_ensemble_chunk(spec, cfg, device_mesh, n_seeds, betas=betas, lams=lams)
     if method == "megakernel":
         if not supports_packed(spec, cfg, n_seeds):
             raise ValueError(
                 f"chunk_method='megakernel' but {n_seeds} seeds don't pack for preset {cfg.name!r} "
                 "— see kernels.train_chunk.supports_packed"
             )
-    elif method != "auto":
-        raise ValueError(f"unknown chunk_method {method!r}")
     elif not _kernel_allowed(cfg, device) or not supports_packed(spec, cfg, n_seeds):
         return None
 

@@ -76,7 +76,7 @@ def make_mesh(n_space: int | None = None, n_time: int = 1, device: str | torch.d
     if n_time != 1:
         raise NotImplementedError(
             "desmo_tpu_torch does not shard the time axis (n_time > 1) yet "
-            "(ROADMAP queue 1, item 5: the eager path over a mesh and the time axis)"
+            "(ROADMAP queue 1, item 5.2: the eager path over a mesh and the time axis)"
         )
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     dev = torch.device(device)
@@ -123,6 +123,29 @@ def local_rows(t: torch.Tensor, mesh: SpaceMesh) -> torch.Tensor:
     """This rank's rows of a tensor whose last axis holds all ``n`` rows."""
     lo, hi = row_range(t.shape[-1], mesh.size, mesh.rank)
     return t[..., lo:hi].contiguous()
+
+
+def _map_phi(state, fn):
+    """``state`` (a ``train.TrainState``) with ``fn`` applied to phi and its
+    moments."""
+    return dataclasses.replace(
+        state,
+        params={**state.params, "phi": fn(state.params["phi"])},
+        mu={**state.mu, "phi": fn(state.mu["phi"])},
+        nu={**state.nu, "phi": fn(state.nu["phi"])},
+    )
+
+
+def local_state(state, mesh: SpaceMesh):
+    """A training state, one model's or stacked, whose phi and moments hold
+    all rows (last axis), cut to this rank's rows of them."""
+    return _map_phi(state, lambda t: local_rows(t, mesh))
+
+
+def gather_state(state, mesh: SpaceMesh, n: int):
+    """The whole of a training state whose phi and moments hold this rank's
+    rows of ``n``: every rank gets all rows (``SpaceMesh.gather_rows``)."""
+    return _map_phi(state, lambda t: mesh.gather_rows(t, n))
 
 
 def shard_batch(batch: dict, mesh: SpaceMesh) -> dict:

@@ -1,9 +1,9 @@
 """End-to-end pipeline: load -> preprocess -> POD -> train -> error ->
 sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo, Fourier and
 AE variants on one device, one seed or (desmo and Fourier) a seed-packed
-ensemble (``n_seeds > 1``, ``ensemble.fit``), and for one desmo or Fourier
-seed with its rows sharded over a device mesh (``device_mesh``, the sharded
-step kernel), with no holdout and no figures.
+ensemble (``n_seeds > 1``, ``ensemble.fit``), and for desmo or Fourier, one
+seed or packed seeds, with the rows sharded over a device mesh
+(``device_mesh``, the sharded step kernel), with no holdout and no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -156,13 +156,15 @@ def _finite_or_none(v) -> float | None:
     return float(v) if np.isfinite(v) else None
 
 
-def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log) -> train.TrainResult:
+def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log, device_mesh=None) -> train.TrainResult:
     """The ``n_seeds > 1`` branch of ``desmo_tpu/runner.py:509-684``:
-    ``ensemble.fit``, then ``ensemble.json`` (the winner, every seed's final
-    total and rec, the diverged seeds, seed-steps/s, the jitter and the
-    hyperparameter grid) and, with two or more live seeds,
-    ``term_stability.json``; the best seed's state is exported at the last
-    epoch. The per-seed rec figure is not drawn (figures are not ported)."""
+    ``ensemble.fit`` (over ``device_mesh`` when given), then
+    ``ensemble.json`` (the winner, every seed's final total and rec, the
+    diverged seeds, seed-steps/s, the jitter and the hyperparameter grid)
+    and, with two or more live seeds, ``term_stability.json``, both from
+    rank 0 alone; the best seed's state, phi whole, is exported at the last
+    epoch. The per-seed rec figure is not drawn (figures are not
+    ported)."""
     method = resolve_loss_method(cfg, device)
     if method not in ("factored", "fused"):
         if log is not None:
@@ -172,8 +174,10 @@ def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log) -> tr
     result, best_seed, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=cfg.n_seeds, num_epochs=n_epochs, seed=cfg.seed,
         phi_sigma=cfg.seed_phi_sigma, omega_spread=cfg.seed_omega_spread, method=method, log=log,
-        checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"), report=report,
+        checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"), device_mesh=device_mesh, report=report,
     )
+    if device_mesh is not None and device_mesh.rank != 0:
+        return result  # rank 0 writes the reports and exports
     sps = result.steps_per_sec
     if log is not None:
         rate = f"; {sps:.1f} seed-steps/s" if np.isfinite(sps) else ""
@@ -241,13 +245,9 @@ def select_sharded_chunk(spec, cfg: configs.RunConfig, mesh: parallel.SpaceMesh)
     ``chunk_method`` 'auto' (with the loss method 'auto' or 'fused') or
     'megakernel'. 'megakernel' on a configuration the kernel does not take
     raises ``ValueError``; what the JAX package runs through its eager path
-    over the mesh instead raises ``NotImplementedError``, as do several
-    seeds."""
-    if cfg.n_seeds > 1:
-        raise NotImplementedError(
-            "desmo_tpu_torch does not run several seeds over a device mesh yet "
-            "(ROADMAP queue 1, item 5: the packed sharded ensemble)"
-        )
+    over the mesh instead raises ``NotImplementedError``. Several seeds take
+    ``ensemble.fit(device_mesh=...)`` and its policy
+    (``kernels.train_chunk.select_ensemble_chunk``) instead."""
     method = cfg.chunk_method
     kernel_ok = method == "megakernel" or cfg.loss_method in ("auto", "fused")
     if method != "scan" and kernel_ok and shard_step.supports_sharded(spec, cfg):
@@ -260,17 +260,7 @@ def select_sharded_chunk(spec, cfg: configs.RunConfig, mesh: parallel.SpaceMesh)
     raise NotImplementedError(
         f"desmo_tpu_torch does not run the eager loop over a device mesh (variant {cfg.variant!r}, "
         f"chunk_method={method!r}, loss_method={cfg.loss_method!r}) yet "
-        "(ROADMAP queue 1, item 5: the eager path over a mesh and the time axis)"
-    )
-
-
-def _rows_of_phi(state: train.TrainState, fn) -> train.TrainState:
-    """``state`` with ``fn`` applied to phi and its moments."""
-    return dataclasses.replace(
-        state,
-        params={**state.params, "phi": fn(state.params["phi"])},
-        mu={**state.mu, "phi": fn(state.mu["phi"])},
-        nu={**state.nu, "phi": fn(state.nu["phi"])},
+        "(ROADMAP queue 1, item 5.2: the eager path over a mesh)"
     )
 
 
@@ -382,12 +372,14 @@ def run(
     computes the exact Gram. ``holdout`` (forecasting at held-out times) is
     not ported yet and raises when set.
 
-    Over a mesh (:func:`select_sharded_chunk`), every rank holds all of X
-    and trains its rows of phi (``parallel.shard_batch``); rank 0 computes
-    the POD and the initial parameters and broadcasts them. Phi and its
-    moments are gathered only for the exports, the relative error and the
-    sweep, which every rank then holds; only rank 0 writes files and prints,
-    and only its POD errors are numbers (NaN on the other ranks)."""
+    Over a mesh (:func:`select_sharded_chunk`; with ``n_seeds > 1``
+    ``ensemble.fit(device_mesh=...)``), every rank holds all of X and trains
+    its rows of phi (``parallel.shard_batch``); rank 0 computes the POD and
+    the initial parameters and broadcasts them. Phi and its moments are
+    gathered only for the exports, the relative error, the sweep and the
+    term stability, which every rank then holds; only rank 0 writes files
+    and prints, and only its POD errors are numbers (NaN on the other
+    ranks)."""
     if holdout:
         raise NotImplementedError(
             "desmo_tpu_torch does not run holdout forecasting (ROADMAP queue 1, item 4) yet"
@@ -405,7 +397,7 @@ def run(
         p, p2 = compute_pod(cfg, x, dev)  # the AE variant's error table still has POD's rows
         modes = None if ae else p.modes
     else:
-        chunk = select_sharded_chunk(spec, cfg, device_mesh)
+        chunk = select_sharded_chunk(spec, cfg, device_mesh) if cfg.n_seeds <= 1 else None
         if lead:
             p, p2 = compute_pod(cfg, x, dev)
             modes = p.modes.contiguous()
@@ -433,22 +425,22 @@ def run(
         cfg, params, loss_fn = ae_recipe(cfg, spec, params, groups, batch, dev, log)
     elif ae and cfg.ae_omega_data_scaled:
         params = dict(params, omega=ae_model.data_scaled_omega(params, batch["x"]))
-    if device_mesh is not None:
+    if cfg.n_seeds > 1:
+        result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log, device_mesh)
+    elif device_mesh is not None:
 
         def gather(state: train.TrainState) -> train.TrainState:
-            return _rows_of_phi(state, lambda t: device_mesh.gather_rows(t, cfg.n))
+            return parallel.gather_state(state, device_mesh, cfg.n)
 
         result = train.fit(
             loss_fn, groups, cfg, params, parallel.shard_batch(batch, device_mesh),
             num_epochs=n_epochs,
             log=log,
             checkpoint_fn=lambda state, epoch: export(gather(state), f"epoch{epoch}"),
-            state=_rows_of_phi(train.init_state(params, cfg), lambda t: parallel.local_rows(t, device_mesh)),
+            state=parallel.local_state(train.init_state(params, cfg), device_mesh),
             chunk=chunk,
         )
         result.state = gather(result.state)
-    elif cfg.n_seeds > 1:
-        result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log)
     else:
         result = train.fit(
             loss_fn, groups, cfg, params, batch,

@@ -18,7 +18,11 @@ as configured (full width, synthetic data, the preset's init), prints:
   time a step; the busy share is their ratio;
 - the step kernel's launches in one ``--steps``-step chunk;
 - the mega-kernel's epoch (``kernels.train_chunk.fused_train_chunk``) over a
-  ``--steps``-epoch launch in the same turn, for scale.
+  ``--steps``-epoch launch in the same turn, for scale;
+- a SHA-256 digest of the metrics and the state after one ``--steps``-step
+  chunk, so that the table says whether the two versions give the same bits;
+- the step kernel's own clock by part (``shard_step.phase_split``), µs per
+  launch over a ``--steps``-step chunk.
 
 Prints the card's name and power limit first, and last a table of each
 version's two turns.
@@ -27,6 +31,7 @@ version's two turns.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -85,8 +90,11 @@ def turn(tree: str, steps: int) -> dict:
         local = parallel.shard_batch(batch, mesh)
         step_us = 1e3 * time_ms(lambda: chunk(state, local, steps), 1) / steps
         before = wrapper.launches
-        chunk(state, local, steps)
+        end, mets = chunk(state, local, steps)
         launches = wrapper.launches - before
+        digest = hashlib.sha256()
+        for t in [mets[k] for k in sorted(mets)] + [end.params[k] for k in sorted(end.params)]:
+            digest.update(t.detach().cpu().numpy().tobytes())
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -96,8 +104,9 @@ def turn(tree: str, steps: int) -> dict:
         device_us = sum(e.self_device_time_total for e in prof.key_averages()
                         if str(e.device_type).endswith("CUDA")) / steps
         mega_us = 1e3 * time_ms(lambda: train_chunk.fused_train_chunk(state, batch, steps, spec, cfg), 1) / steps
+        split = {k: v * 1e6 / (steps + 1) for k, v in shard_step.phase_split(spec, cfg, mesh, state, local, steps).items()}
         out[name] = dict(step_us=step_us, device_us=device_us, window_us=window_us, launches=launches,
-                         mega_us=mega_us)
+                         mega_us=mega_us, digest=digest.hexdigest(), split=split)
     torch.distributed.destroy_process_group()
     return out
 
@@ -135,6 +144,12 @@ def main(argv=None) -> int:
         for v in ("A", "B"):
             print(f"{preset} busy share {v}: " + "/".join(f"{t[preset]['device_us'] / t[preset]['window_us']:.1%}"
                                                           for t in by[v]))
+        print(f"{preset} kernel clock, us per launch: " + ", ".join(
+            f"{k} A " + "/".join(f"{t[preset]['split'][k]:.1f}" for t in by["A"]) + " B "
+            + "/".join(f"{t[preset]['split'][k]:.1f}" for t in by["B"]) for k in by["B"][0][preset]["split"]))
+        digests = {t[preset]["digest"] for _, t in turns}
+        print(f"{preset} metrics and state after a {args.steps}-step chunk: "
+              + ("the same bits in every turn" if len(digests) == 1 else f"{len(digests)} different digests"))
     return 0
 
 

@@ -25,7 +25,7 @@ from desmo_tpu import runner as jrunner  # noqa: E402
 from desmo_tpu.io import synthetic as jsynthetic  # noqa: E402
 from desmo_tpu.models import desmo as jdesmo  # noqa: E402
 from desmo_tpu.models import fourier as jfourier  # noqa: E402
-from desmo_tpu_torch import checkpoint, configs, ensemble, optim, runner, train  # noqa: E402
+from desmo_tpu_torch import checkpoint, configs, ensemble, optim, parallel, runner, train  # noqa: E402
 from desmo_tpu_torch.models import desmo, fourier  # noqa: E402
 
 MODELS = {"desmo": (desmo, jdesmo), "fourier": (fourier, jfourier)}
@@ -351,9 +351,14 @@ def test_fit_fourier_period_multistart():
 
 
 def test_fit_refuses_a_mesh():
+    """Over a mesh fit runs the sharded packed chunk alone
+    (``tests/test_torch_shard_ensemble.py``): the packed eager loop
+    (``chunk_method='scan'``) raises, naming its item."""
     cfg, _, spec, _, x, modes, _ = problem()
-    with pytest.raises(NotImplementedError, match="queue 1, item 5: the packed sharded ensemble"):
-        ensemble.fit(cfg, spec, batches(x, modes)[0], n_seeds=2, num_epochs=2, device_mesh=object(), log=None)
+    mesh = parallel.make_mesh(1, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 5.2: the eager path over a mesh"):
+        ensemble.fit(dataclasses.replace(cfg, chunk_method="scan"), spec, batches(x, modes)[0], n_seeds=2,
+                     num_epochs=2, device_mesh=mesh, log=None)
 
 
 def test_term_stability_matches_jax():

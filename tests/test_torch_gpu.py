@@ -558,7 +558,7 @@ def test_step_kernel_update_matches_step_plain(cuda, preset):
     assert int(got.count) == 2
     for i, key in enumerate(shard_step.ROW_METRICS):
         atol = 1e-5 if key == "ortho" else 0.0
-        assert abs(float(got.met[0, i]) - float(ref.met[0, i])) <= 2e-4 * abs(float(ref.met[0, i])) + atol, key
+        assert abs(float(got.met[0, 0, i]) - float(ref.met[0, 0, i])) <= 2e-4 * abs(float(ref.met[0, 0, i])) + atol, key
     for f in ("phi", "coef", "omega") + (("series", "periods") if got.nf else ("b",)):
         g, w = getattr(got.cs, f)[0].double().cpu(), getattr(ref.cs, f)[0]
         assert (g - w).abs().max() <= 1e-5 * w.abs().max(), f
@@ -601,3 +601,130 @@ def test_graph_replay_matches_the_uncaptured_loop(cuda, preset):
     for f in ("phi", "coef", "omega", "svec") + (("series", "periods") if graph.nf else ("b",)):
         assert torch.equal(getattr(graph.cs, f), getattr(loop.cs, f)), f
     assert bool(torch.isfinite(graph.met).all()) and int(graph.count) == steps
+
+
+def _packed_step_buffers(cfg, spec, batch, state, lo, hi, num_steps, betas=None, lams=None):
+    """The packed step's buffers over rows [lo, hi) of the stacked ``state``
+    and ``batch``, as a rank holding those rows builds them."""
+    S = state.params["phi"].shape[0]
+    cs = train_chunk.pack_seeds(state, *train_chunk.seed_hypers(cfg, S, betas, lams))
+    cs.phi = cs.phi[:, :, lo:hi].contiguous()
+    local = {"x": batch["x"][lo:hi].contiguous(), "pod_modes": batch["pod_modes"][lo:hi].contiguous(),
+             "x_sq": batch["x_sq"]}
+    return shard_step.make_buffers(cs, local, num_steps, spec, cfg, cfg.n)
+
+
+@pytest.mark.parametrize("preset, S", [("aneurysm", 4), ("fourier_cylinder", 8)])
+@pytest.mark.parametrize("epochs, rtol", [(200, 5e-6), (0, 5e-5)], ids=["trained", "init"])
+def test_packed_step_kernel_matches_step_plain(cuda, preset, S, epochs, rtol):
+    """The step kernel's packed form at the ensemble cells' full width
+    (omega_init=1, per-seed beta, lambda and LR scale), from the state after
+    200 epochs of the packed mega-kernel and from the reference init,
+    against ``step_plain`` in float64: the partials over all rows and over 2
+    and 3 uneven shards (summed) within ``rtol`` of each part's largest
+    entry, dl within 1e-5, max_arg the float32 plain's; from the kernel's
+    state, the update and the next partials: each seed's metrics row within
+    2e-4 (ortho plus 1e-5 absolute), the parameters within 1e-5, the LRs
+    equal; two launches the same bits; a NaN seed's metrics non-finite, the
+    others' finite. At the reference init B is all ones, so X·Bᵀ cancels to
+    rounding: float32 itself misses 5e-6 on AᵀX's constant row at n=27000
+    (1.9e-5), and the kernel's gomega, one fmaf chain over each block's
+    ~205 rows of same-signed terms, reaches 1.7e-5 (``chip_smoke.py``
+    ``STEP_INIT_RTOL``)."""
+    device_mod.fp32_matmul()
+    cfg, spec, batch, params = _packed_problem(cuda, preset, S, omega_init=1.0, lr_omega=1.0)
+    betas = np.geomspace(1e-3, 1e-2, S).astype(np.float32)
+    lams = np.geomspace(1e-5, 1e-3, S).astype(np.float32)
+    state = ensemble.init_state(params, cfg, S, lr_scales=np.where(np.arange(S) % 2, 0.5, 1.0))
+    if epochs:
+        state = train_chunk.fused_ensemble_chunk(state, batch, epochs, spec, cfg, betas, lams)[0]
+    n, m, r = cfg.n, cfg.m, cfg.r
+    K = spec.num_poly_terms + 3 * r
+    whole = _packed_step_buffers(cfg, spec, batch, state, 0, n, 2, betas, lams)
+    ref = whole.to(cuda, torch.float64)
+    shard_step.step_plain(ref, spec)
+    ref32 = whole.to(cuda, torch.float32)
+    shard_step.step_plain(ref32, spec)
+    for d in (1, 2, 3):
+        runs = [whole] if d == 1 else [_packed_step_buffers(cfg, spec, batch, state, lo, hi, 2, betas, lams)
+                                       for lo, hi in (parallel.row_range(n, d, q) for q in range(d))]
+        for run in runs:
+            shard_step.step(run, spec)
+        torch.cuda.synchronize()
+        dl = torch.cat([run.dl for run in runs])
+        assert (dl.double() - ref.dl).abs().max() <= 1e-5 * ref.dl.abs().max(), d
+        for name, got, want in zip(("ax", "ga", "latg", "gcoef", "gomega"),
+                                   shard_step.split_seed_sums(sum(run.sums for run in runs), K, m, r, S),
+                                   shard_step.split_seed_sums(ref.sums, K, m, r, S)):
+            assert (got.double() - want).abs().max() <= rtol * want.abs().max(), (d, name)
+        assert max(float(run.max_arg[0]) for run in runs) == float(ref32.max_arg[0])
+    ref = whole.to(cuda, torch.float64)
+    twice = [whole.clone(), whole.clone()]
+    for run in twice:
+        shard_step.step(run, spec)
+    torch.cuda.synchronize()
+    shard_step.step_plain(ref, spec)
+    got = twice[0]
+    for f in ("sums", "dl", "gb", "met", "max_arg", "count"):
+        assert torch.equal(getattr(twice[0], f), getattr(twice[1], f)), f
+    atol = torch.tensor([0.0, 1e-5, 0.0, 0.0], dtype=torch.float64, device=cuda)
+    assert ((got.met[0].double() - ref.met[0]).abs() <= 2e-4 * ref.met[0].abs() + atol).all()
+    for f in ("phi", "coef", "omega") + (("series", "periods") if got.nf else ("b",)):
+        g, w = getattr(got.cs, f)[0].double(), getattr(ref.cs, f)[0]
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max(), f
+    assert torch.equal(got.cs.svec[:, :5], ref.cs.svec[:, :5].float())
+    bad = ensemble.init_state({**params, "phi": params["phi"].clone()}, cfg, S)
+    bad.params["phi"][1] = float("nan")
+    bbuf = _packed_step_buffers(cfg, spec, batch, bad, 0, n, 3)
+    for _ in range(3):
+        shard_step.step(bbuf, spec)
+    others = [q for q in range(S) if q != 1]
+    assert not torch.isfinite(bbuf.met[:2, 1][:, [0, 1, 3]]).any() and torch.isfinite(bbuf.met[:2, others]).all()
+
+
+@pytest.mark.parametrize("preset, S", [("aneurysm", 4), ("fourier_cylinder", 8)])
+def test_sharded_packed_chunk_matches_packed_mega_kernel(cuda, preset, S):
+    """The sharded packed chunk on a one-rank NCCL mesh against the packed
+    mega-kernel from the same state (omega_init=1, per-seed beta and lambda):
+    one epoch within 2e-4 of every metric (ortho plus 1e-5 absolute) and
+    1e-5 of each parameter's largest entry; 25 epochs, rec and total_s
+    within 2e-4; the launches one a step and one a chunk."""
+    mesh = parallel.make_mesh(1, device=cuda)
+    cfg, spec, batch, params = _packed_problem(cuda, preset, S, omega_init=1.0, lr_omega=1.0)
+    betas = np.geomspace(1e-3, 1e-2, S).astype(np.float32)
+    lams = np.geomspace(1e-5, 1e-3, S).astype(np.float32)
+    state = ensemble.init_state(params, cfg, S)
+    chunk = shard_step.make_sharded_fused_ensemble_chunk(spec, cfg, mesh, S, betas, lams)
+    local = parallel.shard_batch(batch, mesh)
+    launches = shard_step.step.launches
+    s1, m1 = chunk(state, local, 1)
+    k1, mk1 = train_chunk.fused_ensemble_chunk(state, batch, 1, spec, cfg, betas, lams)
+    torch.cuda.synchronize()
+    assert shard_step.step.launches == launches + 2
+    for key in train_chunk.SEED_METRICS:
+        atol = 1e-5 if key == "ortho" else 0.0
+        assert ((m1[key] - mk1[key]).abs() <= 2e-4 * mk1[key].abs() + atol).all(), key
+    for key in s1.params:
+        assert (s1.params[key] - k1.params[key]).abs().max() <= 1e-5 * k1.params[key].abs().max(), key
+    s25, m25 = chunk(state, local, 25)
+    _, mk25 = train_chunk.fused_ensemble_chunk(state, batch, 25, spec, cfg, betas, lams)
+    for key in ("rec", "total_s"):
+        assert ((m25[key] - mk25[key]).abs() / mk25[key].abs()).max() <= 2e-4, key
+    assert s25.epoch == 25 and s25.params["phi"].shape == (S, cfg.r, cfg.n)
+
+
+def test_runner_with_seeds_over_a_one_rank_mesh(cuda, tmp_path):
+    """``runner.run`` with 4 seeds over a one-rank NCCL mesh: one step kernel
+    launch per epoch and one more per chunk, no other kernel, the records
+    and exports written."""
+    mesh = parallel.make_mesh(1, device=cuda)
+    cfg = dataclasses.replace(configs.get("aneurysm"), checkpoint_every=100, n_seeds=4)
+    x = synthetic.cylinder_wake(500, 200, seed=cfg.seed)
+    counters = (shard_step.step, train_chunk.fused_ensemble_chunk, dual_gemm.dual_contractions)
+    for fn in counters:
+        fn.launches = 0
+    art = runner.run(cfg, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda, device_mesh=mesh)
+    assert [fn.launches for fn in counters] == [300 + 3, 0, 0]
+    assert np.isfinite(art.history["total"]).all() and art.state.params["phi"].shape == (cfg.r, 500)
+    assert {"ensemble.json", "term_stability.json", "state_final.npz"} <= {
+        p.name for p in (tmp_path / cfg.name).iterdir()}

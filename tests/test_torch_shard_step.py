@@ -9,6 +9,10 @@
   ``tests/test_shard_step.py`` runs it), desmo and Fourier, 25 steps, at that
   suite's problem and tolerances; a 10+10-step resume; phi stays row-local;
   the replicated state is bit-equal on every rank.
+- Its packed form (``make_sharded_fused_ensemble_chunk``, S=3 seeds) the same
+  way against the reference's at d=1, 2 and 4: desmo, Fourier with the
+  periods m, m/2 and m/3, a hyperparameter sweep, and a NaN seed that stays
+  in its own metrics; and ``runner.run`` with two seeds over d=2.
 - ``step_partials_plain`` on uneven shards against the whole rows and a
   float64 reference, and the traps of the row split: ``dA`` normalised by
   the global n m, ``max_arg`` reduced with MAX (once a chunk, apart from
@@ -49,6 +53,7 @@ import jax.numpy as jnp
 torch = pytest.importorskip("torch")
 
 from desmo_tpu import configs as jconfigs  # noqa: E402
+from desmo_tpu import ensemble as jens  # noqa: E402
 from desmo_tpu import pod as jpod  # noqa: E402
 from desmo_tpu import train as jtrain  # noqa: E402
 from desmo_tpu.io import synthetic as jsynthetic  # noqa: E402
@@ -57,7 +62,7 @@ from desmo_tpu.models import fourier as jfourier  # noqa: E402
 from desmo_tpu.pallas import shard_step as jshard  # noqa: E402
 from desmo_tpu.pallas import train_chunk as jtc  # noqa: E402
 from desmo_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
-from desmo_tpu_torch import checkpoint, configs, parallel, runner, train  # noqa: E402
+from desmo_tpu_torch import checkpoint, configs, ensemble, parallel, runner, train  # noqa: E402
 from desmo_tpu_torch.__main__ import main as cli_main  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
 from desmo_tpu_torch.kernels import _build, shard_step, train_chunk  # noqa: E402
@@ -183,13 +188,20 @@ def clusters(tmp_path_factory):
     arrays["runner/cfg"] = np.array(json.dumps(dataclasses.asdict(
         dataclasses.replace(configs.get("cylinder"), **RUNNER_CFG))))
     arrays["runner/x"] = synthetic.cylinder_wake(201, 60)
+    for case in ENSEMBLE_CASES:
+        cfg, x, modes, params, hyp, steps = ensemble_problem(case)
+        key = f"ens_{case}"
+        arrays[f"{key}/cfg"] = np.array(json.dumps(dataclasses.asdict(cfg)))
+        arrays[f"{key}/x"], arrays[f"{key}/modes"], arrays[f"{key}/steps"] = x, modes, np.array(steps)
+        arrays.update({f"{key}/params/{k}": v for k, v in params.items()})
+        arrays.update({f"{key}/{k}": v for k, v in hyp.items()})
     src = tmp / "in.npz"
     np.savez(src, **arrays)
     done = {}
 
     def launch(d):
         if d not in done:
-            tasks = "desmo,fourier,resume,ortho,runner" if d == 2 else "desmo,fourier"
+            tasks = "desmo,fourier,resume,ortho,runner,ensemble,runner_seeds" if d == 2 else "desmo,fourier,ensemble"
             out = tmp / f"d{d}"
             out.mkdir()
             env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(d),
@@ -252,13 +264,113 @@ def test_sharded_chunk_matches_jax_sharded_chunk(mesh1, clusters, variant, d):
     np.testing.assert_allclose(ranks[0][f"{variant}/lrs"], ref_state.sched.lrs, rtol=1e-6)
 
 
+ENSEMBLE_S = 3
+ENSEMBLE_CASES = ("desmo", "fourier", "sweep", "nan")
+
+
+def ensemble_problem(case):
+    """``tests/test_shard_step.py``'s seed-packed problems: S=3 seeds of
+    :func:`problem` from ``desmo_tpu.ensemble.init_params(seed=1,
+    phi_sigma=0.1)`` (numpy); 'fourier' with the periods m, m/2 and m/3,
+    'sweep' with per-seed betas, lambdas and LR scales, 'nan' with seed 1's
+    phi NaN (2 steps). Returns ``(cfg, x, modes, params, hyp, steps)``."""
+    cfg, x, modes, _ = problem("fourier" if case == "fourier" else "desmo")
+    spec, _ = jax_spec_params(cfg)
+    periods = [float(cfg.m), cfg.m / 2.0, cfg.m / 3.0] if case == "fourier" else None
+    params = {k: np.array(v) for k, v in jens.init_params(spec, ENSEMBLE_S, seed=1, phi_sigma=0.1,
+                                                          periods=periods).items()}
+    if case == "nan":
+        params["phi"][1] = np.nan
+    hyp = {}
+    if case == "sweep":
+        hyp = {"betas": np.array([1e-3, 5e-3, 1e-2], np.float32), "lams": np.array([1e-4, 1e-5, 1e-3], np.float32),
+               "lr_scales": np.array([1.0, 0.5, 2.0], np.float32)}
+    return cfg, x, modes, params, hyp, 2 if case == "nan" else STEPS
+
+
+@functools.cache
+def jax_sharded_ensemble(case, d):
+    """``desmo_tpu``'s sharded seed-packed chunk on a d-device CPU mesh (its
+    megastep in interpret mode) over :func:`ensemble_problem`; state and
+    metrics as numpy."""
+    cfg, x, modes, params, hyp, steps = ensemble_problem(case)
+    jcfg = jconfigs.RunConfig(**dataclasses.asdict(cfg))
+    spec, _ = jax_spec_params(cfg)
+    mesh = jmake_mesh(n_space=d, n_time=1, devices=jax.devices()[:d])
+    chunk = jshard.make_sharded_fused_ensemble_chunk(spec, jcfg, mesh, ENSEMBLE_S, bt=16, betas=hyp.get("betas"),
+                                                     lams=hyp.get("lams"))
+    state = jax.tree.map(jnp.array, jens.init_state({k: jnp.asarray(v) for k, v in params.items()}, jcfg,
+                                                    ENSEMBLE_S, lr_scales=hyp.get("lr_scales")))
+    with jax.sharding.set_mesh(mesh):
+        state, mets = chunk(state, jtc.prepare_batch(x, modes, bt=16, n_mult=16 * d), num_steps=steps)
+    return jax.tree.map(np.asarray, state), {k: np.asarray(v) for k, v in mets.items()}
+
+
+def run_port_ensemble_d1(case, mesh):
+    """The port's sharded packed chunk on the one-rank mesh over
+    :func:`ensemble_problem` (``ensemble.init_state`` of the JAX package's
+    initial parameters)."""
+    cfg, x, modes, params, hyp, steps = ensemble_problem(case)
+    state = ensemble.init_state(checkpoint.params_from_jax(params, "cpu"), cfg, ENSEMBLE_S,
+                                lr_scales=hyp.get("lr_scales"))
+    chunk = shard_step.make_sharded_fused_ensemble_chunk(port_spec(cfg), cfg, mesh, ENSEMBLE_S,
+                                                         betas=hyp.get("betas"), lams=hyp.get("lams"))
+    state, mets = chunk(parallel.local_state(state, mesh), parallel.shard_batch(port_batch(x, modes), mesh), steps)
+    return state, {k: v.numpy() for k, v in mets.items()}
+
+
+@pytest.mark.parametrize("case", ENSEMBLE_CASES)
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_sharded_ensemble_matches_jax_sharded_ensemble(mesh1, clusters, case, d):
+    """The sharded packed chunk against ``desmo_tpu``'s at the same d, to
+    ``tests/test_shard_step.py``'s tolerances: total_s and max_arg rtol 5e-4
+    atol 1e-6, params rtol 5e-4 atol 1e-5, the per-seed LRs rtol 1e-6, count
+    and epoch equal. The NaN seed: at step 0 seed 1's rec, ortho and total_s
+    are not finite, and seeds 0 and 2 match the reference's; the port keeps
+    seeds 0 and 2 finite at every step, their metrics the bits of the same
+    seeds' run without the NaN (the reference's update lets the NaN reach
+    every seed from step 1 on, through its masked cross-seed products)."""
+    ref_state, ref_m = jax_sharded_ensemble(case, d)
+    if d == 1:
+        state, mets = run_port_ensemble_d1(case, mesh1)
+        params = {k: v.numpy() for k, v in state.params.items()}
+        lrs, count_epoch = state.sched.lrs.numpy(), (state.count, state.epoch)
+    else:
+        ranks = clusters(d)
+        key = f"ens_{case}"
+        mets = {k: ranks[0][f"{key}/metrics/{k}"] for k in ("rec", "ortho", "l1", "total_s", "total", "max_arg")}
+        params = {k: whole(ranks, f"{key}/params/{k}") if k == "phi" else ranks[0][f"{key}/params/{k}"]
+                  for k in ref_state.params}
+        lrs, count_epoch = ranks[0][f"{key}/lrs"], ranks[0][f"{key}/count_epoch"]
+        assert params["phi"].shape == ref_state.params["phi"].shape
+    steps = ensemble_problem(case)[5]
+    assert tuple(count_epoch) == (steps, steps)
+    if case == "nan":
+        for key in ("rec", "ortho", "total_s"):
+            assert not np.isfinite(mets[key][0, 1]) and not np.isfinite(ref_m[key][0, 1]), key
+            np.testing.assert_allclose(mets[key][0, [0, 2]], ref_m[key][0, [0, 2]], rtol=5e-4, atol=1e-6, err_msg=key)
+            assert np.isfinite(mets[key][:, [0, 2]]).all(), key
+        clean = run_port_ensemble_d1("desmo", mesh1)[1] if d == 1 else {
+            k: clusters(d)[0][f"ens_desmo/metrics/{k}"] for k in ("rec", "total_s")}
+        for key in ("rec", "total_s"):
+            np.testing.assert_array_equal(mets[key][:, [0, 2]], clean[key][:steps, [0, 2]], err_msg=key)
+        return
+    for key in ("total_s", "max_arg"):
+        np.testing.assert_allclose(mets[key], ref_m[key], rtol=5e-4, atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(mets["total"], mets["total_s"].sum(1), rtol=1e-6)
+    for key, ref_v in ref_state.params.items():
+        np.testing.assert_allclose(params[key], ref_v, rtol=5e-4, atol=1e-5, err_msg=key)
+    np.testing.assert_allclose(lrs, ref_state.sched.lrs, rtol=1e-6)
+
+
 @pytest.mark.parametrize("d", [2, 4])
 def test_replicated_state_is_bit_equal_on_every_rank(clusters, d):
     """Everything but phi's rows comes from all-reduced sums and rank 0's
     broadcast only, so after 25 steps B, c, omega (and the series and
     periods), the LRs and the metrics are the same bits on every rank."""
     ranks = clusters(d)
-    keys = [k for k in ranks[0] if k.split("/")[0] in ("desmo", "fourier") and "/phi" not in k]
+    keys = [k for k in ranks[0] if (k.split("/")[0] in ("desmo", "fourier") or k.startswith("ens_"))
+            and "/phi" not in k]
     assert any(k.endswith("/params/z") for k in keys) and any(k.endswith("/params/period") for k in keys)
     for k in keys:
         for other in ranks[1:]:
@@ -465,6 +577,33 @@ def test_runner_over_a_mesh(mesh1, clusters, tmp_path):
             p.name for p in run_dir.iterdir()}
 
 
+def test_runner_with_seeds_over_a_mesh(mesh1, clusters, tmp_path):
+    """``runner.run`` with two seeds over a mesh (``ensemble.fit`` through
+    the sharded packed chunk) at omega_init=1: at d=1 the packed
+    mega-kernel's plain chunk run without a mesh to rounding, at d=2 within
+    5e-4 (ortho 1e-5 absolute, as :func:`test_runner_over_a_mesh`); rank 0
+    alone writes ``ensemble.json``, ``term_stability.json`` and the exports,
+    and the kept seed's phi comes back whole."""
+    cfg = dataclasses.replace(configs.get("cylinder"), **RUNNER_CFG, n_seeds=2)
+    x = synthetic.cylinder_wake(201, 60)
+    one = runner.run(cfg, x, out_dir=str(tmp_path / "d1"), echo=False, device="cpu", device_mesh=mesh1)
+    ref = runner.run(dataclasses.replace(cfg, chunk_method="megakernel"), x, out_dir=str(tmp_path / "k"),
+                     echo=False, device="cpu")
+    ranks = clusters(2)
+    for key in train.METRICS[:4]:
+        np.testing.assert_allclose(one.history[key], ref.history[key], rtol=1e-5, atol=1e-9, err_msg=key)
+        np.testing.assert_allclose(ranks[0][f"runner_seeds/history/{key}"], ref.history[key], rtol=5e-4,
+                                   atol=1e-5 if key == "ortho" else 1e-7, err_msg=key)
+    assert one.state.params["phi"].shape == (2, 201) == ranks[1]["runner_seeds/params/phi"].shape
+    np.testing.assert_array_equal(ranks[1]["runner_seeds/params/phi"], ranks[0]["runner_seeds/params/phi"])
+    for run_dir in (Path(one.out_dir), clusters.dir(2) / "runs_seeds" / "cylinder"):
+        with open(run_dir / "ensemble.json") as fh:
+            report = json.load(fh)
+        assert report["n_seeds"] == 2 and report["best_seed"] in (0, 1)
+        assert {"term_stability.json", "state_epoch10.npz", "state_final.npz", "cylinder_r2_final.pt"} <= {
+            p.name for p in run_dir.iterdir()}
+
+
 def test_runner_at_the_preset_omega(mesh1, tmp_path):
     """At the preset's omega_init=1e4 the one-rank mesh run equals the
     mega-kernel's plain chunk run, epoch for epoch."""
@@ -491,7 +630,7 @@ def test_cli_runs_over_a_mesh(mesh1, tmp_path, capsys):
     "extra, error, match",
     [
         (["--mesh", "space=1,time=2"], NotImplementedError, "time axis"),
-        (["--mesh", "space=1", "--seeds", "2"], NotImplementedError, "packed sharded ensemble"),
+        (["--mesh", "space=1", "--seeds", "2", "--chunk-method", "scan"], NotImplementedError, "item 5.2"),
         (["--mesh", "space=1", "--preset", "ae_cylinder"], NotImplementedError, "eager path over a mesh"),
         (["--mesh", "space=1", "--chunk-method", "scan"], NotImplementedError, "eager path over a mesh"),
         (["--mesh", "space=one"], SystemExit, "--mesh expects"),
@@ -640,12 +779,12 @@ def cuda_definition(src: str, name: str) -> str:
 
 
 # the step kernel's routines that copy the mega-kernel's unchanged (the
-# others are marked "(one seed)" or take the step's own phases)
+# others take the step's own phases, buffers or launch-wide hyperparameters)
 VERBATIM_COPIES = (
     "kXbGroups", "kXbSplit", "kXbChunk", "kXbLd", "xb_stages", "xb_ring_floats", "xb_tile", "kMaxTiles", "kAxRows",
     "kAxLdX", "kAxTilesN", "kAxMaxWidth", "ax_ld_a", "ax_ring_floats", "AxSplit", "ax_split", "ax_partial",
     "ax_partials", "adamax", "block_sum", "block_max", "reduce_partials", "series_angle", "series_value",
-    "series_partial", "store_series",
+    "series_partial", "store_series", "kMaxSeeds", "series_update", "valid_shape",
 )
 
 
@@ -685,15 +824,17 @@ def emulated_shard_step(tmp_path_factory):
     return exe
 
 
-def emulated_state(n, m, r, P, nf, seed):
-    """A one-seed state with Adamax moments under way, its scheduler set to
-    cut the LRs at the next step (patience 0, best below any total), and a
+def emulated_state(n, m, r, P, nf, seed, n_seeds=1):
+    """A state of S = ``n_seeds`` packed seeds with Adamax moments under
+    way, its schedulers set to cut the LRs at the next step (patience 0, best
+    below any total), each seed with its own LRs, beta and lambda, and a
     batch, all float32 from numpy's generator: ``(spec, cfg, cs, batch)``."""
     from desmo_tpu_torch.kernels._chunk_optim import B1, SVEC
 
     rng = np.random.default_rng(seed)
     spec = fourier.FourierSpec(n, m, r, P, 1.0, nf, float(m)) if nf else desmo.DesmoSpec(n, m, r, P, 1.0)
-    K = spec.num_poly_terms + 3 * r
+    S = n_seeds
+    K = S * (spec.num_poly_terms + 3 * r)
 
     def f(*shape, scale=1.0, offset=0.0):
         return torch.as_tensor((offset + scale * rng.standard_normal(shape)).astype(np.float32))
@@ -705,11 +846,13 @@ def emulated_state(n, m, r, P, nf, seed):
                 if nf else dict(b=moments(f(K, m, scale=0.5))))
     cfg = configs.RunConfig(name="emulated", variant="fourier" if nf else "desmo", n=n, m=m, r=r, poly_order=P,
                             patience=0, sched_every=1)
-    svec = torch.zeros((1, SVEC))
-    svec[0, :5] = torch.tensor([1e-3, 2e-3, 3e-3, 4e-3, 5e-3])
-    svec[0, 5:12] = torch.tensor([-1.0, B1 ** 3, 3.0, 0.0, 3.0, 0.5, 1e-3])  # best, b1^count, count, num_bad, epoch, beta, lam
-    cs = train_chunk.ChunkState(phi=moments(f(r, n, scale=0.1, offset=1.0)), coef=moments(f(K, scale=0.5)),
-                                omega=moments(f(3 * r)), svec=svec, **temporal)
+    svec = torch.zeros((S, SVEC))
+    for q in range(S):  # seed q's LRs, beta and lambda (1 + q/2) times seed 0's
+        svec[q, :5] = (1.0 + 0.5 * q) * torch.tensor([1e-3, 2e-3, 3e-3, 4e-3, 5e-3])
+        svec[q, 5:12] = torch.tensor([-1.0, B1 ** 3, 3.0, 0.0, 3.0, 0.5 * (1.0 + 0.5 * q), 1e-3 * (1.0 + 0.5 * q)])
+    # best, b1^count, count, num_bad, epoch, beta, lam
+    cs = train_chunk.ChunkState(phi=moments(f(S * r, n, scale=0.1, offset=1.0)), coef=moments(f(K, scale=0.5)),
+                                omega=moments(f(3 * S * r)), svec=svec, **temporal)
     x = f(n, m)
     return spec, cfg, cs, {"x": x, "pod_modes": f(n, r, scale=0.3), "x_sq": torch.sum(x * x)}
 
@@ -722,12 +865,12 @@ def run_emulated(exe, tmp_path, buf, spec, grid, rows=True):
     cs, cfg = out.cs, out.cfg
     n, m = buf.x.shape
     r, P, K = spec.r, spec.poly_order, spec.num_poly_terms + 3 * spec.r
-    header = np.array([n, m, r, P, K, buf.n_total, grid, buf.nf, buf.met.shape[0], int(rows), cfg.sched_every],
-                      np.int32)
+    header = np.array([n, m, r, P, K, buf.seeds, buf.n_total, grid, buf.nf, buf.met.shape[0], int(rows),
+                       cfg.sched_every], np.int32)
     floats = np.array([cfg.patience, cfg.sched_factor, cfg.sched_min_lr, float(buf.x_sq)], np.float32)
     state = [cs.phi] + ([cs.series, cs.periods] if buf.nf else [cs.b])
     tail = [cs.coef, cs.omega, cs.svec, out.sums, out.dl, out.gb, out.met, out.max_arg]
-    inputs = ([out.pod, out.x, torch.as_tensor(shard_step.kernel_table(spec)), cs.phi]
+    inputs = ([out.pod, out.x, torch.as_tensor(shard_step.kernel_table(spec, buf.seeds)), cs.phi]
               + ([torch.as_tensor(fourier.t_points(m)), cs.series, cs.periods] if buf.nf else [cs.b])
               + tail + [out.count])
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
@@ -775,6 +918,7 @@ def check_emulated_step(exe, tmp_path, spec, cfg, cs, batch):
     n, m = batch["x"].shape
     r, K = spec.r, spec.num_poly_terms + 3 * spec.r
     buf = shard_step.make_buffers(cs, batch, 2, spec, cfg, n)
+    S = buf.seeds
     bounds = _bounds(n, 3)
     sums_names = ("ax", "ga", "latg", "gcoef", "gomega")
     first = buf.to("cpu", torch.float32)
@@ -792,8 +936,8 @@ def check_emulated_step(exe, tmp_path, spec, cfg, cs, batch):
             assert bool(torch.isfinite(sums).all()) and bool(torch.isfinite(dl).all())
             assert_close([dl, phi[0], phi[1], phi[2]], [ref.dl, ref.cs.phi[0], ref.cs.phi[1], ref.cs.phi[2]], 2e-6,
                          ("dl", "phi", "phi_mu", "phi_nu"))
-            assert_close(shard_step.split_sums(sums, K, m, r), shard_step.split_sums(ref.sums, K, m, r), 2e-6,
-                         sums_names)
+            assert_close(shard_step.split_seed_sums(sums, K, m, r, S), shard_step.split_seed_sums(ref.sums, K, m, r, S),
+                         2e-6, sums_names)
             assert max_arg == float(ref.max_arg[s])
         replicated = [whole_run] + parts
         for run in replicated:
@@ -812,7 +956,7 @@ def check_emulated_step(exe, tmp_path, spec, cfg, cs, batch):
                 assert torch.equal(got, want)
             for got, want in zip(temporal_state(run), temporal_state(parts[0])):
                 assert torch.equal(got, want)
-    assert bool((second.cs.svec[0, :5] < first.cs.svec[0, :5]).all())  # the update cut the LRs
+    assert bool((second.cs.svec[:, :5] < first.cs.svec[:, :5]).all())  # the update cut every seed's LRs
     # the update alone, as the chunk's last launch runs it
     ref = first.to("cpu", torch.float32)
     shard_step.step_plain(ref, spec, rows=False)

@@ -14,7 +14,9 @@ Tasks: ``desmo`` and ``fourier`` (25 steps from the problem's state),
 ``resume`` (10 + 10 steps and 20 steps of the desmo problem), ``ortho`` (one
 step of the problem built so that the ranks' latent Grams have signs other
 than the summed one), ``runner`` (``runner.run`` of a small cylinder with
-the mesh).
+the mesh), ``ensemble`` (the sharded packed chunk of each seed-packed
+problem ``ens_<case>`` from its stacked initial parameters and hyperparameters)
+and ``runner_seeds`` (``runner.run`` of the small cylinder with two seeds).
 """
 
 import json
@@ -24,7 +26,7 @@ import sys
 import numpy as np
 import torch
 
-from desmo_tpu_torch import checkpoint, configs, parallel, runner, train
+from desmo_tpu_torch import checkpoint, configs, ensemble, parallel, runner, train
 from desmo_tpu_torch.kernels import shard_step
 from desmo_tpu_torch.models import desmo, fourier
 
@@ -36,6 +38,22 @@ def spec_of(cfg):
     return desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
 
 
+def run_ensemble_chunk(inp, key, mesh):
+    """The seed-packed problem ``key``'s state after one sharded packed
+    chunk of its steps, and its metrics."""
+    cfg = configs.RunConfig(**json.loads(str(inp[f"{key}/cfg"])))
+    x = torch.as_tensor(inp[f"{key}/x"])
+    batch = {"x": x, "x_sq": torch.sum(x * x), "pod_modes": torch.as_tensor(inp[f"{key}/modes"])}
+    names = [k.split("/", 2)[2] for k in inp.files if k.startswith(f"{key}/params/")]
+    params = checkpoint.params_from_jax({k: inp[f"{key}/params/{k}"] for k in names}, "cpu")
+    hyp = {k: inp[f"{key}/{k}"] for k in ("betas", "lams", "lr_scales") if f"{key}/{k}" in inp.files}
+    S = params["phi"].shape[0]
+    state = parallel.local_state(ensemble.init_state(params, cfg, S, lr_scales=hyp.get("lr_scales")), mesh)
+    chunk = shard_step.make_sharded_fused_ensemble_chunk(spec_of(cfg), cfg, mesh, S, betas=hyp.get("betas"),
+                                                         lams=hyp.get("lams"))
+    return chunk(state, parallel.shard_batch(batch, mesh), int(inp[f"{key}/steps"]))
+
+
 def run_chunks(inp, key, mesh, chunks):
     """The problem ``key``'s state after ``chunks`` sharded chunks, and their metrics."""
     cfg = configs.RunConfig(**json.loads(str(inp[f"{key}/cfg"])))
@@ -44,7 +62,7 @@ def run_chunks(inp, key, mesh, chunks):
     batch = {"x": x, "x_sq": torch.sum(x * x), "pod_modes": torch.as_tensor(inp[f"{key}/modes"])}
     names = [k.split("/", 2)[2] for k in inp.files if k.startswith(f"{key}/params/")]
     params = checkpoint.params_from_jax({k: inp[f"{key}/params/{k}"] for k in names}, "cpu")
-    state = runner._rows_of_phi(train.init_state(params, cfg), lambda t: parallel.local_rows(t, mesh))
+    state = parallel.local_state(train.init_state(params, cfg), mesh)
     chunk = shard_step.make_sharded_fused_chunk(spec, cfg, mesh)
     local = parallel.shard_batch(batch, mesh)
     mets = []
@@ -87,6 +105,16 @@ def main() -> int:
             for k, v in art.state.params.items():
                 out[f"runner/params/{k}"] = v.numpy()
             out["runner/relative_error"] = np.array(art.relative_error)
+        elif task == "ensemble":
+            for key in sorted({k.split("/")[0] for k in inp.files if k.startswith("ens_")}):
+                keep(key, *run_ensemble_chunk(inp, key, mesh))
+        elif task == "runner_seeds":
+            cfg = configs.RunConfig(**{**json.loads(str(inp["runner/cfg"])), "n_seeds": 2})
+            art = runner.run(cfg, inp["runner/x"], out_dir=os.path.join(out_dir, "runs_seeds"), echo=False,
+                             device="cpu", device_mesh=mesh)
+            for k, v in art.history.items():
+                out[f"runner_seeds/history/{k}"] = v
+            out["runner_seeds/params/phi"] = art.state.params["phi"].numpy()
         else:
             raise SystemExit(f"unknown task {task!r}")
     if any(name.split(".")[0] in ("jax", "jaxlib", "desmo_tpu") for name in sys.modules):
