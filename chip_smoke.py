@@ -41,7 +41,24 @@ presets at full width on synthetic data through ``runner.run``:
   through the step kernel's packed form; before it the packed step kernel
   is held against its plain version in float64 (the partials over 1-3
   shards, the update, the update alone, a NaN seed), and the sharded packed
-  chunk against the packed mega-kernel.
+  chunk against the packed mega-kernel; at aneurysm's reference init (B all
+  ones), with 4 seeds and with one, the partials (AᵀX aside) and the
+  mega-kernel's first-epoch sums (``train_chunk.epoch_sums``) within 5e-6
+  of float64;
+- resume: cylinder as configured (the mega-kernel), cylinder over the
+  one-rank mesh (the step kernel) and ae_cylinder through the AE kernel,
+  4,000 epochs straight against 2,000 and a ``runner.run(resume_from=...)``
+  of ``state_epoch2000.npz`` for 2,000 more: the same state and metrics bit
+  for bit; cylinder with the SIGTERM handler installed and a SIGTERM sent
+  by a timer mid-run: it stops at a chunk boundary with ``preempted`` and
+  ``state_final.npz``, and resumed to the end it gives the straight run's
+  bits; a chunk boundary's host time with a checkpoint written on the
+  worker thread against one written on the loop's thread;
+- the large presets with one seed as configured through the mega-kernel,
+  10,000 epochs each: channel (n=16384, m=1000, r=4, P=2, K=27, then its
+  greedy pruning curve), aneurysm (n=27000, K=27) and fourier_aneurysm
+  (n=27000, r=2, nF=30, K=12), each also held against its plain chunk and
+  timed beside its bound.
 
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels build without spills (checked from ``-Xptxas -v``), and
@@ -66,10 +83,12 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 EAGER_EPOCHS = 300
@@ -86,6 +105,8 @@ SHARDED_FOURIER_EPOCHS = 4_000
 # the packed sharded slice: two of the presets' 2,000-epoch chunks, so that
 # ensemble.fit times the second
 PACKED_SHARDED_EPOCHS = 4_000
+# the resume and preemption phases: two of the presets' 2,000-epoch chunks
+RESUME_EPOCHS = 4_000
 # the step kernel against its plain version evaluated in float64: the dual
 # contraction's contract on every summed partial, and dl. The plain version
 # in float32 is no yardstick here: cuBLAS sums AᵀX over n in one long chain,
@@ -94,13 +115,12 @@ PACKED_SHARDED_EPOCHS = 4_000
 # fourier_cylinder; the kernel 8.9e-7)
 STEP_RTOL = 5e-6
 STEP_DL_RTOL = 1e-5
-# the packed step kernel at the reference init of aneurysm S=4 (n=27000):
-# B is all ones there, so X·Bᵀ is X's row sums, which cancel to rounding;
-# float32 itself misses STEP_RTOL on AᵀX's constant row (the float32 plain
-# version 1.9e-5 of max|AᵀX|), and the kernel's gomega, for each column one
-# fmaf chain over a block's ~205 rows of same-signed terms, reaches 1.7e-5
-# (the float32 plain, a tree over all rows, 2.1e-7); after 200 epochs both
-# are within STEP_RTOL (measured on the H100)
+# AᵀX of the step kernel at the reference init of aneurysm (n=27000): B is
+# all ones there, so X·Bᵀ is X's row sums, which cancel to rounding; float32
+# itself misses STEP_RTOL on AᵀX's constant row (the float32 plain version
+# 1.9e-5 of max|AᵀX|, measured on the H100). Every other partial is held to
+# STEP_RTOL there: gcoef and gomega sum each row tile as a pairwise tree
+# (one fmaf chain over a block's ~205 rows reached 1.7e-5 on gomega)
 STEP_INIT_RTOL = 5e-5
 # kernel vs plain: 3xTF32 tiles against cuBLAS fp32, both accumulating in fp32
 CONTRACTION_RTOL = 5e-5
@@ -273,7 +293,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA device", file=sys.stderr)
         return 1
-    from desmo_tpu_torch import configs, device as device_mod, ensemble, losses, parallel, pod, runner, train
+    from desmo_tpu_torch import checkpoint, configs, device as device_mod, ensemble, losses, parallel, pod, runner, train
     from desmo_tpu_torch.kernels import _build, ae_chunk, dual_gemm, shard_step, train_chunk
     from desmo_tpu_torch.models import autoencoder, desmo, fourier
 
@@ -510,6 +530,14 @@ def main() -> int:
         spec = desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init)
         return spec, train.init_state(desmo.Desmo(spec, device=dev).params(), cfg)
 
+    def exact_distances(state, batch_, spec_, cfg, mk, mp):
+        """The largest distance over PARITY_STEPS epochs of the kernel's
+        trace ``mk`` and of the plain chunk's ``mp`` from the float64 one
+        (``shard_step.plain_trace``), as a share of it: rec, l1, total."""
+        exact = shard_step.plain_trace(state, batch_, PARITY_STEPS, spec_, cfg)
+        return {who: {k: trace_rel({k: m[k].double()}, exact, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
+                for who, m in (("kernel", mk), ("plain", mp))}
+
     def trace_rel(mk, mp, key, steps):
         return ((mk[key][:steps] - mp[key][:steps]).abs() / mp[key][:steps].abs()).max().item()
 
@@ -533,6 +561,9 @@ def main() -> int:
                                                           desmo.factor_tensor(spec, dev))[0].contiguous(),
                                  desmo.temporal_matrix(sk.params).contiguous(), batch["x"])}
     e_trace = {k: trace_rel(mk, mp, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
+    # reported, not held: the kernel's and the plain chunk's distance from
+    # the exact trajectory (step_plain in float64 from the same state)
+    e64 = exact_distances(st, batch, spec, unit, mk, mp)
     ortho_diff = (mk["ortho"][1:] - mp["ortho"][1:]).abs()
     e_ortho = (ortho_diff / mp["ortho"][1:].abs()).max().item()
     # every metric of one state: one epoch of each from the kernel's state
@@ -551,6 +582,9 @@ def main() -> int:
           + "; params " + ", ".join(f"{k} {v:.2e}" for k, v in e_params.items())
           + f"; kernel vs eager loop {e_kernel_eager:.2e}, eager loop vs plain {e_eager_plain:.2e} of max|param|;"
           " two launches bit-identical")
+    print(f"[5 unit] the trace against the step in float64 (step_plain) over the same {PARITY_STEPS} epochs: kernel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e64["kernel"].items()) + "; the plain chunk in float32 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in e64["plain"].items()))
     print(f"[5 unit] one epoch from the kernel's state after {PARITY_STEPS}, kernel vs plain: "
           + ", ".join(f"{k} {v:.2e}" for k, v in e_one.items())
           + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute)")
@@ -626,6 +660,7 @@ def main() -> int:
     fe_spread30 = max(rel_err(sp30.params[k].cpu(), sc30.params[k]) for k in sc30.params)
     fe_spread = max(rel_err(sp.params[k].cpu(), sc.params[k]) for k in sc.params)
     fe_trace_spread = {k: float(((mp[k].cpu() - mc[k]).abs() / mc[k].abs()).max()) for k in ("rec", "l1", "total")}
+    fe64 = exact_distances(fst, fbatch, fspec, funit, mk, mp)  # reported, as in phase 5
     print(f"[5f unit] Fourier mega-kernel vs plain chunk, omega_init=1 lr_omega=1, {PARITY_STEPS} epochs at "
           f"(n, m, K, nF)=({fpreset.n}, {fpreset.m}, {fK}, {fpreset.n_fourier}): trace "
           + ", ".join(f"{k} {v:.2e}" for k, v in fe_trace.items())
@@ -633,6 +668,9 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2e}" for k, v in fe_params.items()) + " of max|param|; two launches bit-identical")
     print(f"[5f unit] the plain chunk on the GPU vs on the CPU over the same {PARITY_STEPS} epochs: trace "
           + ", ".join(f"{k} {v:.2e}" for k, v in fe_trace_spread.items()) + f"; params {fe_spread:.2e} of max|param|")
+    print(f"[5f unit] the trace against the step in float64 (step_plain) over the same {PARITY_STEPS} epochs: "
+          "kernel " + ", ".join(f"{k} {v:.2e}" for k, v in fe64["kernel"].items()) + "; the plain chunk in float32 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in fe64["plain"].items()))
     print(f"[5f unit] one epoch from the kernel's state after {PARITY_STEPS}, kernel vs plain: metrics "
           + ", ".join(f"{k} {v:.2e}" for k, v in fe_one.items())
           + f" (limit 2e-4; ortho plus {ORTHO_ATOL:.0e} absolute); params "
@@ -1391,9 +1429,11 @@ def main() -> int:
                  "x_sq": batch["x_sq"]}
         return shard_step.make_buffers(cs, local, steps, spec_s, cfg, cfg.n)
 
-    def check_packed_step(name, seeds, cfg, spec_s, pbatch, state, betas, lams, label, rtol):
-        """The agreement checks of one state; returns max |kernel - float64|
-        over the partials of all rows."""
+    def check_packed_step(name, seeds, cfg, spec_s, pbatch, state, betas, lams, label, limits):
+        """The agreement checks of one state, each summed partial to its
+        limit in ``limits``, and the mega-kernel's first-epoch sums of that
+        state (``train_chunk.epoch_sums``) to the same limits; returns max
+        |kernel - float64| over the partials of all rows."""
         n, m, r = cfg.n, cfg.m, cfg.r
         k = spec_s.num_poly_terms + 3 * r
         whole = packed_rows_buffers(cfg, spec_s, pbatch, state, 0, n, 2, betas, lams)
@@ -1418,9 +1458,19 @@ def main() -> int:
             same_max &= max(float(run.max_arg[0]) for run in runs) == float(ref32.max_arg[0])
             worst = {key: max(v, worst.get(key, 0.0)) for key, v in e.items()}
         max_abs = max(float((whole.sums.double() - ref.sums).abs().max()), float((whole.dl.double() - ref.dl).abs().max()))
-        check(worst["dl"] <= STEP_DL_RTOL and all(worst[part] <= rtol for part in parts) and same_max,
+        check(worst["dl"] <= STEP_DL_RTOL and all(worst[part] <= limits[part] for part in parts) and same_max,
               f"{name} S={seeds} {label}: packed step kernel over 1-3 shards vs plain beyond its limits: {worst} "
-              f"(limit {rtol:.0e}), max_arg equal {same_max}")
+              f"(limits {limits}), max_arg equal {same_max}")
+        mega = train_chunk.epoch_sums(state, pbatch, spec_s, cfg, betas, lams)
+        want = dict(zip(parts, shard_step.split_seed_sums(ref.sums, k, m, r, seeds)))
+        e_mega = {part: rel_err(mega[part].double(), want[part]) for part in ("ga", "latg", "gcoef", "gomega")}
+        same_bits = all(torch.equal(mega[part], g) for part, g in zip(
+            ("gcoef", "gomega"), shard_step.split_seed_sums(whole.sums, k, m, r, seeds)[3:]))
+        print(f"[8f mega-kernel] {name} {seeds} seed(s) {label}: the mega-kernel's first-epoch sums "
+              "(train_chunk.epoch_sums) vs float64: " + ", ".join(f"{key} {v:.2e}" for key, v in e_mega.items())
+              + f" of max|ref|; gcoef and gomega the step kernel's bits {same_bits}")
+        check(all(v <= limits[part] for part, v in e_mega.items()),
+              f"{name} S={seeds} {label}: the mega-kernel's sums vs float64 beyond their limits: {e_mega}")
         # the update of that step and the next partials, twice from the same buffers; the update alone
         ref = whole.to(dev, torch.float64)
         twice = [whole.clone(), whole.clone()]
@@ -1454,7 +1504,8 @@ def main() -> int:
               f"per-seed beta, lambda and LR scale: the partials over all rows and over 2 and 3 uneven shards "
               f"(summed) vs the plain version in float64, worst of the three: "
               + ", ".join(f"{key} {v:.2e}" for key, v in worst.items())
-              + f" of max|ref| (limits: dl {STEP_DL_RTOL:.0e}, the sums {rtol:.0e}); the plain version in float32 vs "
+              + f" of max|ref| (limits: dl {STEP_DL_RTOL:.0e}, " + ", ".join(f"{part} {v:.0e}" for part, v in
+                                                                    limits.items()) + "); the plain version in float32 vs "
               "float64: " + ", ".join(f"{key} {v:.2e}" for key, v in plain_err.items())
               + f"; max_arg equal to the float32 plain's {same_max}; the update and the next partials vs step_plain "
               "in float64: metrics rows 0 " + ", ".join(f"{key} {v:.2e}" for key, v in e_met.items())
@@ -1464,13 +1515,14 @@ def main() -> int:
               + f"; LRs equal {same_lrs}; the update alone writes the same metrics rows {alone_ok}; two launches "
               f"bit-identical {same}")
         check(bool((met_err <= 0).all()) and max(e_par.values()) <= 1e-5 and same and same_lrs and alone_ok
-              and e_next["dl"] <= STEP_DL_RTOL and all(e_next[part] <= rtol for part in parts),
+              and e_next["dl"] <= STEP_DL_RTOL and all(e_next[part] <= limits[part] for part in parts),
               f"{name} S={seeds} {label}: packed step kernel's update vs step_plain beyond its limits: metrics "
               f"{e_met}, params {e_par}, next partials {e_next}, LRs equal {same_lrs}, the update alone {alone_ok}, "
               f"launches identical {same}")
         return max_abs
 
     packed_steps = {}
+    init_limits = {**dict.fromkeys(parts, STEP_RTOL), "ax": STEP_INIT_RTOL}
     for name, pc_tag, preset_cfg, seeds in (("aneurysm", "5e", apreset, 4), ("fourier_cylinder", "5ef", fpreset, 8)):
         pc = packed_checks[pc_tag]
         cfg = dataclasses.replace(preset_cfg, omega_init=1.0, lr_omega=1.0)
@@ -1483,8 +1535,11 @@ def main() -> int:
                                   lr_scales=np.where(np.arange(seeds) % 2, 0.5, 1.0))
         trained = train_chunk.fused_ensemble_chunk(hst, pbatch, PARITY_STEPS, spec_s, cfg, betas, lams)[0]
         max_abs = check_packed_step(name, seeds, cfg, spec_s, pbatch, trained, betas, lams,
-                                    f"after {PARITY_STEPS} epochs", STEP_RTOL)
-        check_packed_step(name, seeds, cfg, spec_s, pbatch, hst, betas, lams, "at the reference init", STEP_INIT_RTOL)
+                                    f"after {PARITY_STEPS} epochs", dict.fromkeys(parts, STEP_RTOL))
+        check_packed_step(name, seeds, cfg, spec_s, pbatch, hst, betas, lams, "at the reference init", init_limits)
+        if name == "aneurysm":  # one seed from the reference init, the one-seed forms of both kernels
+            one = train_chunk.stack_seed(train.init_state(desmo.Desmo(spec_s, device=dev).params(), cfg))
+            check_packed_step(name, 1, cfg, spec_s, pbatch, one, None, None, "at the reference init", init_limits)
         bad = ensemble.init_state({**hst.params, "phi": hst.params["phi"].clone()}, cfg, seeds)
         bad.params["phi"][1] = float("nan")
         bbuf = packed_rows_buffers(cfg, spec_s, pbatch, bad, 0, n, 3)
@@ -1628,6 +1683,237 @@ def main() -> int:
               f"packed mega-kernel's epoch {g1:.1f}/{g2:.1f} (chunk, mega, mega, chunk; 2 runs each); the replays of "
               f"a CUDA graph of one step: the kernel by its clock {busy_k:.1f} in {busy_w:.1f}, a busy share of "
               f"{busy_k / busy_w:.1%}; end to end {packed_runs[name]['sps']:.1f} seed-steps/s (8h)")
+
+    # 10. resume, bit for bit: each run as configured for RESUME_EPOCHS
+    # (two 2,000-epoch chunks) straight, against one chunk and then
+    # runner.run(resume_from=its state_epoch2000.npz) for the other; the
+    # final state files and the resumed run's metrics equal. Cylinder through
+    # the mega-kernel, over space=1 through the step kernel (the resumed
+    # chunk builds its buffers and captures its CUDA graph anew), and
+    # ae_cylinder through the AE kernel.
+    def resume_check(tag, cfg, data, counter, **kw):
+        half = RESUME_EPOCHS // 2
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches(*counters)
+            t0 = time.perf_counter()
+            straight = runner.run(cfg, data, out_dir=os.path.join(tmp, "straight"), num_epochs=RESUME_EPOCHS,
+                                  echo=False, device=dev, **kw)
+            first = runner.run(cfg, data, out_dir=os.path.join(tmp, "first"), num_epochs=half, echo=False,
+                               device=dev, **kw)
+            resumed = runner.run(cfg, data, out_dir=os.path.join(tmp, "resumed"), num_epochs=RESUME_EPOCHS - half,
+                                 echo=False, device=dev, resume_from=os.path.join(first.out_dir,
+                                                                                  f"state_epoch{half}.npz"), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, others = counter.launches, sum(fn.launches for fn in counters) - counter.launches
+            want = dict(np.load(os.path.join(straight.out_dir, "state_final.npz")))
+            got = dict(np.load(os.path.join(resumed.out_dir, "state_final.npz")))
+        same_state = set(got) == set(want) and all(np.array_equal(got[key], want[key]) for key in want)
+        same_metrics = all(np.array_equal(resumed.history[key], straight.history[key][half:]) for key in
+                           straight.history)
+        expected = 2 * (RESUME_EPOCHS + 2) if counter is shard_step.step else 4
+        print(f"[10 resume] {tag}: {RESUME_EPOCHS} epochs straight against {half} and then resume_from "
+              f"state_epoch{half}.npz for {RESUME_EPOCHS - half} ({wall:.1f} s for the three runs): final state "
+              f"files equal bit for bit {same_state}, the resumed run's metrics equal epochs {half}-"
+              f"{RESUME_EPOCHS - 1} of the straight run's {same_metrics}; relative error {resumed.relative_error:.6f} "
+              f"and {straight.relative_error:.6f}; {counter.__name__} launches {launches} (expected {expected}), "
+              f"other kernels {others}")
+        check(same_state and same_metrics and resumed.relative_error == straight.relative_error,
+              f"{tag}: the resumed run differs from the straight one")
+        check(launches == expected and others == 0, f"{tag}: {launches} launches of {counter.__name__}, "
+              f"{others} of other kernels, in the three runs")
+        return dict(launches=launches, state=want)
+
+    resumes = {
+        "cylinder": resume_check("cylinder as configured (the mega-kernel)", preset, x_np,
+                                 train_chunk.fused_train_chunk),
+        "cylinder over space=1": resume_check("cylinder as configured over space=1 (the step kernel)", preset,
+                                              x_np, shard_step.step, device_mesh=mesh),
+        "ae_cylinder": resume_check("ae_cylinder with chunk_method=megakernel (the AE kernel)", ae_slice_cfg,
+                                    aex_np, ae_chunk.fused_ae_chunk),
+    }
+
+    # 10p. preemption: cylinder as configured for RESUME_EPOCHS, with the
+    # SIGTERM handler installed and a timer that sends SIGTERM 50 ms after
+    # the first chunk is launched: the run stops at the next chunk boundary,
+    # with preempted=True and state_final.npz; resumed from that file to the
+    # end, it ends on the bits of the straight run of phase 10
+    prev_handler = signal.getsignal(signal.SIGTERM)
+    select = train_chunk.select_chunk
+
+    def signalled_select(spec, cfg, device):
+        chunk = select(spec, cfg, device)
+        calls = []
+
+        def run_chunk(state, batch_, num_steps):
+            calls.append(num_steps)
+            out = chunk(state, batch_, num_steps)
+            if len(calls) == 1:
+                timers.append(threading.Timer(0.05, os.kill, (os.getpid(), signal.SIGTERM)))
+                timers[-1].start()
+            return out
+
+        return run_chunk
+
+    timers = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train.install_preemption_handler()
+            train_chunk.select_chunk = signalled_select
+            reset_launches(*counters)
+            stopped = runner.run(preset, x_np, out_dir=os.path.join(tmp, "stopped"), num_epochs=RESUME_EPOCHS,
+                                 echo=False, device=dev)
+        finally:
+            train_chunk.select_chunk = select
+            for timer in timers:
+                timer.join()
+            signal.signal(signal.SIGTERM, prev_handler)
+        stop_launches = train_chunk.fused_train_chunk.launches
+        files = set(os.listdir(stopped.out_dir))
+        rest = RESUME_EPOCHS - stopped.state.epoch
+        resumed = runner.run(preset, x_np, out_dir=os.path.join(tmp, "resumed"), num_epochs=rest, echo=False,
+                             device=dev, resume_from=os.path.join(stopped.out_dir, "state_final.npz"))
+        torch.cuda.synchronize()
+        got = dict(np.load(os.path.join(resumed.out_dir, "state_final.npz")))
+    want = resumes["cylinder"]["state"]
+    same = set(got) == set(want) and all(np.array_equal(got[key], want[key]) for key in want)
+    print(f"[10p preempt] cylinder as configured, {RESUME_EPOCHS} epochs, SIGTERM 50 ms after the first launch: "
+          f"preempted {stopped.preempted} at epoch {stopped.state.epoch} after {stop_launches} launch(es); "
+          f"state_final.npz written {'state_final.npz' in files}, the sweep skipped {stopped.sweep == []}; resumed "
+          f"for {rest} epochs: the final state equals the straight run's bit for bit {same}")
+    check(stopped.preempted and 0 < stopped.state.epoch < RESUME_EPOCHS
+          and stopped.state.epoch % preset.checkpoint_every == 0 and "state_final.npz" in files
+          and stopped.sweep == [] and not train.preemption_requested(),
+          f"the SIGTERM did not stop the run at a chunk boundary: preempted {stopped.preempted} at "
+          f"{stopped.state.epoch}, files {sorted(files)}")
+    check(same, "the run resumed after a SIGTERM differs from the straight run")
+
+    # 10c. a chunk boundary's host cost: train.fit of cylinder as configured,
+    # SLICE_EPOCHS epochs through the mega-kernel with a checkpoint every
+    # 2,000 (the runner's state_*.npz and .pt), written by fit's worker
+    # thread (async), or on the loop's thread before each next launch and
+    # after the last chunk (sync: a chunk that writes the state it is handed
+    # first), against no checkpoint, in turns; the cost a boundary is the
+    # wall time over the run without checkpoints, over the SLICE_EPOCHS /
+    # 2,000 boundaries
+    cspec, cst = start(preset)
+    cchunk = train_chunk.select_chunk(cspec, preset, dev)
+    boundaries = SLICE_EPOCHS // preset.checkpoint_every
+    with tempfile.TemporaryDirectory() as tmp:
+        def export(state, epoch):
+            checkpoint.save_state(os.path.join(tmp, f"state_epoch{epoch}.npz"), state)
+            checkpoint.save_pt(os.path.join(tmp, f"cylinder_r4_epoch{epoch}.pt"),
+                               checkpoint.state_dict_from_params(state.params))
+
+        def writing_chunk(state, batch_, num_steps):
+            if state.epoch > cst.epoch:
+                export(state, state.epoch)
+            return cchunk(state, batch_, num_steps)
+
+        def fit_wall(mode):
+            t0 = time.perf_counter()
+            res = train.fit(None, {}, preset, None, batch, num_epochs=SLICE_EPOCHS, log=None, state=cst,
+                            chunk=writing_chunk if mode == "sync" else cchunk,
+                            checkpoint_fn=export if mode == "async" else None)
+            if mode == "sync":
+                export(res.state, res.state.epoch)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        fit_wall("none")
+        walls = {}
+        for mode in ("none", "sync", "async", "async", "sync", "none"):
+            walls.setdefault(mode, []).append(fit_wall(mode))
+    base = statistics.mean(walls["none"])
+    per_boundary = {mode: (statistics.mean(w) - base) / boundaries for mode, w in walls.items() if mode != "none"}
+    print(f"[10c checkpoint] {card}: cylinder, {SLICE_EPOCHS} epochs of 2,000-epoch mega-kernel chunks, wall "
+          "seconds (none, sync, async, async, sync, none): " + ", ".join(
+              f"{mode} " + "/".join(f"{w:.4f}" for w in ws) for mode, ws in walls.items())
+          + f"; host seconds a chunk boundary over the run without checkpoints: synchronous write "
+          f"{per_boundary['sync']:.4f}, on the worker {per_boundary['async']:.4f}")
+
+    # 11. the large presets as configured, one seed, through the mega-kernel,
+    # SLICE_EPOCHS each: channel (n=16384, m=1000, r=4, P=2, K=27; then its
+    # greedy curve), aneurysm (n=27000, K=27) and fourier_aneurysm (n=27000,
+    # r=2, nF=30, K=12). Then, at each, the kernel against its plain chunk:
+    # one epoch from the kernel's state after PARITY_STEPS epochs at
+    # omega_init=1 (metrics to 2e-4, parameters to 1e-5), and both in turns
+    # over TIMED_STEPS-epoch chunks beside the bounds
+    large = {}
+    for name in ("channel", "aneurysm", "fourier_aneurysm"):
+        cfg = configs.get(name)
+        data = ax_np if name == "aneurysm" else runner.load_data(cfg, synthetic=True)[0]
+        cfg = dataclasses.replace(cfg, n=data.shape[0], m=data.shape[1])
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launches(*counters)
+            t0 = time.perf_counter()
+            art = runner.run(cfg, data, out_dir=tmp, num_epochs=SLICE_EPOCHS, echo=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = train_chunk.fused_train_chunk.launches
+        others = sum(fn.launches for fn in counters) - launches
+        hist = art.history
+        n_chunks = SLICE_EPOCHS // cfg.checkpoint_every
+        check(all(bool(np.isfinite(hist[key]).all()) and hist[key].shape == (SLICE_EPOCHS,) for key in hist),
+              f"{name} history")
+        check(hist["rec"][-1] < hist["rec"][0], f"{name} rec did not fall: {hist['rec'][0]} -> {hist['rec'][-1]}")
+        check(launches == n_chunks and others == 0,
+              f"{name}: the mega-kernel launched {launches} times for {n_chunks} chunks, other kernels {others}")
+        check(np.isfinite(art.relative_error) and len(art.sweep) == 14, f"{name}: error/sweep")
+        nf = cfg.n_fourier if cfg.variant == "fourier" else 0
+        spec_l = (fourier.FourierSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init, nf, cfg.period_init)
+                  if nf else desmo.DesmoSpec(cfg.n, cfg.m, cfg.r, cfg.poly_order, cfg.omega_init))
+        k = spec_l.num_poly_terms + 3 * cfg.r
+        if cfg.run_greedy_prune:
+            steps = [e.nonzero_terms for e in art.greedy]
+            check(len(steps) == k + 1 and steps[0] <= k and steps[-1] == 0 and steps == sorted(steps, reverse=True)
+                  and all(np.isfinite(e.error) for e in art.greedy) and abs(art.greedy[-1].error - 1.0) < 1e-4,
+                  f"{name}: greedy curve {art.greedy}")
+            print(f"[11 greedy] {name}: greedy pruning, {len(art.greedy)} steps (terms left: error): "
+                  + ", ".join(f"{e.nonzero_terms}: {e.error:.6f}" for e in art.greedy))
+        lbatch = runner.prepare_batch(data, pod.pod_host(data, cfg.r, dev).modes, dev)
+        model = fourier.Fourier if nf else desmo.Desmo
+        lunit = dataclasses.replace(cfg, omega_init=1.0, lr_omega=1.0)
+        spec_u = dataclasses.replace(spec_l, omega_init=1.0)
+        ust = train.init_state(model(spec_u, device=dev).params(), lunit)
+        sk, _ = train_chunk.fused_train_chunk(ust, lbatch, PARITY_STEPS, spec_u, lunit)
+        sk1, mk1 = train_chunk.fused_train_chunk(sk, lbatch, 1, spec_u, lunit)
+        sp1, mp1 = train_chunk.train_chunk_plain(sk, lbatch, 1, spec_u, lunit)
+        e_one = {key: ((mk1[key] - mp1[key]).abs() / mp1[key].abs()).item() for key in train_chunk.METRICS}
+        one_ok = all(bool((mk1[key] - mp1[key]).abs() <= 2e-4 * mp1[key].abs() + (ORTHO_ATOL if key == "ortho"
+                                                                                  else 0.0))
+                     for key in train_chunk.METRICS)
+        e_params = {key: rel_err(sk1.params[key], sp1.params[key]) for key in sk1.params}
+        max_abs = max(float((sk1.params[key] - sp1.params[key]).abs().max()) for key in sk1.params)
+        check(one_ok and max(e_params.values()) <= 1e-5,
+              f"{name}: one epoch of the mega-kernel vs plain beyond 2e-4 / 1e-5: {e_one}, {e_params}")
+        lst = train.init_state(model(spec_l, device=dev).params(), cfg)
+        kernel = lambda: train_chunk.fused_train_chunk(lst, lbatch, TIMED_STEPS, spec_l, cfg)  # noqa: E731
+        plain = lambda: train_chunk.train_chunk_plain(lst, lbatch, TIMED_STEPS, spec_l, cfg)  # noqa: E731
+        k1, p1, p2, k2 = (time_ms(f, 3) for f in (kernel, plain, plain, kernel))
+        n, m, r = cfg.n, cfg.m, cfg.r
+        width = 2 * nf + 1 if nf else m
+        state_bytes = 4 * 2 * (3 * r * n + 3 * k * width + (3 * k if nf else 0) + 3 * k + 9 * r + train_chunk.SVEC)
+        nbytes = 4 * (n * m + n * r + (m if nf else 0) + TIMED_STEPS * len(train_chunk.METRICS)) + state_bytes
+        flops = TIMED_STEPS * chunk_flops(n, m, k, nf)
+        bound, by = bound_ms(flops, nbytes)
+        cflops = TIMED_STEPS * contraction_flops(n, m, k)
+        bound3 = bound_3xtf32_ms(cflops, flops - cflops, nbytes)
+        per_epoch = 1e3 / TIMED_STEPS
+        large[name] = dict(launches=launches, max_abs=max_abs, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                           bound_ms=bound, bound_by=by, bound_3xtf32_ms=bound3)
+        print(f"[11 large] {card}: {name} as configured (n, m, r, P, K{', nF' if nf else ''})=({n}, {m}, {r}, "
+              f"{cfg.poly_order}, {k}{f', {nf}' if nf else ''}): {SLICE_EPOCHS} epochs in {wall:.1f} s (POD, sweep"
+              f"{', greedy pruning' if cfg.run_greedy_prune else ''} and exports included), {art.steps_per_sec:.1f} "
+              f"steps/s over chunks 2-{n_chunks} ({1e6 / art.steps_per_sec:.1f} us an epoch); relative error "
+              f"{art.relative_error:.6f} (POD(r) {art.pod_error_r:.6f}); rec {hist['rec'][0]:.6e} -> "
+              f"{hist['rec'][-1]:.6e}; mega-kernel launches {launches} = chunks, other kernels 0")
+        print(f"[11 large] {card}: {name} over {TIMED_STEPS}-epoch chunks in turns: kernel {k1 * per_epoch:.1f}/"
+              f"{k2 * per_epoch:.1f} us/epoch, plain chunk {p1 * per_epoch:.1f}/{p2 * per_epoch:.1f} us/epoch; "
+              f"bound {bound * per_epoch:.1f} us/epoch ({by}, fp32), {bound3 * per_epoch:.1f} (3xTF32); one epoch "
+              f"from the kernel's state after {PARITY_STEPS} at omega_init=1, kernel vs plain: metrics "
+              + ", ".join(f"{key} {v:.2e}" for key, v in e_one.items()) + "; params "
+              + ", ".join(f"{key} {v:.2e}" for key, v in e_params.items()) + " of max|param|")
 
     # the sharded chunk by the device's work: in one profiler window of a
     # 200-step chunk, the step kernel's launches the profiler saw against
@@ -1812,6 +2098,43 @@ def main() -> int:
         }
         for name, preset_name in (("step (aneurysm, 4 seeds over space=1)", "aneurysm"),
                                   ("step (Fourier form, fourier_cylinder, 8 seeds over space=1)", "fourier_cylinder"))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/train_chunk.cu",
+            "replaces": "desmo_tpu/pallas/train_chunk.py:356" + (" (nf>0)" if "Fourier" in name else ""),
+            "launches": large[preset_name]["launches"],
+            "max_abs_err": large[preset_name]["max_abs"],
+            **{key: v for key, v in large[preset_name].items() if key not in ("launches", "max_abs")},
+            "library_ms": None,
+        }
+        for name, preset_name in (("fused_train_chunk (channel, n=16384)", "channel"),
+                                  ("fused_train_chunk (aneurysm, one seed)", "aneurysm"),
+                                  ("fused_train_chunk (Fourier form, fourier_aneurysm, nF=30)", "fourier_aneurysm"))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": resumes[run]["launches"],
+            "max_abs_err": max_abs,
+            **times,
+            "library_ms": None,
+        }
+        for name, run, source, replaces, max_abs, times in (
+            ("fused_train_chunk (cylinder, straight and resumed)", "cylinder", "desmo_tpu_torch/csrc/train_chunk.cu",
+             "desmo_tpu/pallas/train_chunk.py:356", chunk_max_abs,
+             dict(ms=chunk_ms, plain_ms=chunk_plain_ms, bound_ms=chunk_bound, bound_by=chunk_by,
+                  bound_3xtf32_ms=chunk_bound3)),
+            ("step (cylinder over space=1, straight and resumed)", "cylinder over space=1",
+             "desmo_tpu_torch/csrc/shard_step.cu", "desmo_tpu/pallas/shard_step.py:74",
+             step_checks[preset.name]["max_abs"], step_times[preset.name]),
+            ("fused_ae_chunk (ae_cylinder, straight and resumed)", "ae_cylinder", "desmo_tpu_torch/csrc/ae_chunk.cu",
+             "desmo_tpu/pallas/ae_chunk.py:170", ae_max_abs,
+             dict(ms=ae_ms, plain_ms=ae_plain_ms, bound_ms=ae_bound, bound_by=ae_by, bound_3xtf32_ms=ae_bound3)),
+        )
     ]}))
     check(kind == torch.cuda.get_device_name(dev), f"the device record's kind {kind!r} is not the card's name")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -23,9 +23,11 @@ Modules
   (``models.fourier``) and its AE variant (``models.autoencoder``)
 - ``pod``         host POD initialization
 - ``optim``       torch-semantics Adamax + ReduceLROnPlateau on tensor state
-- ``train``       the chunked training loop (eager, or the mega-kernel's chunk)
-- ``checkpoint``  ``.npz`` run state, ``.pt`` export, weights and state from the JAX package
-- ``sparsify``    term energies and threshold sweeps
+- ``train``       the chunked training loop (eager, or the mega-kernel's chunk), its
+  graceful preemption and its checkpoint worker
+- ``checkpoint``  ``.npz`` run state (written and read back), ``.pt`` export, weights and
+  state from the JAX package
+- ``sparsify``    term energies, threshold sweeps and greedy pruning
 - ``logging_utils`` CSV/JSONL metrics
 - ``runner``      the end-to-end pipeline behind ``python -m desmo_tpu_torch run``
 

@@ -10,6 +10,8 @@
     python -m desmo_tpu_torch run --preset ae_cylinder --synthetic --chunk-method megakernel
     python -m desmo_tpu_torch run --preset ae_cylinder --synthetic --ae-recipe
     python -m desmo_tpu_torch run --preset cylinder --synthetic --mesh space=1
+    python -m desmo_tpu_torch run --preset channel --synthetic --epochs 2000
+    python -m desmo_tpu_torch run --preset cylinder --synthetic --resume runs/cylinder/state_epoch2000.npz
     torchrun --nproc-per-node 2 -m desmo_tpu_torch run --preset cylinder --synthetic --device cpu --mesh space=2
 
 ``run`` trains on the GPU by default and raises when there is none; the plain
@@ -24,7 +26,10 @@ variant keeps the JAX package's policy: ``auto`` is the eager loop, and
 ``--ae-data-omega`` turn on its convergence recipe. ``--mesh space=d`` shards
 the rows over d processes, one per device (``torchrun --nproc-per-node d``;
 one process alone for d = 1), through the sharded step kernel, one launch
-and one all-reduce per step; only rank 0 prints and writes.
+and one all-reduce per step; only rank 0 prints and writes. ``--resume``
+continues from a ``state_*.npz`` of either package for ``--epochs`` more
+epochs. SIGTERM stops ``run`` at the next chunk boundary with
+``state_final.npz`` written and ``"preempted": true`` in the summary.
 """
 
 from __future__ import annotations
@@ -66,8 +71,11 @@ def _parse_mesh(spec_str, device):
 
 
 def cmd_run(args) -> int:
-    from desmo_tpu_torch import configs, runner
+    from desmo_tpu_torch import configs, runner, train
 
+    # SIGTERM (SLURM preemption, spot-VM reclaim): a final checkpoint at the
+    # next chunk boundary and a clean exit, not death mid-chunk
+    train.install_preemption_handler()
     cfg = configs.get(args.preset)
     overrides = {}
     if args.epochs is not None:
@@ -115,7 +123,8 @@ def cmd_run(args) -> int:
         synthetic=args.synthetic,
         dim=args.dim,
     )
-    artifacts = runner.run(cfg, x, out_dir=args.out_dir, device=args.device, device_mesh=device_mesh)
+    artifacts = runner.run(cfg, x, out_dir=args.out_dir, device=args.device, device_mesh=device_mesh,
+                           resume_from=args.resume)
     if device_mesh is not None and device_mesh.rank != 0:
         return 0
     summary = {
@@ -130,6 +139,7 @@ def cmd_run(args) -> int:
         # null when the run fits in its first (untimed) chunk
         "steps_per_sec": None if math.isnan(artifacts.steps_per_sec) else artifacts.steps_per_sec,
         "out_dir": artifacts.out_dir,
+        "preempted": artifacts.preempted,
     }
     print(json.dumps(summary))
     return 0
@@ -154,6 +164,7 @@ def main(argv=None) -> int:
     p_run.add_argument("--dim", type=int, default=None, choices=[2, 3])
     p_run.add_argument("--epochs", type=int, default=None, help="override preset epochs")
     p_run.add_argument("--out-dir", default="./runs")
+    p_run.add_argument("--resume", default=None, help="state_*.npz checkpoint to resume")
     p_run.add_argument(
         "--mesh", default=None, metavar="SPEC",
         help="space=d: shard the rows over d processes, one per device (torchrun --nproc-per-node d; "

@@ -1,14 +1,15 @@
 """Checkpoints: ``.npz`` run state, ``.pt`` export in the reference's key
 scheme, and weights carried over from the JAX package.
 
-Port of ``save_state``, ``state_dict_from_params`` and
+Port of ``save_state``, ``load_state``, ``state_dict_from_params`` and
 ``params_from_state_dict`` from ``desmo_tpu/checkpoint.py`` (desmo and
 Fourier variants; the AE variant's keys through ``models.autoencoder``).
 ``save_state`` writes the same flat keys as the JAX package
 (``params/<key>``, ``opt/count``, ``opt/mu/<key>``, ``opt/nu/<key>``,
 ``sched/lrs``, ``sched/best``, ``sched/num_bad``, ``epoch``), so
-``desmo_tpu.checkpoint.load_state`` reads the port's files; the ``.pt`` files
-read back through ``desmo_tpu.checkpoint.load_pt`` and ``torch.load``.
+``desmo_tpu.checkpoint.load_state`` reads the port's files and
+:func:`load_state` the JAX package's; the ``.pt`` files read back through
+``desmo_tpu.checkpoint.load_pt`` and ``torch.load``.
 """
 
 from __future__ import annotations
@@ -147,14 +148,54 @@ def save_pt(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
     torch.save(dict(state_dict), path)
 
 
+def _flat_state(state: TrainState) -> dict:
+    """The state's leaves by their flat key (JAX package keys), tensors as
+    they are and the counters as numpy int32."""
+    flat = {f"params/{k}": v for k, v in state.params.items()}
+    flat["opt/count"] = np.asarray(state.count, np.int32)
+    flat.update({f"opt/mu/{k}": v for k, v in state.mu.items()})
+    flat.update({f"opt/nu/{k}": v for k, v in state.nu.items()})
+    flat["sched/lrs"] = state.sched.lrs
+    flat["sched/best"] = state.sched.best
+    flat["sched/num_bad"] = state.sched.num_bad
+    flat["epoch"] = np.asarray(state.epoch, np.int32)
+    return flat
+
+
 def save_state(path: str, state: TrainState) -> None:
     """Write the full training state to a flat ``.npz`` (JAX package keys)."""
-    flat = {f"params/{k}": _host(v) for k, v in state.params.items()}
-    flat["opt/count"] = np.asarray(state.count, np.int32)
-    flat.update({f"opt/mu/{k}": _host(v) for k, v in state.mu.items()})
-    flat.update({f"opt/nu/{k}": _host(v) for k, v in state.nu.items()})
-    flat["sched/lrs"] = _host(state.sched.lrs)
-    flat["sched/best"] = _host(state.sched.best)
-    flat["sched/num_bad"] = _host(state.sched.num_bad)
-    flat["epoch"] = np.asarray(state.epoch, np.int32)
-    np.savez(path, **flat)
+    np.savez(path, **{k: _host(v) for k, v in _flat_state(state).items()})
+
+
+def load_state(path: str, template: TrainState) -> TrainState:
+    """The training state saved at ``path`` by :func:`save_state` or by
+    ``desmo_tpu.checkpoint.save_state``; ``template`` (an initialised state
+    of the same shapes, e.g. ``train.init_state(params, cfg)``) gives the
+    keys, each tensor's dtype and the device. A key of the template missing
+    from the file raises ``KeyError``."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    keys = _flat_state(template)
+    missing = sorted(set(keys) - set(flat))
+    if missing:
+        raise KeyError(f"checkpoint missing keys: {missing}")
+    device = next(iter(template.params.values())).device
+
+    def tensor(key: str, like: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(flat[key]), device=device).to(like.dtype).reshape(like.shape)
+
+    def tree(prefix: str, like: dict) -> dict:
+        return {k: tensor(f"{prefix}/{k}", v) for k, v in like.items()}
+
+    sched = template.sched
+    return TrainState(
+        params=tree("params", template.params),
+        mu=tree("opt/mu", template.mu),
+        nu=tree("opt/nu", template.nu),
+        count=int(flat["opt/count"]),
+        sched=optim.PlateauState(
+            lrs=tensor("sched/lrs", sched.lrs), best=tensor("sched/best", sched.best),
+            num_bad=tensor("sched/num_bad", sched.num_bad),
+        ),
+        epoch=int(flat["epoch"]),
+    )

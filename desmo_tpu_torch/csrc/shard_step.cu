@@ -430,19 +430,28 @@ __device__ void accumulate_gb(const float* bn, int w, int Ks, int S, float* part
 
 // as train_chunk.cu reduce_partials: out[e] = the sum over the grid's blocks
 // b of part[b * stride + e], for e < count: one warp per entry, lane l adding
-// partials l, l + 32, ... in order, then the 32 lane sums added in lane
-// order; every thread of the block must call it.
-__device__ void reduce_partials(const float* part, long long stride, int count, float* out, float* red) {
+// partials l, l + 32, ... in order, then the 32 lane sums in lane order;
+// entries from exact_from on (gcoef and gomega) in double precision, the
+// lane sums in a fixed tree of warp shuffles; every thread of the block must
+// call it.
+__device__ void reduce_partials(const float* part, long long stride, int count, float* out, float* red,
+                                int exact_from) {
   const int t = threadIdx.x, lane = t % 32, warp = t / 32, G = gridDim.x;
   for (int e0 = blockIdx.x * kWarps; e0 < count; e0 += G * kWarps) {
     const int e = e0 + warp;
     float s = 0.f;
-    if (e < count)
+    if (e < count && e >= exact_from) {  // e is the warp's: its lanes agree
+      double d = 0.0;
+      for (int bb = lane; bb < G; bb += 32) d += part[bb * stride + e];
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_down_sync(0xffffffffu, d, o);
+      if (lane == 0) out[e] = (float)d;
+    } else if (e < count) {
       for (int bb = lane; bb < G; bb += 32) s += part[bb * stride + e];
+    }
     __syncthreads();
     red[t] = s;
     __syncthreads();
-    if (lane == 0 && e < count) {
+    if (lane == 0 && e < count && e < exact_from) {
       float v = 0.f;
       for (int l = 0; l < 32; ++l) v += red[t + l];
       out[e] = v;
@@ -1203,20 +1212,28 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
       }
     }
     __syncthreads();
-    // coefficient and omega gradients: thread k owns column k
-    for (int k = t; k < K; k += kThreads) {
-      const int* ck = ct + k * CT;
+    // coefficient and omega gradients: warp w takes columns w, w + kWarps,
+    // ...; lane i the tile's row i. The 32 rows' terms meet in a fixed
+    // pairwise tree of shuffles, neighbouring rows first (lane 0 holds
+    // ((t0 + t1) + (t2 + t3)) + ...), and lane 0 adds the tile's sum to the
+    // block's, so that no sum runs over more than one tile's rows
+    for (int k = t / 32; k < K; k += kWarps) {
+      const int* ck = ct + k * CT, i = t % 32;
       const bool trig = ck[1] != 0;
-      const int lane = ck[2], q = ck[3];
-      float gc = cacc[k];
-      float go = trig ? oacc[q] : 0.f;
-      for (int i = 0; i < rows; ++i) {
+      float gc = 0.f, go = 0.f;
+      if (i < rows) {
         const float da = Y_s[i * ld + k];
-        gc = fmaf(da, D_s[i * ld + k], gc);
-        if (trig) go = fmaf(da * c_s[k] * V_s[i * ld + k], aug_s[i * AW + lane], go);
+        gc = da * D_s[i * ld + k];
+        if (trig) go = da * c_s[k] * V_s[i * ld + k] * aug_s[i * AW + ck[2]];
       }
-      cacc[k] = gc;
-      if (trig) oacc[q] = go;
+      for (int o = 1; o < 32; o <<= 1) {
+        gc += __shfl_xor_sync(0xffffffffu, gc, o);
+        go += __shfl_xor_sync(0xffffffffu, go, o);
+      }
+      if (i == 0) {
+        cacc[k] += gc;
+        if (trig) oacc[ck[3]] += go;
+      }
     }
     // dl[row][jl] for latent lane jl = s r + j: the trig part through omega,
     // the polynomial part by the product rule
@@ -1296,7 +1313,7 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(Args a) {
   grid.sync();
   clock.mark(kUpdate);
   if (kFourier && update) {
-    reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem);
+    reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem, L.es_ser);
     __syncthreads();
     if (blockIdx.x == 0) finalize<kPacked>(a, L, tb, smem, s);
     grid.sync();
@@ -1306,10 +1323,10 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(Args a) {
     if (a.rows) series_slab<kPacked>(a, L, zc_s, per_s, per_s + round4(a.K));
     grid.sync();
     clock.mark(kUpdate);
-    if (a.rows) reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.gb, smem);
+    if (a.rows) reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.gb, smem, L.kk);
     if (blockIdx.x == 0) store_series(a, L);
   } else {
-    if (a.rows) reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.gb, smem);
+    if (a.rows) reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.gb, smem, L.kk);
     __syncthreads();
     if (update && blockIdx.x == 0) finalize<kPacked>(a, L, tb, smem, s);
   }
@@ -1321,7 +1338,7 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(Args a) {
     grid.sync();
     clock.mark(kRowsBarrier);
     const long long km = (long long)a.K * a.m;
-    reduce_partials(a.work + L.part, L.es, L.es, a.sums + km, smem);
+    reduce_partials(a.work + L.part, L.es, L.es, a.sums + km, smem, L.kk + L.lg);
     if (blockIdx.x == 0) {
       float v = 0.f;
       for (int bb = threadIdx.x; bb < (int)gridDim.x; bb += kThreads) v = max_nan(v, a.work[L.part_max + bb]);

@@ -520,19 +520,30 @@ __device__ void gb_partial(const Args& a, const Layout& L, float* smem) {
 
 // out[e] = the sum over the grid's blocks b of part[b * stride + e], for
 // e < count: one warp per entry, lane l adding partials l, l + 32, ... in
-// order, then the 32 lane sums added in lane order. Fixed order, so
-// repeatable; every thread of the block must call it.
-__device__ void reduce_partials(const float* part, long long stride, int count, float* out, float* red) {
+// order, then the 32 lane sums added in lane order. Entries from exact_from
+// on are summed in double precision, the lane sums in a fixed tree of warp
+// shuffles, rounded once to float: the blocks' gcoef and gomega partials
+// cancel (at aneurysm's reference init their magnitudes add up to about 130
+// times gomega's), so a float32 sum loses about 1e-5 of gomega there. Fixed
+// order, so repeatable; every thread of the block must call it.
+__device__ void reduce_partials(const float* part, long long stride, int count, float* out, float* red,
+                                int exact_from) {
   const int t = threadIdx.x, lane = t % 32, warp = t / 32, G = gridDim.x;
   for (int e0 = blockIdx.x * kWarps; e0 < count; e0 += G * kWarps) {
     const int e = e0 + warp;
     float s = 0.f;
-    if (e < count)
+    if (e < count && e >= exact_from) {  // e is the warp's: its lanes agree
+      double d = 0.0;
+      for (int bb = lane; bb < G; bb += 32) d += part[bb * stride + e];
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_down_sync(0xffffffffu, d, o);
+      if (lane == 0) out[e] = (float)d;
+    } else if (e < count) {
       for (int bb = lane; bb < G; bb += 32) s += part[bb * stride + e];
+    }
     __syncthreads();
     red[t] = s;
     __syncthreads();
-    if (lane == 0 && e < count) {
+    if (lane == 0 && e < count && e < exact_from) {
       float v = 0.f;
       for (int l = 0; l < 32; ++l) v += red[t + l];
       out[e] = v;
@@ -542,7 +553,7 @@ __device__ void reduce_partials(const float* part, long long stride, int count, 
 
 // gb[parity] = B Bᵀ from the blocks' partials.
 __device__ void reduce_gb(const Args& a, const Layout& L, int parity, float* red) {
-  reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.work + L.gb + (long long)parity * L.kk, red);
+  reduce_partials(a.work + L.part_gb, L.kk, L.kk, a.work + L.gb + (long long)parity * L.kk, red, L.kk);
 }
 
 // Fourier: th = 2 pi t_j / period as the host forms it in float32,
@@ -1035,20 +1046,28 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
       }
     }
     __syncthreads();
-    // coefficient and omega gradients: thread k owns column k
-    for (int k = t; k < K; k += kThreads) {
-      const int* ck = ct + k * CT;
+    // coefficient and omega gradients: warp w takes columns w, w + kWarps,
+    // ...; lane i the tile's row i. The 32 rows' terms meet in a fixed
+    // pairwise tree of shuffles, neighbouring rows first (lane 0 holds
+    // ((t0 + t1) + (t2 + t3)) + ...), and lane 0 adds the tile's sum to the
+    // block's, so that no sum runs over more than one tile's rows
+    for (int k = t / 32; k < K; k += kWarps) {
+      const int* ck = ct + k * CT, i = t % 32;
       const bool trig = ck[1] != 0;
-      const int lane = ck[2], q = ck[3];
-      float gc = cacc[k];
-      float go = trig ? oacc[q] : 0.f;
-      for (int i = 0; i < rows; ++i) {
+      float gc = 0.f, go = 0.f;
+      if (i < rows) {
         const float da = Y_s[i * ld + k];
-        gc = fmaf(da, D_s[i * ld + k], gc);
-        if (trig) go = fmaf(da * c_s[k] * V_s[i * ld + k], aug_s[i * AW + lane], go);
+        gc = da * D_s[i * ld + k];
+        if (trig) go = da * c_s[k] * V_s[i * ld + k] * aug_s[i * AW + ck[2]];
       }
-      cacc[k] = gc;
-      if (trig) oacc[q] = go;
+      for (int o = 1; o < 32; o <<= 1) {
+        gc += __shfl_xor_sync(0xffffffffu, gc, o);
+        go += __shfl_xor_sync(0xffffffffu, go, o);
+      }
+      if (i == 0) {
+        cacc[k] += gc;
+        if (trig) oacc[ck[3]] += go;
+      }
     }
     // dl[row][jl] for latent lane jl = s r + j: the trig part through omega,
     // the polynomial part by the product rule
@@ -1104,9 +1123,10 @@ __device__ void row_phase(const Args& a, const Layout& L, const Tables& tb, floa
   if (t == 0) a.work[L.part_max + b] = vmax;
 }
 
-// Phase 2: sums = the row phase's partials summed over the blocks.
+// Phase 2: sums = the row phase's partials summed over the blocks, gcoef
+// and gomega in double precision.
 __device__ void reduce_phase(const Args& a, const Layout& L, float* red) {
-  reduce_partials(a.work + L.part, L.es, L.es, a.work + L.sums, red);
+  reduce_partials(a.work + L.part, L.es, L.es, a.work + L.sums, red, L.kk + L.lg);
 }
 
 // Phase 3: phi Adamax of the block's rows; the AᵀX split's partials and a
@@ -1385,7 +1405,7 @@ __global__ void __launch_bounds__(kThreads, 1) train_chunk_kernel(Args a) {
     grid.sync();
     clock.mark(kColumnsBarrier);
     if constexpr (kFourier) {
-      reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem);
+      reduce_partials(a.work + L.part_ser, L.es_ser, L.es_ser, a.work + L.sums_ser, smem, L.es_ser);
       if (blockIdx.x == 0) finalize(a, L, tb, smem, step);
       grid.sync();
       clock.mark(kFinalize);
@@ -1538,6 +1558,13 @@ long long desmo_chunk_workspace(int n, int m, int r, int Ks, int S, int nf, int 
 // nanosecond counters (enum Phase), summed over the epochs.
 long long desmo_chunk_timer_offset(int n, int m, int r, int Ks, int S, int nf, int grid) {
   return make_layout(n, m, r, Ks, S, nf > 0 ? 2 * nf + 1 : 0, grid).timer;
+}
+
+// Offset (in floats) in the scratch of the last epoch's summed partials:
+// each seed's diagonal Gram block (S Ks²), latent Gram (S r²), then gcoef
+// (S Ks) and gomega (3 S r).
+long long desmo_chunk_sums_offset(int n, int m, int r, int Ks, int S, int nf, int grid) {
+  return make_layout(n, m, r, Ks, S, nf > 0 ? 2 * nf + 1 : 0, grid).sums;
 }
 
 // Runs num_steps epochs of S packed seeds in place on phi, coef, omega,

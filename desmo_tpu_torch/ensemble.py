@@ -426,6 +426,13 @@ def fit(
     ``final_recs``, ``live_seeds`` and ``seed_params`` (the live members'
     single-seed params, for :func:`term_stability`).
 
+    A preemption request (``train.request_preemption``, the CLI's SIGTERM)
+    stops the group in training at its next chunk boundary, after that
+    boundary's checkpoint, and skips the groups not yet started (the first
+    group always runs, so that there is a best seed); the result then has
+    ``preempted=True`` and the request is cleared. Over ``device_mesh`` the
+    ranks agree on the request by one MAX all-reduce.
+
     ``device_mesh`` (``parallel.make_mesh``) shards the rows over its ranks:
     ``batch`` is whole on every rank and each group's init is drawn whole and
     broadcast from rank 0; each rank trains its rows of phi and its moments
@@ -483,7 +490,15 @@ def fit(
     warmed: set = set()
     wall, steps_timed = 0.0, 0
     start = gi = 0
+    preempted = False
     while start < n_seeds:
+        if preempted or (results and train.preemption_agreed(device_mesh)):
+            # between seed groups: keep what is trained
+            preempted = True
+            if log is not None:
+                log(f"graceful preemption: skipping seed groups from seed {start} onward "
+                    f"({len(results)} seeds trained)")
+            break
         S = min(cap, n_seeds - start)
         sl = slice(start, start + S)
         betas, lams, scales = (None, None, None) if hypers is None else (
@@ -564,6 +579,12 @@ def fit(
             if log is not None and (done % max(cfg.log_every, nsteps) == 0 or done == num_epochs):
                 log(f"[ensemble group {gi}] epoch {done}/{num_epochs} per-seed total: "
                     f"{np.array2string(mets['total_s'][-1], precision=6)}")
+            if train.preemption_agreed(device_mesh):
+                # the checkpoint above saved the group's best live seed
+                preempted = True
+                if log is not None:
+                    log(f"graceful preemption: group {gi} stopped at epoch {done} (of {num_epochs})")
+                break
         finals = np.where(frozen, np.inf, histories[-1]["total_s"][-1])
         recs = np.where(frozen, np.inf, histories[-1]["rec"][-1])
         sels = recs if hypers is not None else finals
@@ -577,6 +598,8 @@ def fit(
         start += S
         gi += 1
 
+    if preempted:
+        train.clear_preemption()  # one request stops one fit
     if report is not None:
         report["final_recs"] = [rec_by_seed[i] for i in sorted(rec_by_seed)]
         report["live_seeds"] = [i for i, _ in live_states]
@@ -599,5 +622,6 @@ def fit(
     sps = steps_timed / wall if wall > 0 and steps_timed else float("nan")
     result = train.TrainResult(
         state=seed_state(best_state, cfg, best_local), history=history, steps_per_sec=sps, wall_seconds=wall,
+        preempted=preempted,
     )
     return result, best_global, final_totals

@@ -356,6 +356,20 @@ def step_plain(buf: StepBuffers, spec, rows: bool = True) -> None:
         buf.count += 1
 
 
+
+def plain_trace(state: TrainState, batch: dict, num_steps: int, spec, cfg, dtype=torch.float64) -> dict:
+    """The metrics rows (``ROW_METRICS``) of ``num_steps`` epochs of one seed
+    from ``state`` through :func:`step_plain` in ``dtype`` on the batch's
+    device: ``num_steps + 1`` calls, the last one's update writing the last
+    row. In float64 it is the exact trajectory that the float32 versions
+    part from by rounding; in float32 on the CPU it is
+    ``train_chunk.train_chunk_plain``'s trace."""
+    cs = train_chunk.pack_seeds(train_chunk.stack_seed(state), *train_chunk.seed_hypers(cfg, 1))
+    buf = make_buffers(cs, batch, num_steps + 1, spec, cfg, batch["x"].shape[0]).to(batch["x"].device, dtype)
+    for _ in range(num_steps + 1):
+        step_plain(buf, spec)
+    return {k: buf.met[:num_steps, 0, i] for i, k in enumerate(ROW_METRICS)}
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("shard_step")

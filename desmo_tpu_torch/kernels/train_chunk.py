@@ -552,6 +552,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.desmo_chunk_workspace.restype = ctypes.c_longlong
     lib.desmo_chunk_timer_offset.argtypes = [ctypes.c_int] * 7
     lib.desmo_chunk_timer_offset.restype = ctypes.c_longlong
+    lib.desmo_chunk_sums_offset.argtypes = [ctypes.c_int] * 7
+    lib.desmo_chunk_sums_offset.restype = ctypes.c_longlong
     lib.desmo_train_chunk.argtypes = (
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     )
@@ -718,6 +720,35 @@ def phase_split(state: TrainState, batch: dict, num_steps: int, spec, cfg):
     off = _lib().desmo_chunk_timer_offset(n, m, spec.r, K, S, nf, grid)
     ns = work[off:off + 2 * len(names)].view(torch.int64).cpu().tolist()
     return {name: t * 1e-9 for name, t in zip(names, ns)}
+
+
+def epoch_sums(state: TrainState, batch: dict, spec, cfg, betas=None, lams=None) -> dict:
+    """The summed partials of one epoch from ``state`` (one model's, or a
+    stacked state of S seeds with their ``betas``/``lams``), read back from
+    the kernel's scratch after a launch of one epoch: ``ga`` (S, Ks, Ks),
+    the seeds' diagonal Gram blocks of A; ``latg`` (S, r, r); ``gcoef``
+    (S Ks,) and ``gomega`` (3 S r,), the coefficient and omega gradients. A
+    test entry, to hold the kernel's sums against a float64 reference
+    (``kernels.shard_step.step_plain``); needs the card, and the launch
+    counts like any other."""
+    packed = state.params["phi"].dim() == 3
+    stacked = state if packed else stack_seed(state)
+    if _checked_device(stacked, batch, 1, spec, cfg) != "cuda":
+        raise ValueError("epoch_sums: needs CUDA tensors, the plain chunk keeps no partial sums")
+    _, _, work = _launch(stacked, batch, 1, spec, cfg, betas, lams)
+    if packed:
+        fused_ensemble_chunk.launches += 1
+    else:
+        fused_train_chunk.launches += 1
+    n, m = batch["x"].shape
+    r, Ks = spec.r, spec.num_poly_terms + 3 * spec.r
+    S = stacked.params["phi"].shape[0]
+    nf = n_fourier(spec, cfg)
+    grid = _grid(batch["x"].device.index, r, spec.poly_order, Ks, S, nf)
+    off = _lib().desmo_chunk_sums_offset(n, m, r, Ks, S, nf, grid)
+    ga, latg, gcoef, gomega = torch.split(work[off:off + S * (Ks * Ks + r * r + Ks + 3 * r)],
+                                          [S * Ks * Ks, S * r * r, S * Ks, 3 * S * r])
+    return {"ga": ga.view(S, Ks, Ks), "latg": latg.view(S, r, r), "gcoef": gcoef, "gomega": gomega}
 
 
 def contract_probe_plain(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor):

@@ -48,6 +48,13 @@ class SpaceMesh:
         dist.all_reduce(t, op=_OPS[op], group=self.group)
         return t
 
+    def agree(self, flag: bool) -> bool:
+        """Whether ``flag`` is set on any rank: one MAX all-reduce, so that
+        every rank takes the same branch (a preemption request raised on
+        one rank stops all of them at the same chunk boundary)."""
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(self.all_reduce(t, "max").item())
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``t`` overwritten in place with rank ``src``'s."""
         dist.broadcast(t, src, group=self.group)

@@ -3,7 +3,8 @@ sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo, Fourier and
 AE variants on one device, one seed or (desmo and Fourier) a seed-packed
 ensemble (``n_seeds > 1``, ``ensemble.fit``), and for desmo or Fourier, one
 seed or packed seeds, with the rows sharded over a device mesh
-(``device_mesh``, the sharded step kernel), with no holdout and no figures.
+(``device_mesh``, the sharded step kernel), with resume, graceful
+preemption and greedy pruning, and with no holdout and no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -40,6 +41,10 @@ class RunArtifacts:
     steps_per_sec: float
     sweep: list
     out_dir: str
+    # stopped early by a preemption request: state_final.npz and the final
+    # .pt hold the state to resume from; no sweep ran
+    preempted: bool = False
+    greedy: list = dataclasses.field(default_factory=list)
 
 
 def load_data(
@@ -123,8 +128,6 @@ def check_supported(cfg: configs.RunConfig) -> None:
         todo.append("the Fourier period multi-start of one seed, period_multistart > 1 (ROADMAP queue 1, item 4)")
     if cfg.pod_method != "host":
         todo.append(f"pod_method={cfg.pod_method!r} (ROADMAP queue 1, item 6)")
-    if cfg.run_greedy_prune:
-        todo.append("greedy pruning, run_greedy_prune=True (ROADMAP queue 1, item 2)")
     if todo:
         raise NotImplementedError("desmo_tpu_torch does not run " + "; ".join(todo) + " yet")
 
@@ -340,6 +343,10 @@ def ae_recipe(cfg, spec, params, groups, batch, device, log):
         warm = train.fit(ae_model.build_warmup_loss(spec), groups, cfg, params, batch,
                          num_epochs=cfg.ae_warmup_epochs, log=log)
         params = dict(warm.state.params)
+        if warm.preempted:
+            # the warmup took the request; raise it again so that the main
+            # fit saves the warmed state and stops before its first chunk
+            train.request_preemption()
     omega = ae_model.data_scaled_omega(params, batch["x"])
     params["omega"] = omega
     cfg = dataclasses.replace(cfg, lr_omega=0.01 * float(torch.mean(torch.abs(omega[0]))))
@@ -356,6 +363,7 @@ def run(
     device: str | torch.device = "cuda",
     holdout: float = 0.0,
     device_mesh: parallel.SpaceMesh | None = None,
+    resume_from: Optional[str] = None,
 ) -> RunArtifacts:
     """Train, report and export one preset on ``device``, or on the ranks of
     ``device_mesh`` (``parallel.make_mesh``; then on its device).
@@ -371,6 +379,15 @@ def run(
     TPU shortcut of the mega-kernel's Gram and is ignored: the port's kernel
     computes the exact Gram. ``holdout`` (forecasting at held-out times) is
     not ported yet and raises when set.
+
+    ``resume_from`` (a ``state_*.npz`` of either package) continues that
+    run's state for ``num_epochs`` more epochs; with ``n_seeds > 1`` it
+    raises ``ValueError``, as the JAX package does. A preemption request
+    (``train.request_preemption``, the CLI's SIGTERM) stops training at a
+    chunk boundary: the run then writes ``state_final.npz`` and the final
+    ``.pt``, skips the sweep and returns ``preempted=True``. With
+    ``run_greedy_prune`` (the channel preset) ``sparsify.greedy_prune``
+    runs after the sweep (``RunArtifacts.greedy``).
 
     Over a mesh (:func:`select_sharded_chunk`; with ``n_seeds > 1``
     ``ensemble.fit(device_mesh=...)``), every rank holds all of X and trains
@@ -388,6 +405,8 @@ def run(
     lead = device_mesh is None or device_mesh.rank == 0
     cfg = single_seed_sweep(dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1]))
     check_supported(cfg)
+    if resume_from and cfg.n_seeds > 1:
+        raise ValueError("n_seeds > 1 requires the desmo or fourier variant and no --resume (ensemble.py scope)")
     out_dir = os.path.join(out_dir, cfg.name)
     if lead:
         os.makedirs(out_dir, exist_ok=True)
@@ -421,37 +440,47 @@ def run(
 
     n_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
     log = (lambda line: print(line, flush=True)) if echo and lead else None
-    if ae and cfg.ae_recipe:
+    state = None
+    if resume_from:
+        state = checkpoint.load_state(resume_from, train.init_state(params, cfg))
+        if ae and cfg.ae_recipe:
+            # the state holds the recipe's parameters and LRs; the loss takes
+            # its clamped config again
+            cfg = ae_recipe_cfg(cfg)
+            loss_fn = ae_model.build_loss(spec, cfg.beta, cfg.l1_lambda, cfg.ae_beta,
+                                          method=resolve_loss_method(cfg, dev))
+    elif ae and cfg.ae_recipe:
         cfg, params, loss_fn = ae_recipe(cfg, spec, params, groups, batch, dev, log)
     elif ae and cfg.ae_omega_data_scaled:
         params = dict(params, omega=ae_model.data_scaled_omega(params, batch["x"]))
     if cfg.n_seeds > 1:
         result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log, device_mesh)
     elif device_mesh is not None:
-
-        def gather(state: train.TrainState) -> train.TrainState:
-            return parallel.gather_state(state, device_mesh, cfg.n)
-
         result = train.fit(
             loss_fn, groups, cfg, params, parallel.shard_batch(batch, device_mesh),
             num_epochs=n_epochs,
             log=log,
-            checkpoint_fn=lambda state, epoch: export(gather(state), f"epoch{epoch}"),
-            state=parallel.local_state(train.init_state(params, cfg), device_mesh),
+            checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
+            state=parallel.local_state(state or train.init_state(params, cfg), device_mesh),
             chunk=chunk,
+            device_mesh=device_mesh,
         )
-        result.state = gather(result.state)
+        result.state = parallel.gather_state(result.state, device_mesh, cfg.n)
     else:
         result = train.fit(
             loss_fn, groups, cfg, params, batch,
             num_epochs=n_epochs,
             log=log,
             checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
+            state=state,
             chunk=train_chunk.select_chunk(spec, cfg, dev),
         )
     if logger is not None:
-        for i in range(0, result.state.epoch, cfg.log_every):
-            logger.log_epoch(i, n_epochs, {k: v[i] for k, v in result.history.items()})
+        # a resumed or preempted run has history only for the epochs it ran
+        n_ran = len(next(iter(result.history.values()))) if result.history else 0
+        start_epoch = result.state.epoch - n_ran
+        for i in range(0, n_ran, cfg.log_every):
+            logger.log_epoch(start_epoch + i, start_epoch + n_epochs, {k: v[i] for k, v in result.history.items()})
         logger.close()
 
     with torch.no_grad():
@@ -464,12 +493,7 @@ def run(
         print(f"DESMO error with {cfg.r} modes: {err}")
         print(f"POD error with {cfg.r} modes: {err_pod}")
         print(f"POD error with {2 * cfg.r} modes: {err_pod2}")
-
-    sweep = sparsify.threshold_sweep(
-        result.state.params, batch, spec, log=print if echo else None
-    )
-    export(result.state, "final")
-    return RunArtifacts(
+    artifacts = RunArtifacts(
         config=cfg,
         state=result.state,
         history=result.history,
@@ -477,6 +501,21 @@ def run(
         pod_error_r=err_pod,
         pod_error_2r=err_pod2,
         steps_per_sec=result.steps_per_sec,
-        sweep=sweep,
+        sweep=[],
         out_dir=out_dir,
+        preempted=result.preempted,
     )
+    if result.preempted:
+        # a preemption's grace window is short: write what resumes the run
+        # and skip the rest
+        export(result.state, "final")
+        return artifacts
+
+    artifacts.sweep = sparsify.threshold_sweep(
+        result.state.params, batch, spec, log=print if echo else None
+    )
+    if cfg.run_greedy_prune:
+        # the turbulent-channel reference's one-at-a-time term removal
+        artifacts.greedy = sparsify.greedy_prune(result.state.params, batch, spec, log=print if echo else None)
+    export(result.state, "final")
+    return artifacts

@@ -1,12 +1,14 @@
-"""Term energies and threshold sweeps for the desmo, Fourier and AE variants.
-Port of ``desmo_tpu/sparsify.py:46-239``.
+"""Term energies, threshold sweeps and greedy pruning for the desmo, Fourier
+and AE variants. Port of ``desmo_tpu/sparsify.py:46-291``.
 
 Every candidate term contributes a rank-1 space-time field
 ``c_t * theta_t(x) z_t(s)ᵀ``, whose Frobenius norm factorizes into
 ``|c_t| * ||theta_t|| * ||z_t||``, so all T + 3r energies are column norms.
 A sweep zeroes the sparsity coefficients whose energy falls below each
 threshold, re-infers, and reports the relative error and the number of
-surviving terms.
+surviving terms; greedy pruning (the turbulent-channel reference,
+``DESMO/turbulent_channel/DESMO-TurbulentChannel.py:1166-1245``) removes the
+terms one at a time in ascending order of energy.
 """
 
 from __future__ import annotations
@@ -98,6 +100,26 @@ def default_thresholds(lo: float = 4.0, hi: float = -3.0, step: float = -0.5) ->
     return np.asarray([10.0 ** (-i) for i in np.arange(lo, hi, step)])
 
 
+def _recon_error_fn(params: dict, batch: dict, spec) -> Callable[[dict], float]:
+    """``err(pruned)``: the relative Frobenius error of the reconstruction
+    of X by ``pruned`` (``params`` with some coefficients zeroed): from the
+    POD modes, or for the AE variant from X through its encoder."""
+    ae = _is_ae(params)
+    source = batch["x"] if ae else batch["pod_modes"]
+    factors = desmo_model.factor_tensor(spec, source.device)
+    apply = ae_model.apply if ae else fourier_model.apply if _is_fourier(params) else desmo_model.apply
+
+    def err(pruned: dict) -> float:
+        return float(losses.relative_frobenius_error(batch["x"], apply(pruned, source, spec, factors)[0]))
+
+    return err
+
+
+def _energies(params: dict, batch: dict, spec) -> TermEnergies:
+    latent = ae_model.encode_decode(params, batch["x"])[0] if _is_ae(params) else None
+    return term_energies(params, spec, latent_override=latent)
+
+
 @torch.no_grad()
 def threshold_sweep(
     params: dict,
@@ -110,20 +132,13 @@ def threshold_sweep(
     """The reference's threshold table: error and surviving terms per threshold."""
     if thresholds is None:
         thresholds = default_thresholds()
-    ae = _is_ae(params)
-    # the AE variant reconstructs from X through its encoder, the others
-    # from the POD modes
-    source = batch["x"] if ae else batch["pod_modes"]
     if energies is None:
-        latent = ae_model.encode_decode(params, batch["x"])[0] if ae else None
-        energies = term_energies(params, spec, latent_override=latent)
-    factors = desmo_model.factor_tensor(spec, source.device)
-    apply = ae_model.apply if ae else fourier_model.apply if _is_fourier(params) else desmo_model.apply
+        energies = _energies(params, batch, spec)
+    err = _recon_error_fn(params, batch, spec)
     results = []
     for threshold in thresholds:
         pruned = zero_below_threshold(params, energies, float(threshold))
-        recon = apply(pruned, source, spec, factors)[0]
-        error = float(losses.relative_frobenius_error(batch["x"], recon))
+        error = err(pruned)
         count = nonzero_terms(pruned)
         results.append(SweepEntry(float(threshold), error, count))
         if log is not None:
@@ -133,4 +148,52 @@ def threshold_sweep(
         log(f"{'Threshold':<10} {'Error':<15} {'Nonzero Terms':<15}")
         for e in results:
             log(f"{e.threshold:<10.1e} {e.error:<15.6f} {e.nonzero_terms:<15}")
+    return results
+
+
+def greedy_order(energies: TermEnergies) -> list[tuple[float, str, object]]:
+    """The terms in ascending order of energy, ``(energy, kind, index)``
+    with kind 'poly' (index t) or 'trig' (index (k, i)), tied as the
+    reference ties them: the polynomial terms first in index order, then per
+    latent i its sin, cos and tanh, and a stable sort keeps that order among
+    equal energies (``...TurbulentChannel.py:1173-1190``)."""
+    order: list[tuple[float, str, object]] = [(float(e), "poly", t) for t, e in enumerate(energies.poly)]
+    r = energies.trig.shape[1]
+    for i in range(r):
+        for k in range(3):
+            order.append((float(energies.trig[k, i]), "trig", (k, i)))
+    order.sort(key=lambda entry: entry[0])
+    return order
+
+
+@torch.no_grad()
+def greedy_prune(
+    params: dict,
+    batch: dict,
+    spec,
+    energies: Optional[TermEnergies] = None,
+    log: Optional[Callable[[str], None]] = None,
+) -> list[SweepEntry]:
+    """Remove the terms one at a time in :func:`greedy_order`, re-inferring
+    at each step; entry k of the result (``threshold`` = k) has the k terms
+    of lowest energy removed, so there are T + 3r + 1 entries."""
+    if energies is None:
+        energies = _energies(params, batch, spec)
+    order = greedy_order(energies)
+    err = _recon_error_fn(params, batch, spec)
+    c0, ct0 = params["c"], params["c_trig"]
+    results = []
+    for step in range(len(order) + 1):
+        c, ct = c0.clone(), ct0.clone()
+        for _, kind, idx in order[:step]:
+            if kind == "poly":
+                c[idx] = 0.0
+            else:
+                ct[idx] = 0.0
+        pruned = dict(params, c=c, c_trig=ct)
+        error = err(pruned)
+        count = nonzero_terms(pruned)
+        results.append(SweepEntry(float(step), error, count))
+        if log is not None:
+            log(f"Step: {step}, Error: {error:.6f}, Nonzero Terms: {count}")
     return results

@@ -14,21 +14,31 @@ Epochs run in chunks of the contract ``chunk(state, batch, num_steps) ->
 (:func:`make_train_chunk`) or the mega-kernel
 (``kernels.train_chunk.fused_train_chunk``). A chunk's metrics stay on the
 device and are fetched once at its end, where the loop checks for a
-non-finite loss, prints the reference-format epoch lines and calls
-``checkpoint_fn`` on its cadence. Steps/s leave out the first chunk, which
-pays for the kernels' build and the allocator's warm-up.
+non-finite loss, prints the reference-format epoch lines and hands
+``checkpoint_fn`` a host copy of the state on its cadence, to write on a
+worker thread while the next chunk runs. Steps/s leave out the first chunk,
+which pays for the kernels' build and the allocator's warm-up.
+
+Graceful preemption (``desmo_tpu/train.py:46-100``): SIGTERM, through
+:func:`install_preemption_handler`, or :func:`request_preemption` raises a
+latch; the running :func:`fit` stops at its next chunk boundary with a
+final checkpoint and ``TrainResult.preempted``, and resuming from that
+state gives the uninterrupted run's bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import signal
+import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from desmo_tpu_torch import optim
+from desmo_tpu_torch import optim, parallel
 from desmo_tpu_torch.configs import GROUP_ORDER, RunConfig
 
 LossFn = Callable[[dict, dict], tuple[torch.Tensor, dict]]
@@ -38,6 +48,61 @@ ChunkFn = Callable[["TrainState", dict, int], tuple["TrainState", dict]]
 """(state, batch, num_steps) -> (state, metrics dict of (num_steps,) tensors)."""
 
 METRICS = ("rec", "ortho", "l1", "total")
+
+_PREEMPT = threading.Event()
+
+
+def request_preemption() -> None:
+    """Ask the running :func:`fit` (or ``ensemble.fit``) to stop at its next
+    chunk boundary, after a final checkpoint. Safe from a signal handler and
+    from other threads. The fit that honours the request clears it, so one
+    request stops one fit."""
+    _PREEMPT.set()
+
+
+def preemption_requested() -> bool:
+    return _PREEMPT.is_set()
+
+
+def clear_preemption() -> None:
+    _PREEMPT.clear()
+
+
+def preemption_agreed(device_mesh=None) -> bool:
+    """Whether a preemption was requested here or, over ``device_mesh``, on
+    any rank (one MAX all-reduce, so that every rank stops at the same chunk
+    boundary)."""
+    flag = preemption_requested()
+    return flag if device_mesh is None else device_mesh.agree(flag)
+
+
+def install_preemption_handler(signals=(signal.SIGTERM,)) -> None:
+    """Turn ``signals`` (SIGTERM, what SLURM preemption and spot-VM reclaim
+    send) into :func:`request_preemption` for this process, chaining any
+    handler installed before. Main thread only (CPython's rule for
+    ``signal.signal``); the CLI installs it, library callers opt in."""
+    for sig in signals:
+        prev = signal.getsignal(sig)
+
+        def handler(signum, frame, prev=prev):
+            request_preemption()
+            if callable(prev):
+                prev(signum, frame)
+
+        signal.signal(sig, handler)
+
+
+_CKPT_POOL: Optional[ThreadPoolExecutor] = None
+
+
+def _ckpt_pool() -> ThreadPoolExecutor:
+    """The one worker that writes checkpoints, in the order they were handed
+    to it. It touches only host memory: it never launches a kernel nor
+    joins a collective."""
+    global _CKPT_POOL
+    if _CKPT_POOL is None:
+        _CKPT_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+    return _CKPT_POOL
 
 
 @dataclasses.dataclass
@@ -128,6 +193,45 @@ def make_train_chunk(loss_fn: LossFn, group_of: dict[str, str], cfg: RunConfig) 
     return chunk
 
 
+def host_snapshot(state: TrainState) -> tuple[TrainState, Optional[torch.cuda.Event]]:
+    """A copy of ``state`` in host memory that no later chunk touches, and
+    the event after which it holds the state's values. A tensor on the card
+    is copied into pinned memory without blocking, on the current stream
+    behind the chunk that wrote it and ahead of any later launch; wait on the
+    event (``Event.synchronize``, not a launch) before reading. On the CPU
+    the copy is done when this returns and the event is None."""
+    on_card = False
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        nonlocal on_card
+        if t.device.type != "cuda":
+            return t.detach().clone()
+        on_card = True
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t.detach(), non_blocking=True)
+        return host
+
+    def tree(d: dict) -> dict:
+        return {k: copy(v) for k, v in d.items()}
+
+    sched = state.sched
+    snap = TrainState(
+        tree(state.params), tree(state.mu), tree(state.nu), state.count,
+        optim.PlateauState(copy(sched.lrs), copy(sched.best), copy(sched.num_bad)), state.epoch,
+    )
+    event = None
+    if on_card:
+        event = torch.cuda.Event()
+        event.record()
+    return snap, event
+
+
+def _write_checkpoint(checkpoint_fn, snap: TrainState, event, epoch: int) -> None:
+    if event is not None:
+        event.synchronize()
+    checkpoint_fn(snap, epoch)
+
+
 @dataclasses.dataclass
 class TrainResult:
     state: TrainState
@@ -137,6 +241,8 @@ class TrainResult:
     # max |omega*latent| the chunk reported (the mega-kernel does); 0.0 when
     # the chunk reports none
     max_abs_trig_arg: float = 0.0
+    # stopped early at a chunk boundary on a preemption request
+    preempted: bool = False
 
 
 def fit(
@@ -152,6 +258,7 @@ def fit(
     *,
     state: Optional[TrainState] = None,
     chunk: Optional[ChunkFn] = None,
+    device_mesh=None,
 ) -> TrainResult:
     """Run, or resume from ``state``, ``num_epochs`` (default
     ``cfg.num_epochs``) epochs of training.
@@ -160,10 +267,26 @@ def fit(
     epochs; the default is the eager loop (:func:`make_train_chunk`), and
     ``kernels.train_chunk.select_chunk`` gives the mega-kernel's. A chunk's
     ``max_arg`` metric (max |omega*latent| per epoch) is taken out of the
-    history into ``TrainResult.max_abs_trig_arg``. ``checkpoint_fn(state,
-    epoch)`` runs every ``cfg.checkpoint_every`` epochs and after the last
-    one, at chunk boundaries. A non-finite loss at the end of a chunk raises
-    ``FloatingPointError``."""
+    history into ``TrainResult.max_abs_trig_arg``. A non-finite loss at the
+    end of a chunk raises ``FloatingPointError``.
+
+    ``checkpoint_fn(state, epoch)`` runs every ``cfg.checkpoint_every``
+    epochs and after the last one, at chunk boundaries: the loop takes the
+    whole state (over ``device_mesh``, whose ranks hold phi's rows, it
+    gathers them with ``parallel.gather_state`` on this thread, since that is
+    a collective), takes a host copy of it
+    (:func:`host_snapshot`) and hands that to a worker thread, which writes
+    it while the next chunk runs. Writes keep their order; a failed write
+    raises at the next chunk boundary or at the end.
+
+    A preemption request (:func:`request_preemption`, the SIGTERM handler)
+    stops the loop at the next chunk boundary with a final checkpoint and
+    ``preempted=True``; one already raised when fit starts stops it before
+    the first chunk, the incoming state checkpointed. The request is then
+    cleared. Over ``device_mesh`` the ranks agree on the request at each
+    boundary by one MAX all-reduce, so that all stop at the same one; every
+    rank then passes a ``checkpoint_fn`` (a no-op where it writes nothing),
+    so that each joins the gather."""
     num_epochs = cfg.num_epochs if num_epochs is None else num_epochs
     if state is None:
         state = init_state(params, cfg)
@@ -171,6 +294,30 @@ def fit(
         return TrainResult(state=state, history={}, steps_per_sec=float("nan"), wall_seconds=0.0)
     chunk_size = chunk_size or min(cfg.checkpoint_every, num_epochs)
     train_chunk = chunk or make_train_chunk(loss_fn, group_of, cfg)
+
+    def whole(st: TrainState) -> TrainState:
+        return st if device_mesh is None else parallel.gather_state(st, device_mesh, cfg.n)
+
+    pending: Optional[Future] = None
+
+    def save(st: TrainState, epoch: int) -> None:
+        nonlocal pending
+        snap, event = host_snapshot(whole(st))
+        if pending is not None:
+            pending.result()  # keeps the writes in order; raises a failed one
+        pending = _ckpt_pool().submit(_write_checkpoint, checkpoint_fn, snap, event, epoch)
+
+    if preemption_agreed(device_mesh):
+        # raised before this fit started (e.g. during an earlier warmup that
+        # passed it on): stop before the first chunk, saving the incoming
+        # state, which may hold that earlier phase's unsaved work
+        if checkpoint_fn is not None:
+            _write_checkpoint(checkpoint_fn, *host_snapshot(whole(state)), state.epoch)
+        if log is not None:
+            saved = "incoming state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
+            log(f"graceful preemption: stopped before the first chunk; {saved}")
+        clear_preemption()
+        return TrainResult(state=state, history={}, steps_per_sec=float("nan"), wall_seconds=0.0, preempted=True)
 
     histories: list[dict] = []
     max_abs_trig_arg = 0.0
@@ -208,13 +355,25 @@ def fit(
                         f"L1 loss: {chunk_metrics['l1'][j]:.4f} "
                     )
         done += n
-        if checkpoint_fn is not None and (done % cfg.checkpoint_every == 0 or done == end_epoch):
-            checkpoint_fn(state, done)
+        preempt = preemption_agreed(device_mesh)
+        if pending is not None and pending.done():
+            pending.result()  # a failed write raises here, at the next boundary
+            pending = None
+        if checkpoint_fn is not None and (done % cfg.checkpoint_every == 0 or done == end_epoch or preempt):
+            save(state, done)
+        if preempt:
+            if log is not None:
+                saved = "final state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
+                log(f"graceful preemption: stopped at epoch {done} (of {end_epoch}); {saved}")
+            clear_preemption()  # one request stops one fit
+            break
+    if pending is not None:
+        pending.result()
     wall = time.perf_counter() - t0
     steps_timed = done - start_epoch - first_chunk
     sps = steps_timed / wall if wall > 0 and steps_timed > 0 else float("nan")
     history = {k: np.concatenate([h[k] for h in histories]) for k in histories[0]}
     return TrainResult(
         state=state, history=history, steps_per_sec=sps, wall_seconds=wall,
-        max_abs_trig_arg=max_abs_trig_arg,
+        max_abs_trig_arg=max_abs_trig_arg, preempted=done < end_epoch,
     )

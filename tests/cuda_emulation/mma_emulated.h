@@ -4,8 +4,9 @@
 // gathers the 32 lanes' fragments through a per-warp scratch and a barrier
 // over the warp's threads (the harness sets both for each thread), rounds
 // the operands to TF32 as cvt.rna.tf32.f32 does, and gives each lane its own
-// accumulator entries. Included by the cuda_runtime.h stand-ins, after
-// threadIdx is declared.
+// accumulator entries; __shfl_down_sync of a double meets the lanes in the
+// same scratch. Included by the cuda_runtime.h stand-ins, after threadIdx is
+// declared.
 #pragma once
 #include <barrier>
 #include <cstring>
@@ -73,3 +74,20 @@ inline void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
     d[e] = (float)sum;
   }
 }
+
+// __shfl_down_sync(mask, v, delta) and __shfl_xor_sync(mask, v, m) for a
+// full warp: lane l gets lane l + delta's v (lanes past the warp's end their
+// own), or lane l ^ m's. Each takes the next scratch slot in turn with the
+// products, so one barrier suffices.
+template <typename T>
+inline T emulated_shfl(T v, int src) {
+  const int lane = threadIdx.x % 32;
+  T* slot = reinterpret_cast<T*>(emulated_warp_scratch + (emulated_warp_products++ & 1) * 32 * 6);
+  slot[lane] = v;
+  emulated_warp_barrier->arrive_and_wait();
+  return src < 32 ? slot[src] : v;
+}
+inline double __shfl_down_sync(unsigned, double v, int delta) {
+  return emulated_shfl(v, (int)threadIdx.x % 32 + delta);
+}
+inline float __shfl_xor_sync(unsigned, float v, int m) { return emulated_shfl(v, ((int)threadIdx.x % 32) ^ m); }

@@ -122,7 +122,6 @@ def test_state_dict_matches_jax_key_scheme(tmp_path):
 @pytest.mark.parametrize(
     "override, item",
     [
-        ({"run_greedy_prune": True}, "queue 1, item 2"),
         ({"variant": "fourier", "n_fourier": 3, "period_init": 20.0, "period_multistart": 4}, "queue 1, item 4"),
         ({"pod_method": "snapshots"}, "queue 1, item 6"),
     ],

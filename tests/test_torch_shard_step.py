@@ -201,7 +201,8 @@ def clusters(tmp_path_factory):
 
     def launch(d):
         if d not in done:
-            tasks = "desmo,fourier,resume,ortho,runner,ensemble,runner_seeds" if d == 2 else "desmo,fourier,ensemble"
+            tasks = ("desmo,fourier,resume,ortho,runner,ensemble,runner_seeds,runner_resume,preempt" if d == 2
+                     else "desmo,fourier,ensemble")
             out = tmp / f"d{d}"
             out.mkdir()
             env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(d),
@@ -406,6 +407,41 @@ def test_resume_matches_one_chunk(mesh1, clusters):
     for key in ref_state.params:
         np.testing.assert_allclose(split.params[key].numpy(), ref_state.params[key], rtol=5e-4, atol=1e-5,
                                    err_msg=key)
+
+
+def test_runner_resume_over_a_mesh_is_bit_exact(clusters):
+    """``runner.run`` over a 2-rank gloo mesh for 10 epochs, then resumed
+    from its ``state_epoch10.npz`` (loaded whole, then cut to each rank's
+    rows) for 10 more, gives the bits of the 20-epoch run, whose chunks
+    break at the same epoch; its metrics file takes up at epoch 10."""
+    ranks = clusters(2)
+    straight = np.load(clusters.dir(2) / "runs_resume" / "straight" / "cylinder" / "state_final.npz")
+    resumed = np.load(clusters.dir(2) / "runs_resume" / "resumed" / "cylinder" / "state_final.npz")
+    assert set(straight.files) == set(resumed.files)
+    for key in straight.files:
+        np.testing.assert_array_equal(resumed[key], straight[key], err_msg=key)
+    for rank in ranks:
+        np.testing.assert_array_equal(rank["runner_resume/resumed/params/phi"], straight["params/phi"])
+        assert not rank["runner_resume/straight/preempted"] and not rank["runner_resume/first/preempted"]
+    assert int(resumed["epoch"]) == 20
+    with open(clusters.dir(2) / "runs_resume" / "resumed" / "cylinder" / "cylinder.csv") as fh:
+        rows = [line.split(",")[0] for line in fh.read().splitlines()[1:]]
+    assert rows[0] == "10"
+
+
+def test_a_request_on_one_rank_stops_every_rank(clusters):
+    """A preemption requested on rank 1 alone during the first of three
+    10-step chunks: the ranks agree on it at the boundary (one MAX
+    all-reduce), so both stop at epoch 10 with ``preempted`` and the request
+    cleared, rank 0 having written the whole state there. Resumed from that
+    file for 20 steps, the run gives the bits of 30 steps straight."""
+    ranks = clusters(2)
+    for rank in ranks:
+        assert bool(rank["preempt/preempted"]) and int(rank["preempt/epoch"]) == 10
+        assert not bool(rank["preempt/latch_after"])
+        for key in [k for k in rank if k.startswith("preempt/straight/")]:
+            want = rank[key][10:] if "/metrics/" in key else rank[key]
+            np.testing.assert_array_equal(rank[key.replace("/straight/", "/resumed/")], want, err_msg=key)
 
 
 def test_ortho_sign_comes_from_the_summed_gram(mesh1, clusters):
@@ -741,6 +777,25 @@ def test_plain_chunk_equals_the_pre_kernel_order(mesh1, variant):
     assert bool((want.sched.lrs < state.sched.lrs).any())  # the plateau scheduler stepped the LRs
 
 
+@pytest.mark.parametrize("variant", ["desmo", "fourier"])
+def test_plain_trace_is_the_plain_chunks_trace(variant):
+    """``plain_trace`` in float32 on the CPU gives the plain chunk's metrics
+    rows bit for bit over 12 epochs; in float64 (the exact trajectory that
+    ``chip_smoke.py`` phases 5 and 5f report) its rec, l1 and total lie
+    within 1e-5 of them at this size."""
+    cfg, x, modes, params = problem(variant)
+    spec = port_spec(cfg)
+    state = train.init_state(checkpoint.params_from_jax(params, "cpu"), cfg)
+    _, want = train_chunk.train_chunk_plain(state, port_batch(x, modes), 12, spec, cfg)
+    got = shard_step.plain_trace(state, port_batch(x, modes), 12, spec, cfg, torch.float32)
+    exact = shard_step.plain_trace(state, port_batch(x, modes), 12, spec, cfg)
+    assert set(got) == set(shard_step.ROW_METRICS) and exact["rec"].dtype == torch.float64
+    for key in shard_step.ROW_METRICS:
+        np.testing.assert_array_equal(got[key].numpy(), want[key].numpy(), err_msg=key)
+    for key in ("rec", "l1", "total"):
+        np.testing.assert_allclose(exact[key].numpy(), want[key].double().numpy(), rtol=1e-5, err_msg=key)
+
+
 @pytest.mark.parametrize("r, P", [(2, 2), (4, 3), (4, 4), (5, 2)])
 def test_kernel_table_lists_each_lanes_factors(r, P):
     """The step kernel's table: the one-seed column table, then for each
@@ -983,6 +1038,21 @@ def test_cuda_source_on_emulated_grid(emulated_shard_step, tmp_path, n, m, r, P)
     """The desmo form of the step kernel on emulated grids against
     ``step_plain`` (``check_emulated_step``)."""
     check_emulated_step(emulated_shard_step, tmp_path, *emulated_state(n, m, r, P, 0, seed=n + m))
+
+
+def test_tile_sums_meet_the_contract_at_the_reference_init(emulated_shard_step, tmp_path):
+    """The step kernel's partials at the reference init with 205 rows a
+    block (``test_torch_train_chunk.reference_init``): gcoef and gomega
+    within 5e-6 of their largest entry in float64."""
+    import test_torch_train_chunk as single
+
+    spec, cfg, state, batch = single.reference_init()
+    cs = train_chunk.pack_seeds(train_chunk.stack_seed(state), *train_chunk.seed_hypers(cfg, 1))
+    got = run_emulated(emulated_shard_step, tmp_path, shard_step.make_buffers(cs, batch, 1, spec, cfg, spec.n), spec,
+                       grid=single.INIT_GRID)
+    K = spec.num_poly_terms + 3 * spec.r
+    sums = shard_step.split_seed_sums(got.sums, K, spec.m, spec.r, 1)[3:]
+    assert_close(sums, single.reference_init_sums(spec, cfg, state, batch), 5e-6, ("gcoef", "gomega"))
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,13 @@ step of the problem built so that the ranks' latent Grams have signs other
 than the summed one), ``runner`` (``runner.run`` of a small cylinder with
 the mesh), ``ensemble`` (the sharded packed chunk of each seed-packed
 problem ``ens_<case>`` from its stacked initial parameters and hyperparameters)
-and ``runner_seeds`` (``runner.run`` of the small cylinder with two seeds).
+``runner_seeds`` (``runner.run`` of the small cylinder with two seeds),
+``runner_resume`` (``runner.run`` of the small cylinder for its 20 epochs,
+and for 10 then resumed from ``state_epoch10.npz`` for 10 more) and
+``preempt`` (``train.fit`` of the desmo problem's sharded chunk, 3 chunks of
+10 steps, with a preemption requested on rank 1 alone after the first
+chunk; then resumed from the checkpoint it wrote, against 30 steps
+straight).
 """
 
 import json
@@ -72,6 +78,38 @@ def run_chunks(inp, key, mesh, chunks):
     return state, {k: torch.cat([m[k] for m in mets]) for k in mets[0]}
 
 
+def fit_desmo(inp, mesh, out_dir, num_epochs, state=None, preempt_on_rank=None):
+    """``train.fit`` of the desmo problem over ``mesh`` in chunks of 10
+    steps, its checkpoints (gathered, rank 0's) in ``<out_dir>/fit``; with
+    ``preempt_on_rank`` that rank alone requests preemption after its first
+    chunk."""
+    cfg = configs.RunConfig(**{**json.loads(str(inp["desmo/cfg"])), "checkpoint_every": 10})
+    x = torch.as_tensor(inp["desmo/x"])
+    batch = {"x": x, "x_sq": torch.sum(x * x), "pod_modes": torch.as_tensor(inp["desmo/modes"])}
+    names = [k.split("/", 2)[2] for k in inp.files if k.startswith("desmo/params/")]
+    params = checkpoint.params_from_jax({k: inp[f"desmo/params/{k}"] for k in names}, "cpu")
+    chunk = shard_step.make_sharded_fused_chunk(spec_of(cfg), cfg, mesh)
+    calls = []
+
+    def counted(state, batch, num_steps):
+        calls.append(num_steps)
+        if mesh.rank == preempt_on_rank and len(calls) == 1:
+            train.request_preemption()
+        return chunk(state, batch, num_steps)
+
+    os.makedirs(os.path.join(out_dir, "fit"), exist_ok=True)
+
+    def save(state, epoch):
+        if mesh.rank == 0:
+            checkpoint.save_state(os.path.join(out_dir, "fit", f"state_epoch{epoch}.npz"), state)
+
+    start = parallel.local_state(state or train.init_state(params, cfg), mesh)
+    result = train.fit(None, {}, cfg, params, parallel.shard_batch(batch, mesh), num_epochs=num_epochs,
+                       chunk_size=10, log=None, checkpoint_fn=save, state=start, chunk=counted, device_mesh=mesh)
+    result.state = parallel.gather_state(result.state, mesh, cfg.n)
+    return result, cfg, params
+
+
 def main() -> int:
     src, out_dir, tasks = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
     mesh = parallel.make_mesh(int(os.environ["WORLD_SIZE"]), device="cpu")
@@ -115,6 +153,29 @@ def main() -> int:
             for k, v in art.history.items():
                 out[f"runner_seeds/history/{k}"] = v
             out["runner_seeds/params/phi"] = art.state.params["phi"].numpy()
+        elif task == "runner_resume":
+            cfg = configs.RunConfig(**json.loads(str(inp["runner/cfg"])))
+            runs = os.path.join(out_dir, "runs_resume")
+            for tag, kw in (("straight", {}), ("first", {"num_epochs": 10})):
+                art = runner.run(cfg, inp["runner/x"], out_dir=os.path.join(runs, tag), echo=False, device="cpu",
+                                 device_mesh=mesh, **kw)
+                out[f"runner_resume/{tag}/preempted"] = np.array(art.preempted)
+            art = runner.run(cfg, inp["runner/x"], out_dir=os.path.join(runs, "resumed"), num_epochs=10,
+                             echo=False, device="cpu", device_mesh=mesh,
+                             resume_from=os.path.join(runs, "first", cfg.name, "state_epoch10.npz"))
+            keep("runner_resume/resumed", art.state, {k: torch.as_tensor(v) for k, v in art.history.items()})
+        elif task == "preempt":
+            preempted, cfg, params = fit_desmo(inp, mesh, out_dir, 30, preempt_on_rank=1)
+            out["preempt/preempted"] = np.array(preempted.preempted)
+            out["preempt/epoch"] = np.array(preempted.state.epoch)
+            out["preempt/latch_after"] = np.array(train.preemption_requested())
+            torch.distributed.barrier(group=mesh.group)  # rank 0's checkpoint is on disk
+            saved = checkpoint.load_state(os.path.join(out_dir, "fit", "state_epoch10.npz"),
+                                          train.init_state(params, cfg))
+            resumed, _, _ = fit_desmo(inp, mesh, out_dir + "_resumed", 20, state=saved)
+            keep("preempt/resumed", resumed.state, {k: torch.as_tensor(v) for k, v in resumed.history.items()})
+            straight, _, _ = fit_desmo(inp, mesh, out_dir + "_straight", 30)
+            keep("preempt/straight", straight.state, {k: torch.as_tensor(v) for k, v in straight.history.items()})
         else:
             raise SystemExit(f"unknown task {task!r}")
     if any(name.split(".")[0] in ("jax", "jaxlib", "desmo_tpu") for name in sys.modules):

@@ -445,10 +445,12 @@ def kernel_arrays(cs):
     return {"phi": cs.phi, **temporal, "coef": cs.coef, "omega": cs.omega, "svec": cs.svec}
 
 
-def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid, betas=None, lams=None):
+def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid, betas=None, lams=None, sums=False):
     """One chunk of the CUDA source on an emulated grid of ``grid`` blocks,
     from a stacked state of S seeds; returns the state arrays in the kernel
-    layout and the metrics rows (steps, S, 5), by name."""
+    layout and the metrics rows (steps, S, 5), by name, and with ``sums``
+    the last epoch's summed partials (``gcoef`` (S Ks,) and ``gomega``
+    (3 S r,))."""
     S = state.params["phi"].shape[0]
     cs = train_chunk.pack_seeds(state, *train_chunk.seed_hypers(cfg, S, betas, lams))
     x = batch["x"].numpy()
@@ -469,10 +471,14 @@ def run_emulated(exe, tmp_path, state, batch, steps, spec, cfg, grid, betas=None
     out = np.fromfile(dst, np.float32)
     shapes = {k: v.shape for k, v in state_arrays.items()}
     shapes["metrics"] = (steps, S, len(train_chunk.METRICS))
+    shapes.update(ga=(S, K, K), latg=(S, r, r), gcoef=(S * K,), gomega=(3 * S * r,))
     sizes = [int(np.prod(s)) for s in shapes.values()]
     assert out.size == sum(sizes)
     parts = np.split(out, np.cumsum(sizes)[:-1])
-    return {k: p.reshape(s) for (k, s), p in zip(shapes.items(), parts)}
+    got = {k: p.reshape(s) for (k, s), p in zip(shapes.items(), parts)}
+    for k in ("ga", "latg") + (() if sums else ("gcoef", "gomega")):
+        del got[k]
+    return got
 
 
 def assert_emulated_matches_plain(got, state, batch, steps, spec, cfg, betas=None, lams=None):
@@ -599,6 +605,53 @@ def test_cuda_source_ax_split_on_emulated_grid(emulated_train_chunk, tmp_path, n
     assert_emulated_matches_plain(got, state, batch, 3, spec, cfg)
 
 
+# aneurysm's rows per block on the H100 (27,000 over 132 blocks: 205), at a
+# width the emulated grid runs in seconds
+INIT_N, INIT_M, INIT_GRID = 1640, 100, 8
+
+
+def reference_init(n=INIT_N, m=INIT_M, r=4, P=2):
+    """The reference init (phi, the coefficients and B all ones) at
+    omega 1 on the synthetic wake and its r POD modes:
+    ``(spec, cfg, state, batch)``. B all ones makes X·Bᵀ X's row sums, so
+    dA is the same for every column of a row, and each trig column's
+    gradient terms keep their sign over long runs of rows."""
+    from desmo_tpu_torch import pod
+
+    x = synthetic.cylinder_wake(n, m, seed=0)
+    xt = torch.as_tensor(x)
+    spec = desmo.DesmoSpec(n, m, r, P, 1.0)
+    cfg = configs.RunConfig(name="reference_init", variant="desmo", n=n, m=m, r=r, poly_order=P, omega_init=1.0)
+    batch = {"x": xt, "x_sq": torch.sum(xt * xt), "pod_modes": pod.pod_host(x, r, "cpu").modes.contiguous()}
+    return spec, cfg, train.init_state(desmo.Desmo(spec).params(), cfg), batch
+
+
+def reference_init_sums(spec, cfg, state, batch):
+    """``step_plain``'s partials of ``state`` in float64: gcoef, gomega."""
+    from desmo_tpu_torch.kernels import shard_step
+
+    cs = train_chunk.pack_seeds(train_chunk.stack_seed(state), *train_chunk.seed_hypers(cfg, 1))
+    ref = shard_step.make_buffers(cs, batch, 1, spec, cfg, spec.n).to("cpu", torch.float64)
+    shard_step.step_plain(ref, spec)
+    K = spec.num_poly_terms + 3 * spec.r
+    return shard_step.split_seed_sums(ref.sums, K, spec.m, spec.r, 1)[3:]
+
+
+def test_tile_sums_meet_the_contract_at_the_reference_init(emulated_train_chunk, tmp_path):
+    """At the reference init with 205 rows a block, the first epoch's
+    gcoef and gomega within 5e-6 of their largest entry in float64, the
+    contract of the kernel's contractions. Each column sums a row tile's
+    terms as a pairwise tree, then the tiles; one fmaf chain over the
+    block's rows reached 6.3e-6 on gomega here (1.7e-5 at aneurysm with 4
+    seeds on the card)."""
+    spec, cfg, state, batch = reference_init()
+    got = run_emulated(emulated_train_chunk, tmp_path, train_chunk.stack_seed(state), batch, 1, spec, cfg,
+                       grid=INIT_GRID, sums=True)
+    for name, ref in zip(("gcoef", "gomega"), reference_init_sums(spec, cfg, state, batch)):
+        ref = ref.numpy()
+        assert np.abs(got[name] - ref).max() <= 5e-6 * np.abs(ref).max(), name
+
+
 def run_emulated_probe(exe, tmp_path, a, b, x, grid):
     """``desmo_chunk_contract_probe``'s kernel on an emulated grid: (xb, ax)."""
     n, k = a.shape
@@ -658,3 +711,16 @@ def test_contract_probe_takes_the_plain_version_on_the_cpu():
         train_chunk.contract_probe(a.double(), b, x)
     with pytest.raises(ValueError):
         train_chunk.contract_probe(torch.zeros((30, 129)), torch.zeros((129, 20)), x)
+
+
+def test_epoch_sums_and_phase_split_need_the_card():
+    """The kernel's summed partials and its clock live in the card's
+    scratch: on CPU tensors ``epoch_sums`` and ``phase_split`` raise and
+    count no launch."""
+    spec, cfg, state, batch = reference_init(n=40, m=12)
+    launches = train_chunk.fused_train_chunk.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        train_chunk.epoch_sums(state, batch, spec, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        train_chunk.phase_split(state, batch, 2, spec, cfg)
+    assert train_chunk.fused_train_chunk.launches == launches
