@@ -58,7 +58,17 @@ presets at full width on synthetic data through ``runner.run``:
   10,000 epochs each: channel (n=16384, m=1000, r=4, P=2, K=27, then its
   greedy pruning curve), aneurysm (n=27000, K=27) and fourier_aneurysm
   (n=27000, r=2, nF=30, K=12), each also held against its plain chunk and
-  timed beside its bound.
+  timed beside its bound;
+- the Fourier run's extras at fourier_cylinder's full width: ``runner.run``
+  with ``holdout=0.2`` (the fit at m=801) and ``period_multistart=4`` (four
+  300-epoch probes, one launch each), 10,000 epochs through the mega-kernel,
+  and the same without the multi-start; the ``evaluate`` subcommand with
+  ``--forecast-after 801`` on the final ``.pt`` against ``forecast.json``;
+  the probes through the kernel against its plain chunk at m=801; the
+  device POD (snapshots, SVD, randomized) at aneurysm's size against the
+  host POD, and a cylinder run with ``pod_method="snapshots"`` and the
+  ``evaluate`` of its checkpoint with the same method, whose errors are
+  equal.
 
 Each path runs with every launch count set to 0 just before it and read just
 after. The kernels build without spills (checked from ``-Xptxas -v``), and
@@ -80,9 +90,12 @@ without printing a result when no CUDA device is available.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -1915,6 +1928,294 @@ def main() -> int:
               + ", ".join(f"{key} {v:.2e}" for key, v in e_one.items()) + "; params "
               + ", ".join(f"{key} {v:.2e}" for key, v in e_params.items()) + " of max|param|")
 
+    # 12. the Fourier run's extras at fourier_cylinder's full width (n=3961,
+    # m=1001): runner.run with a 0.2 holdout (the fit at m=801) and the
+    # period multi-start (4 candidates of period_probe_epochs=300, one launch
+    # a probe), SLICE_EPOCHS epochs through the mega-kernel's Fourier form,
+    # the same run without the multi-start, and one started at the
+    # spectrum's first candidate period (reported); the evaluate subcommand on
+    # the final .pt with --forecast-after 801 against the run's
+    # forecast.json. Then the mega-kernel at m=801 against its plain chunk:
+    # the probes at omega_init=1 and lr_omega=1 (as 5f: the same candidates,
+    # each probe's rec within 5f's 2e-4, the same pick or a near-tie
+    # printed), 200 epochs and one epoch from one state (5f's limits), both
+    # in turns over TIMED_STEPS-epoch chunks beside the bounds; the probes
+    # at the preset's omega_init=1e4 are printed, not held (5f holds the
+    # preset's first 3 epochs only: two roundings part after a few)
+    from desmo_tpu_torch.__main__ import main as cli_main
+
+    m_train = int(round(fpreset.m * 0.8))
+    probe_line = re.compile(r"candidate (\S+) -> rec (\S+)")
+    keep_line = re.compile(r"keeping period (\S+) \(rec (\S+)\)")
+
+    def probe_recs(lines):
+        """[(candidate, rec)] and the kept candidate of a multi-start's log."""
+        recs = [(float(c), float(r)) for c, r in (probe_line.search(ln).groups() for ln in lines
+                                                  if probe_line.search(ln))]
+        kept = keep_line.search(lines[-1])
+        return recs, (float(kept.group(1)) if kept else None)
+
+    multistart = runner.fourier_period_multistart
+    probe_runs = []
+
+    def timed_multistart(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = []
+        out = multistart(*args, **{**kw, "log": lines.append})
+        torch.cuda.synchronize()
+        probe_runs.append((time.perf_counter() - t0, lines))
+        return out
+
+    xtr, _ = runner.split_holdout(fx_np, m_train)
+    fft_period = fourier.period_candidates(xtr, fpreset.period_init, n_candidates=4,
+                                           pod_modes=pod.pod_host(xtr, fpreset.r, "cpu").modes.numpy())[1]
+    holdout_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, cfg in (("multistart", dataclasses.replace(fpreset, period_multistart=4)), ("single", fpreset),
+                         ("fft period", dataclasses.replace(fpreset, period_init=fft_period))):
+            reset_launches(*counters)
+            probe_runs.clear()
+            runner.fourier_period_multistart = timed_multistart
+            try:
+                t0 = time.perf_counter()
+                art = runner.run(cfg, fx_np, out_dir=os.path.join(tmp, tag), num_epochs=SLICE_EPOCHS, echo=False,
+                                 device=dev, holdout=0.2)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                runner.fourier_period_multistart = multistart
+            launches = train_chunk.fused_train_chunk.launches
+            others = sum(fn.launches for fn in counters) - launches
+            probe_s, lines = probe_runs[0] if probe_runs else (0.0, [])
+            recs, kept = probe_recs(lines) if lines else ([], None)
+            n_chunks = SLICE_EPOCHS // cfg.checkpoint_every
+            hist = art.history
+            with open(os.path.join(art.out_dir, "forecast.json")) as fh:
+                record = json.load(fh)
+            check(all(bool(np.isfinite(hist[k]).all()) and hist[k].shape == (SLICE_EPOCHS,) for k in hist),
+                  f"12 {tag}: history")
+            check(launches == len(recs) + n_chunks and others == 0,
+                  f"12 {tag}: {launches} mega-kernel launches for {len(recs)} probes and {n_chunks} chunks, other "
+                  f"kernels {others}")
+            check(art.state.epoch == SLICE_EPOCHS + (cfg.period_probe_epochs if recs else 0),
+                  f"12 {tag}: the fit ended at epoch {art.state.epoch}")
+            check(record == art.forecast and record["m_train"] == m_train
+                  and record["m_holdout"] == fpreset.m - m_train and np.isfinite(record["holdout_error"])
+                  and record["train_error"] == art.relative_error and len(art.sweep) == 14,
+                  f"12 {tag}: the forecast record {dict((k, v) for k, v in record.items() if 'per' not in k)}")
+            holdout_runs[tag] = dict(art=art, launches=launches, wall=wall, probe_s=probe_s, recs=recs, kept=kept)
+            if tag == "multistart":
+                check(len(recs) >= 2 and kept in [c for c, _ in recs], f"12: the multi-start probed {recs}")
+                pt = os.path.join(art.out_dir, "fourier_cylinder_r2_final.pt")
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli_main(["evaluate", "--preset", "fourier_cylinder", "--synthetic", "--checkpoint", pt,
+                                   "--forecast-after", str(m_train)])
+                eval_s = time.perf_counter() - t0
+                summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+                ev = runner.evaluate(fpreset, fx_np, pt, echo=False, device=dev, forecast_after=m_train)["forecast"]
+                scalars = ("train_error", "holdout_error", "baseline_zero_error", "baseline_last_error")
+                ev_err = {k: abs(summary["forecast"][k] - record[k]) / abs(record[k]) for k in scalars}
+                ev_vec = max(max(abs(a - b) for a, b in zip(ev[k], record[k])) / max(record[k])
+                             for k in ("per_snapshot_train_error", "per_snapshot_holdout_error"))
+                check(rc == 0 and summary["forecast"]["m_train"] == m_train and max(ev_err.values()) <= 1e-5
+                      and ev_vec <= 1e-5 and abs(summary["relative_error"] - art.relative_error)
+                      <= 1e-5 * art.relative_error,
+                      f"12: evaluate --forecast-after {m_train} against forecast.json: {ev_err}, vectors {ev_vec}")
+    for tag, h in holdout_runs.items():
+        a = h["art"]
+        how = {"multistart": " --period-multistart 4", "single": "",
+               "fft period": f", period_init={fft_period:.4f} (the spectrum's candidate)"}[tag]
+        print(f"[12 holdout] {card}: fourier_cylinder as configured with --holdout 0.2{how}: trained on {a.config.m} "
+              f"of {fpreset.m} "
+              f"snapshots, {SLICE_EPOCHS} epochs through the mega-kernel in {h['wall']:.1f} s (the probes "
+              f"{h['probe_s']:.2f} s, the rest {h['wall'] - h['probe_s']:.1f} s: POD, the fit, scoring, sweep and "
+              f"exports), {a.steps_per_sec:.1f} steps/s over chunks 2-{SLICE_EPOCHS // fpreset.checkpoint_every}; "
+              f"relative error {a.relative_error:.6f} (POD(r) {a.pod_error_r:.6f}), held-out error "
+              f"{a.forecast['holdout_error']:.6f} (zero predictor {a.forecast['baseline_zero_error']:.6f}, last "
+              f"snapshot {a.forecast['baseline_last_error']:.6f}); mega-kernel launches {h['launches']}"
+              + (f" = {len(h['recs'])} probes + {SLICE_EPOCHS // fpreset.checkpoint_every} chunks; probes (period: "
+                 "rec) " + ", ".join(f"{c:.4f}: {r:.6f}" for c, r in h["recs"]) + f", kept {h['kept']:.4f}; period "
+                 f"after the fit {float(a.state.params['period'][0]):.4f}" if h["recs"] else " = chunks"))
+    print(f"[12 evaluate] {card}: the evaluate subcommand on the multi-start run's final .pt with --forecast-after "
+          f"{m_train} ({eval_s:.1f} s): scalars against forecast.json " + ", ".join(
+              f"{k} {v:.2e}" for k, v in ev_err.items()) + f", per-snapshot vectors {ev_vec:.2e} of their largest "
+          "(limit 1e-5)")
+
+    hbatch = runner.prepare_batch(xtr, pod.pod_host(xtr, fpreset.r, dev).modes, dev)
+
+    def hstart(cfg):
+        spec = fourier.FourierSpec(cfg.n, m_train, cfg.r, cfg.poly_order, cfg.omega_init, cfg.n_fourier,
+                                   cfg.period_init)
+        return spec, fourier.Fourier(spec, device=dev).params()
+
+    def probe_both(cfg):
+        """The multi-start at m=801 through the kernel and its plain chunk:
+        {route: (recs, kept, seconds)}."""
+        cfg = dataclasses.replace(cfg, m=m_train, period_multistart=4)
+        spec, params = hstart(cfg)
+        loss_fn = fourier.build_loss(spec, cfg.beta, cfg.l1_lambda, method="factored")
+        out = {}
+        for route, chunk in (("kernel", train_chunk.make_chunk(spec, cfg)),
+                             ("plain", lambda s, b, n: train_chunk.train_chunk_plain(s, b, n, spec, cfg))):
+            lines = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            multistart(cfg, params, hbatch, loss_fn, fourier.param_groups(params), chunk=chunk, log=lines.append)
+            torch.cuda.synchronize()
+            out[route] = (*probe_recs(lines), time.perf_counter() - t0)
+        return out
+
+    hunit = dataclasses.replace(fpreset, omega_init=1.0, lr_omega=1.0)
+    unit_probes = probe_both(hunit)
+    (krecs, kkept, ks), (precs, pkept, ps) = unit_probes["kernel"], unit_probes["plain"]
+    probe_err = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(krecs, precs))
+    rec_of = dict(precs)
+    near_tie = kkept != pkept and abs(rec_of[kkept] - rec_of[pkept]) <= 2e-4 * abs(rec_of[pkept])
+    check([c for c, _ in krecs] == [c for c, _ in precs] and len(krecs) >= 2 and probe_err <= 2e-4
+          and (kkept == pkept or near_tie),
+          f"12: the probes at m={m_train} through the kernel {krecs} (kept {kkept}) against the plain chunk {precs} "
+          f"(kept {pkept})")
+    preset_probes = probe_both(fpreset)
+    print(f"[12 probes] {card}: the multi-start at (n, m, nF)=({fpreset.n}, {m_train}, {fpreset.n_fourier}), "
+          f"omega_init=1 lr_omega=1, {fpreset.period_probe_epochs} epochs a probe: kernel "
+          + ", ".join(f"{c:.4f}: {r:.6f}" for c, r in krecs) + f" (kept {kkept:.4f}, {ks:.2f} s), plain chunk "
+          + ", ".join(f"{c:.4f}: {r:.6f}" for c, r in precs) + f" (kept {pkept:.4f}, {ps:.2f} s); recs within "
+          f"{probe_err:.2e} (limit 2e-4); " + ("the same pick" if kkept == pkept else "a near-tie: the picks' recs "
+                                                "lie within 2e-4"))
+    (krecs_p, kkept_p, _), (precs_p, pkept_p, _) = preset_probes["kernel"], preset_probes["plain"]
+    print(f"[12 probes] {card}: the same at the preset's omega_init=1e4 (reported, not held): kernel "
+          + ", ".join(f"{c:.4f}: {r:.6f}" for c, r in krecs_p) + f" (kept {kkept_p:.4f}), plain chunk "
+          + ", ".join(f"{c:.4f}: {r:.6f}" for c, r in precs_p) + f" (kept {pkept_p:.4f})")
+
+    hspec, hparams = hstart(hunit)
+    hst = train.init_state(hparams, hunit)
+    sk, mk = train_chunk.fused_train_chunk(hst, hbatch, PARITY_STEPS, hspec, hunit)
+    sp, mp = train_chunk.train_chunk_plain(hst, hbatch, PARITY_STEPS, hspec, hunit)
+    h_trace = {k: trace_rel(mk, mp, k, PARITY_STEPS) for k in ("rec", "l1", "total")}
+    sk1, mk1 = train_chunk.fused_train_chunk(sk, hbatch, 1, hspec, hunit)
+    sp1, mp1 = train_chunk.train_chunk_plain(sk, hbatch, 1, hspec, hunit)
+    h_one = {k: ((mk1[k] - mp1[k]).abs() / mp1[k].abs()).item() for k in train_chunk.METRICS}
+    h_one_ok = all(bool((mk1[k] - mp1[k]).abs() <= 2e-4 * mp1[k].abs() + (ORTHO_ATOL if k == "ortho" else 0.0))
+                   for k in train_chunk.METRICS)
+    h_params = {k: rel_err(sk1.params[k], sp1.params[k]) for k in sk1.params}
+    h_max_abs = max(float((sk1.params[k] - sp1.params[k]).abs().max()) for k in sk1.params)
+    check(h_trace["rec"] <= 2e-4 and h_trace["total"] <= 2e-4 and h_trace["l1"] <= 1e-3 and h_one_ok
+          and max(h_params.values()) <= 1e-5,
+          f"12: the mega-kernel at m={m_train} against its plain chunk: trace {h_trace}, one epoch {h_one}, "
+          f"params {h_params}")
+    hspec_p, hparams_p = hstart(fpreset)
+    hst_p = train.init_state(hparams_p, fpreset)
+    kernel = lambda: train_chunk.fused_train_chunk(hst_p, hbatch, TIMED_STEPS, hspec_p, fpreset)  # noqa: E731
+    plain = lambda: train_chunk.train_chunk_plain(hst_p, hbatch, TIMED_STEPS, hspec_p, fpreset)  # noqa: E731
+    hk1, hp1, hp2, hk2 = (time_ms(f, 3) for f in (kernel, plain, plain, kernel))
+    n, nf, r, k = fpreset.n, fpreset.n_fourier, fpreset.r, hspec_p.num_poly_terms + 3 * fpreset.r
+    state_bytes = 4 * 2 * (3 * r * n + 3 * k * (2 * nf + 1) + 3 * k + 3 * k + 9 * r + train_chunk.SVEC)
+    nbytes = 4 * (n * m_train + n * r + m_train + TIMED_STEPS * len(train_chunk.METRICS)) + state_bytes
+    flops = TIMED_STEPS * chunk_flops(n, m_train, k, nf)
+    h_bound, h_by = bound_ms(flops, nbytes)
+    cflops = TIMED_STEPS * contraction_flops(n, m_train, k)
+    h_bound3 = bound_3xtf32_ms(cflops, flops - cflops, nbytes)
+    per_epoch = 1e3 / TIMED_STEPS
+    holdout_kernel = dict(launches=holdout_runs["multistart"]["launches"], max_abs=h_max_abs, ms=(hk1 + hk2) / 2,
+                          plain_ms=(hp1 + hp2) / 2, bound_ms=h_bound, bound_by=h_by, bound_3xtf32_ms=h_bound3)
+    # the kernel clock's split over a 2,000-epoch chunk at m=801 and at the
+    # preset's m=1001, from the preset's init (reported)
+    splits = {}
+    for mm, bt in ((m_train, hbatch), (fpreset.m, fbatch)):
+        if mm == m_train:
+            sspec, sparams = hstart(fpreset)
+            sst = train.init_state(sparams, fpreset)
+        else:
+            sspec, sst = fstart(fpreset)
+        splits[mm] = train_chunk.phase_split(sst, bt, fpreset.checkpoint_every, sspec, fpreset)
+    print(f"[12 split] {card}: the Fourier mega-kernel's clock, us an epoch over a {fpreset.checkpoint_every}-epoch "
+          f"chunk at m={m_train} / m={fpreset.m}: " + ", ".join(
+              f"{ph} {1e6 * splits[m_train][ph] / fpreset.checkpoint_every:.1f}/"
+              f"{1e6 * splits[fpreset.m][ph] / fpreset.checkpoint_every:.1f}" for ph in splits[m_train])
+          + f"; the epoch {1e6 * sum(splits[m_train].values()) / fpreset.checkpoint_every:.1f}/"
+          f"{1e6 * sum(splits[fpreset.m].values()) / fpreset.checkpoint_every:.1f}")
+    print(f"[12 m={m_train}] {card}: the Fourier mega-kernel at (n, m, K, nF)=({n}, {m_train}, {k}, {nf}) against its "
+          f"plain chunk, omega_init=1 lr_omega=1: {PARITY_STEPS}-epoch trace " + ", ".join(
+              f"{key} {v:.2e}" for key, v in h_trace.items()) + " (limits rec and total 2e-4, l1 1e-3); one epoch "
+          "from the kernel's state: metrics " + ", ".join(f"{key} {v:.2e}" for key, v in h_one.items())
+          + "; params " + ", ".join(f"{key} {v:.2e}" for key, v in h_params.items()) + " of max|param| (limit "
+          f"1e-5); over {TIMED_STEPS}-epoch chunks as configured, in turns: kernel {hk1 * per_epoch:.1f}/"
+          f"{hk2 * per_epoch:.1f} us/epoch, plain chunk {hp1 * per_epoch:.1f}/{hp2 * per_epoch:.1f}; bound "
+          f"{h_bound * per_epoch:.1f} us/epoch ({h_by}, fp32), {h_bound3 * per_epoch:.1f} (3xTF32)")
+
+    # 12p. the device POD at aneurysm's size (n=27000, m=1000): the method of
+    # snapshots, the SVD and the randomized range finder, each under the
+    # canonical signs, against pod_host (canonical signs applied for the
+    # comparison) at rank 2r as the runner computes it; the leading r modes
+    # (the training's) within eps s_1 / gap of max|mode|, at least 1e-4 (the
+    # synthetic wake's modes come in pairs whose singular values lie 0.1-0.15%
+    # apart, which fix each mode of a pair only to about eps s_1 / gap in
+    # float32), 1e-3
+    # for the randomized sketch (tests/test_pod.py's), their singular values
+    # within 1e-5, the rank-r error 1e-5; two calls on the card give the same bits; the
+    # seconds each takes (X on the card, after a warm-up call). Then a
+    # cylinder run with pod_method="snapshots" through the mega-kernel (2,000
+    # epochs, one launch) and evaluate of its final .pt with the same method:
+    # the same errors and sweep
+    ar = apreset.r
+    axd = torch.as_tensor(ax_np, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = pod.pod_host(ax_np, 2 * ar, dev)
+    torch.cuda.synchronize()
+    pod_secs = {"host": time.perf_counter() - t0}
+    hc = pod.truncate(pod.canonical_signs(host), ar)
+    host_err = pod.pod_relative_error(axd, hc)
+    sv = host.singular_values[: ar + 1].double()
+    pair_limit = max(1e-4, 2.0 ** -23 * float(sv[0]) / float((sv[:-1] - sv[1:]).min()))
+    pod_checks = {}
+    for method in ("snapshots", "svd", "randomized"):
+        pod.pod(axd, 2 * ar, method=method)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p2 = pod.canonical_signs(pod.pod(axd, 2 * ar, method=method))
+        torch.cuda.synchronize()
+        pod_secs[method] = time.perf_counter() - t0
+        again = pod.canonical_signs(pod.pod(axd, 2 * ar, method=method))
+        same = torch.equal(again.modes, p2.modes) and torch.equal(again.temporal, p2.temporal)
+        p = pod.truncate(p2, ar)
+        mode_err = rel_err(p.modes, hc.modes)
+        sv_err = float(((p.singular_values - hc.singular_values).abs() / hc.singular_values).max())
+        err = pod.pod_relative_error(axd, p)
+        mode_limit = 1e-3 if method == "randomized" else pair_limit
+        pod_checks[method] = dict(modes=mode_err, sv=sv_err, err=err, same=same, limit=mode_limit)
+        check(same and mode_err <= mode_limit and sv_err <= 1e-5 and abs(err - host_err) <= 1e-5 * host_err,
+              f"12p: {method} POD against pod_host: modes {mode_err:.2e}, singular values {sv_err:.2e}, rank-{ar} "
+              f"error {err} against {host_err}, two calls the same bits {same}")
+    print(f"[12p pod] {card}: aneurysm (n, m)=({apreset.n}, {apreset.m}), rank {2 * ar} with canonical signs, "
+          f"against pod_host ({pod_secs['host']:.3f} s, rank-{ar} error {host_err:.6f}): " + "; ".join(
+              f"{method} {pod_secs[method]:.4f} s, leading {ar} modes {c['modes']:.2e} of max|mode| (limit "
+              f"{c['limit']:.1e}), singular values "
+              f"{c['sv']:.2e}, rank-{ar} error {c['err']:.6f}, two calls bit-identical {c['same']}"
+              for method, c in pod_checks.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(preset, pod_method="snapshots")
+        reset_launches(*counters)
+        art = runner.run(cfg, x_np, out_dir=tmp, num_epochs=preset.checkpoint_every, echo=False, device=dev)
+        torch.cuda.synchronize()
+        rt_launches = train_chunk.fused_train_chunk.launches
+        rt_others = sum(fn.launches for fn in counters) - rt_launches
+        rep = runner.evaluate(cfg, x_np, os.path.join(art.out_dir, "cylinder_r4_final.pt"), echo=False, device=dev)
+        host_rep = runner.evaluate(preset, x_np, os.path.join(art.out_dir, "cylinder_r4_final.pt"), echo=False,
+                                   device=dev)
+    same_sweep = [e[1:] for e in rep["sweep"]] == [(e.error, e.nonzero_terms) for e in art.sweep]
+    check(rt_launches == 1 and rt_others == 0, f"12p: the round trip's run launched the mega-kernel {rt_launches} "
+          f"times, other kernels {rt_others}")
+    check(rep["relative_error"] == art.relative_error and rep["pod_error_r"] == art.pod_error_r and same_sweep,
+          f"12p: evaluate with pod_method=snapshots gave {rep['relative_error']}, the run {art.relative_error}")
+    print(f"[12p round trip] {card}: cylinder with pod_method=snapshots, {preset.checkpoint_every} epochs through the "
+          f"mega-kernel ({rt_launches} launch): relative error {art.relative_error!r}; evaluate of its final .pt with "
+          f"the same method {rep['relative_error']!r} (equal {rep['relative_error'] == art.relative_error}, the sweep "
+          f"equal {same_sweep}); with pod_method=host instead {host_rep['relative_error']!r}")
+
     # the sharded chunk by the device's work: in one profiler window of a
     # 200-step chunk, the step kernel's launches the profiler saw against
     # those ``step.launches`` counted, and the time of the device events by
@@ -2135,6 +2436,32 @@ def main() -> int:
              "desmo_tpu/pallas/ae_chunk.py:170", ae_max_abs,
              dict(ms=ae_ms, plain_ms=ae_plain_ms, bound_ms=ae_bound, bound_by=ae_by, bound_3xtf32_ms=ae_bound3)),
         )
+    ] + [
+        {
+            "name": "fused_train_chunk (Fourier form, fourier_cylinder at m=801: the multi-start's probes and the "
+                    "holdout fit)",
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/train_chunk.cu",
+            "replaces": "desmo_tpu/pallas/train_chunk.py:356 (nf>0)",
+            "launches": holdout_kernel["launches"],
+            "max_abs_err": holdout_kernel["max_abs"],
+            **{key: v for key, v in holdout_kernel.items() if key not in ("launches", "max_abs")},
+            "library_ms": None,
+        },
+        {
+            "name": "fused_train_chunk (cylinder with pod_method=snapshots, the evaluate round trip)",
+            "route": "cuda",
+            "source": "desmo_tpu_torch/csrc/train_chunk.cu",
+            "replaces": "desmo_tpu/pallas/train_chunk.py:356",
+            "launches": rt_launches,
+            "max_abs_err": chunk_max_abs,
+            "ms": chunk_ms,
+            "plain_ms": chunk_plain_ms,
+            "bound_ms": chunk_bound,
+            "bound_by": chunk_by,
+            "bound_3xtf32_ms": chunk_bound3,
+            "library_ms": None,
+        },
     ]}))
     check(kind == torch.cuda.get_device_name(dev), f"the device record's kind {kind!r} is not the card's name")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -21,15 +21,15 @@ Modules
   same for the AE variant) and ``dual_gemm``
 - ``models``      the DESMO model (``models.desmo``), its Fourier variant
   (``models.fourier``) and its AE variant (``models.autoencoder``)
-- ``pod``         host POD initialization
+- ``pod``         POD initialization on the host or the device (snapshots, SVD, randomized)
 - ``optim``       torch-semantics Adamax + ReduceLROnPlateau on tensor state
 - ``train``       the chunked training loop (eager, or the mega-kernel's chunk), its
   graceful preemption and its checkpoint worker
-- ``checkpoint``  ``.npz`` run state (written and read back), ``.pt`` export, weights and
+- ``checkpoint``  ``.npz`` run state (written and read back), ``.pt`` export and import, weights and
   state from the JAX package
 - ``sparsify``    term energies, threshold sweeps and greedy pruning
 - ``logging_utils`` CSV/JSONL metrics
-- ``runner``      the end-to-end pipeline behind ``python -m desmo_tpu_torch run``
+- ``runner``      the end-to-end pipeline behind ``python -m desmo_tpu_torch run``, and ``evaluate``
 
 The package imports nothing of ``desmo_tpu``: ``configs``, ``data``, ``io``
 and ``logging_utils`` are its own copies of the reference's jax-free

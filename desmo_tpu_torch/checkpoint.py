@@ -1,15 +1,17 @@
 """Checkpoints: ``.npz`` run state, ``.pt`` export in the reference's key
 scheme, and weights carried over from the JAX package.
 
-Port of ``save_state``, ``load_state``, ``state_dict_from_params`` and
-``params_from_state_dict`` from ``desmo_tpu/checkpoint.py`` (desmo and
-Fourier variants; the AE variant's keys through ``models.autoencoder``).
+Port of ``save_state``, ``load_state``, ``load_pt``, ``infer_spec_dims``,
+``state_dict_from_params`` and ``params_from_state_dict`` from
+``desmo_tpu/checkpoint.py`` (desmo and Fourier variants; the AE variant's
+keys through ``models.autoencoder``).
 ``save_state`` writes the same flat keys as the JAX package
 (``params/<key>``, ``opt/count``, ``opt/mu/<key>``, ``opt/nu/<key>``,
 ``sched/lrs``, ``sched/best``, ``sched/num_bad``, ``epoch``), so
 ``desmo_tpu.checkpoint.load_state`` reads the port's files and
 :func:`load_state` the JAX package's; the ``.pt`` files read back through
-``desmo_tpu.checkpoint.load_pt`` and ``torch.load``.
+``desmo_tpu.checkpoint.load_pt`` and ``torch.load``, and :func:`load_pt`
+reads the JAX package's ``.pt`` files and the reference's.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from desmo_tpu_torch import optim
+from desmo_tpu_torch import library, optim
 from desmo_tpu_torch.models import autoencoder
 from desmo_tpu_torch.train import TrainState
 
@@ -146,6 +148,32 @@ def state_from_jax(np_state, device: torch.device | str) -> TrainState:
 def save_pt(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
     """``torch.save`` of a state dict of CPU tensors."""
     torch.save(dict(state_dict), path)
+
+
+def load_pt(path: str) -> dict[str, torch.Tensor]:
+    """A ``.pt`` state dict as CPU tensors: ``torch.load`` with
+    ``weights_only=True`` (no code in the file runs). Anything but a dict
+    raises ``ValueError``."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, dict):
+        raise ValueError(f"expected a state_dict-like dict, got {type(obj)}")
+    return obj
+
+
+def infer_spec_dims(sd: Mapping) -> tuple[int, int]:
+    """(r, poly_order) of a desmo or Fourier state dict in the reference's
+    key scheme: r is the number of ``phi_list.*`` masks and poly_order
+    follows from ``len(c_coef)`` = C(r + P, P). The reference trains
+    different ranks per experiment, so inference sizes the model from the
+    checkpoint, not the preset."""
+    r = sum(1 for k in sd if k.startswith("phi_list."))
+    if r == 0:
+        raise ValueError("state dict has no phi_list.* keys (AE checkpoint?)")
+    T = int(_host(sd["c_coef"]).reshape(-1).shape[0])
+    for P in range(1, 13):
+        if library.num_poly_terms(r, P) == T:
+            return r, P
+    raise ValueError(f"no poly_order matches r={r}, len(c_coef)={T}")
 
 
 def _flat_state(state: TrainState) -> dict:

@@ -53,3 +53,12 @@ def sparsity_l1(params: dict) -> torch.Tensor:
 def relative_frobenius_error(x_nm: torch.Tensor, recon_nm: torch.Tensor) -> torch.Tensor:
     """``||X - Xhat||_F / ||X||_F`` — the reference's headline metric."""
     return torch.linalg.norm(x_nm - recon_nm) / torch.linalg.norm(x_nm)
+
+
+def per_snapshot_relative_error(x_nm: torch.Tensor, recon_nm: torch.Tensor) -> torch.Tensor:
+    """Column-wise ``||x_j - xhat_j|| / ||x_j||``, the error at each snapshot
+    (length m); the denominator is floored at 1e-30. The forecast records
+    show with it how the error grows with the horizon."""
+    num = torch.linalg.norm(x_nm - recon_nm, dim=0)
+    den = torch.linalg.norm(x_nm, dim=0)
+    return num / torch.clamp(den, min=1e-30)

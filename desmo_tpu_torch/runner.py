@@ -1,10 +1,12 @@
 """End-to-end pipeline: load -> preprocess -> POD -> train -> error ->
-sparsify -> export. Port of ``desmo_tpu/runner.py`` for the desmo, Fourier and
-AE variants on one device, one seed or (desmo and Fourier) a seed-packed
-ensemble (``n_seeds > 1``, ``ensemble.fit``), and for desmo or Fourier, one
-seed or packed seeds, with the rows sharded over a device mesh
-(``device_mesh``, the sharded step kernel), with resume, graceful
-preemption and greedy pruning, and with no holdout and no figures.
+sparsify -> export, and inference from a checkpoint. Port of
+``desmo_tpu/runner.py`` for the desmo, Fourier and AE variants on one
+device, one seed or (desmo and Fourier) a seed-packed ensemble
+(``n_seeds > 1``, ``ensemble.fit``), and for desmo or Fourier, one seed or
+packed seeds, with the rows sharded over a device mesh (``device_mesh``,
+the sharded step kernel), with resume, graceful preemption, greedy pruning,
+the Fourier period multi-start, the Fourier holdout forecast, the host or
+device POD (``pod_method``) and :func:`evaluate`, and with no figures.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item; nothing falls back silently.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from typing import Optional
 
@@ -45,6 +48,10 @@ class RunArtifacts:
     # .pt hold the state to resume from; no sweep ran
     preempted: bool = False
     greedy: list = dataclasses.field(default_factory=list)
+    # the holdout forecast record (Fourier variant, run(holdout=f)): m_train,
+    # m_holdout, train_error, holdout_error, the baselines and per-snapshot
+    # errors; None without a holdout
+    forecast: Optional[dict] = None
 
 
 def load_data(
@@ -120,16 +127,8 @@ def check_supported(cfg: configs.RunConfig) -> None:
     AE variant)."""
     if cfg.variant == "ae" and cfg.n_seeds > 1:
         raise ValueError("n_seeds > 1 requires the desmo or fourier variant (ensemble.py scope)")
-    todo = []
     if cfg.variant not in ("desmo", "fourier", "ae"):
-        todo.append(f"variant {cfg.variant!r}")
-    if cfg.variant == "fourier" and cfg.period_multistart > 1 and cfg.n_seeds <= 1:
-        # with n_seeds > 1 the period candidates train as per-seed inits
-        todo.append("the Fourier period multi-start of one seed, period_multistart > 1 (ROADMAP queue 1, item 4)")
-    if cfg.pod_method != "host":
-        todo.append(f"pod_method={cfg.pod_method!r} (ROADMAP queue 1, item 6)")
-    if todo:
-        raise NotImplementedError("desmo_tpu_torch does not run " + "; ".join(todo) + " yet")
+        raise NotImplementedError(f"desmo_tpu_torch does not run variant {cfg.variant!r} yet")
 
 
 def single_seed_sweep(cfg: configs.RunConfig) -> configs.RunConfig:
@@ -290,10 +289,17 @@ def build_model(cfg: configs.RunConfig, device: torch.device):
 
 
 def compute_pod(cfg: configs.RunConfig, x: np.ndarray, device: torch.device):
-    """Rank-r and rank-2r POD of X from one host SVD."""
-    if cfg.pod_method != "host":
-        check_supported(cfg)
-    p2 = pod.pod_host(x, 2 * cfg.r, device)
+    """Rank-r and rank-2r POD of X from one factorization, under one sign
+    convention shared by :func:`run` and :func:`evaluate`: 'host' (the
+    default) is ``np.linalg.svd`` with the reference's signs, which imported
+    checkpoints' frozen masks pair with; any other ``cfg.pod_method``
+    ('snapshots', 'svd', 'randomized') runs ``pod.pod`` on ``device`` under
+    ``pod.canonical_signs``, so that evaluating a checkpoint with the method
+    it was trained under rebuilds the same modes."""
+    if cfg.pod_method == "host":
+        p2 = pod.pod_host(x, 2 * cfg.r, device)
+    else:
+        p2 = pod.canonical_signs(pod.pod(x, 2 * cfg.r, method=cfg.pod_method, device=device))
     return pod.truncate(p2, cfg.r), p2
 
 
@@ -353,6 +359,118 @@ def ae_recipe(cfg, spec, params, groups, batch, device, log):
     return cfg, params, loss_fn
 
 
+def fourier_period_multistart(cfg, params, batch, loss_fn, groups, chunk=None, log=None, device_mesh=None):
+    """Probe the FFT-informed candidate periods
+    (``models.fourier.period_candidates`` of X and its POD modes) for
+    ``cfg.period_probe_epochs`` each, from ``params`` with every period set to
+    the candidate, and return the probe state of the lowest final rec (ties
+    go to the first candidate), or None when there is no candidate; the main
+    fit resumes from it. It rescues runs whose ``period_init`` sits in the
+    periods' no-gradient basin (``desmo_tpu/runner.py:188-238``).
+
+    Each probe is a ``train.fit`` through ``chunk`` (the mega-kernel's on the
+    card, None for the eager loop). Over ``device_mesh`` ``batch`` is whole
+    and ``chunk`` the sharded chunk: each probe trains this rank's rows and
+    the kept state is gathered whole; every rank keeps the same candidate,
+    since the rec each sees is the all-reduced one. A preemption during a
+    probe stops the loop and is requested again, so that the main fit
+    checkpoints at once."""
+    cands = fourier_model.period_candidates(
+        batch["x"].cpu().numpy(), cfg.period_init, n_candidates=cfg.period_multistart,
+        pod_modes=batch["pod_modes"].cpu().numpy(),
+    )
+    if not cands:
+        if log is not None:
+            log("period multi-start: no usable period candidates; skipping")
+        return None
+    fit_batch = batch if device_mesh is None else parallel.shard_batch(batch, device_mesh)
+    best = None
+    for pc in cands:
+        probe = dict(params, period=torch.full_like(params["period"], pc),
+                     trig_period=torch.full_like(params["trig_period"], pc))
+        state = train.init_state(probe, cfg)
+        if device_mesh is not None:
+            state = parallel.local_state(state, device_mesh)
+        res = train.fit(loss_fn, groups, cfg, probe, fit_batch, num_epochs=cfg.period_probe_epochs, log=None,
+                        state=state, chunk=chunk, device_mesh=device_mesh)
+        if res.history:
+            rec = float(res.history["rec"][-1])
+            if log is not None:
+                log(f"period multi-start: candidate {pc:.4f} -> rec {rec:.6f}")
+            if best is None or rec < best[0]:
+                best = (rec, pc, res.state)
+        if res.preempted:
+            # fit took the request: raise it again, so that the probes stop
+            # here and the main fit checkpoints at once
+            if log is not None:
+                log("period multi-start: preempted; skipping remaining candidates")
+            train.request_preemption()
+            break
+    if best is None:
+        return None
+    if log is not None:
+        log(f"period multi-start: keeping period {best[1]:.4f} (rec {best[0]:.6f})")
+    return best[2] if device_mesh is None else parallel.gather_state(best[2], device_mesh, cfg.n)
+
+
+def split_holdout(x: np.ndarray, m_train: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``m_train`` snapshots and the rest, both recentred on the
+    training window's temporal mean, so that no held-out statistic leaks
+    into training (``desmo_tpu/runner.py:320-322``, ``:1138-1140``)."""
+    mu_train = x[:, :m_train].mean(axis=1, keepdims=True)
+    return np.asarray(x[:, :m_train] - mu_train), np.asarray(x[:, m_train:] - mu_train)
+
+
+def json_finite(obj):
+    """``obj`` with every non-finite float replaced by None, recursively:
+    ``json.dump`` would write ``Infinity``/``NaN``, which RFC 8259 does not
+    allow. Records stay raw in memory; sanitize where they are written."""
+    if isinstance(obj, dict):
+        return {k: json_finite(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_finite(v) for v in obj]
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return None
+    return obj
+
+
+def _forecast_baselines(x_train: np.ndarray, x_hold: np.ndarray) -> dict:
+    """The trivial predictors' errors on the held-out window:
+    ``baseline_zero_error``, the zero predictor, which is the training-mean
+    predictor once both windows are recentred on that mean (1.0 by
+    construction, recorded as computed), and ``baseline_last_error``, the
+    last training snapshot held over the window (persistence)."""
+    nrm = float(np.linalg.norm(x_hold))
+    last = x_train[:, -1:]
+    return {
+        "baseline_zero_error": float(np.linalg.norm(x_hold) / nrm),
+        "baseline_last_error": float(np.linalg.norm(np.broadcast_to(last, x_hold.shape) - x_hold) / nrm),
+    }
+
+
+@torch.no_grad()
+def _fourier_forecast_record(params: dict, pod_modes: torch.Tensor, spec, m_train: int, xd: torch.Tensor,
+                             recon: torch.Tensor, err: float, x_hold: np.ndarray) -> dict:
+    """A trained Fourier series scored at the held-out times, for
+    :func:`run` with a holdout and :func:`evaluate` with ``forecast_after``.
+    The training grid is ``t_points(m_train)`` (spacing m/(m-1)), so held-out
+    snapshot j sits at ``t = j m_train/(m_train - 1)``, built in float32 as
+    the JAX package builds it. Adds per-snapshot errors of both windows."""
+    h = int(np.asarray(x_hold).shape[1])
+    t_hold = (float(m_train) / (m_train - 1)) * np.arange(m_train, m_train + h, dtype=np.float32)
+    hold = torch.as_tensor(np.ascontiguousarray(x_hold, dtype=np.float32), device=pod_modes.device)
+    recon_h = fourier_model.apply(params, pod_modes, spec, t=torch.as_tensor(t_hold, device=pod_modes.device))[0]
+    return {
+        "m_train": int(m_train),
+        "m_holdout": h,
+        "train_error": err,
+        "holdout_error": float(losses.relative_frobenius_error(hold, recon_h)),
+        **_forecast_baselines(xd.cpu().numpy(), np.asarray(x_hold)),
+        "per_snapshot_train_error": losses.per_snapshot_relative_error(xd, recon).cpu().numpy().tolist(),
+        "per_snapshot_holdout_error": losses.per_snapshot_relative_error(hold, recon_h).cpu().numpy().tolist(),
+    }
+
+
 def run(
     cfg: configs.RunConfig,
     x: np.ndarray,
@@ -377,8 +495,21 @@ def run(
     live seed, and ``ensemble.json`` and ``term_stability.json`` are
     written. ``ga_single_pass`` is a
     TPU shortcut of the mega-kernel's Gram and is ignored: the port's kernel
-    computes the exact Gram. ``holdout`` (forecasting at held-out times) is
-    not ported yet and raises when set.
+    computes the exact Gram. ``cfg.pod_method`` picks the POD
+    (:func:`compute_pod`). A Fourier config with ``period_multistart > 1``
+    and one seed first probes the candidate periods
+    (:func:`fourier_period_multistart`) through the run's chunk, unless it
+    resumes.
+
+    ``holdout`` (the Fourier variant; a fraction in (0, 0.5)) holds out the
+    last ``holdout`` of the snapshots, trains on the first
+    ``round(m (1 - holdout))``, both windows recentred on the training mean,
+    and scores the trained series at the held-out times
+    (:func:`_fourier_forecast_record`): ``RunArtifacts.forecast`` and
+    ``forecast.json``. A failed forecast leaves a record with its error and
+    the final artifacts are still written; a preempted run skips the
+    scoring. The desmo and AE variants chain the SR forecast, which is not
+    ported yet and raises.
 
     ``resume_from`` (a ``state_*.npz`` of either package) continues that
     run's state for ``num_epochs`` more epochs; with ``n_seeds > 1`` it
@@ -397,10 +528,21 @@ def run(
     term stability, which every rank then holds; only rank 0 writes files
     and prints, and only its POD errors are numbers (NaN on the other
     ranks)."""
+    x_hold = None
     if holdout:
-        raise NotImplementedError(
-            "desmo_tpu_torch does not run holdout forecasting (ROADMAP queue 1, item 4) yet"
-        )
+        if cfg.variant not in ("fourier", "desmo", "ae"):
+            raise ValueError(f"holdout forecasting needs the fourier, desmo or ae variant, got {cfg.variant!r}")
+        if not 0.0 < holdout < 0.5:
+            raise ValueError(f"holdout must be in (0, 0.5), got {holdout}")
+        m_train = int(round(x.shape[1] * (1.0 - holdout)))
+        if m_train < 8 or m_train >= x.shape[1]:
+            raise ValueError(f"holdout {holdout} leaves m_train={m_train} of {x.shape[1]}")
+        if cfg.variant != "fourier":
+            raise NotImplementedError(
+                f"desmo_tpu_torch does not run the {cfg.variant} variant's holdout forecast (the chained SR leg, "
+                "ROADMAP queue 1, item 6) yet"
+            )
+        x, x_hold = split_holdout(x, m_train)
     dev = device_mod.resolve(device if device_mesh is None else device_mesh.device)
     lead = device_mesh is None or device_mesh.rank == 0
     cfg = single_seed_sweep(dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1]))
@@ -415,6 +557,7 @@ def run(
     if device_mesh is None:
         p, p2 = compute_pod(cfg, x, dev)  # the AE variant's error table still has POD's rows
         modes = None if ae else p.modes
+        chunk = None
     else:
         chunk = select_sharded_chunk(spec, cfg, device_mesh) if cfg.n_seeds <= 1 else None
         if lead:
@@ -453,6 +596,13 @@ def run(
         cfg, params, loss_fn = ae_recipe(cfg, spec, params, groups, batch, dev, log)
     elif ae and cfg.ae_omega_data_scaled:
         params = dict(params, omega=ae_model.data_scaled_omega(params, batch["x"]))
+    if device_mesh is None and cfg.n_seeds <= 1:
+        # after the AE recipe, whose config the AE kernel's chunk reads
+        chunk = train_chunk.select_chunk(spec, cfg, dev)
+    if state is None and cfg.variant == "fourier" and cfg.period_multistart > 1 and cfg.n_seeds <= 1:
+        # with n_seeds > 1 ensemble.fit trains the candidates as per-seed inits
+        state = fourier_period_multistart(cfg, params, batch, loss_fn, groups, chunk=chunk, log=log,
+                                          device_mesh=device_mesh)
     if cfg.n_seeds > 1:
         result = run_ensemble(cfg, spec, batch, n_epochs, dev, out_dir, export, log, device_mesh)
     elif device_mesh is not None:
@@ -473,7 +623,7 @@ def run(
             log=log,
             checkpoint_fn=lambda state, epoch: export(state, f"epoch{epoch}"),
             state=state,
-            chunk=train_chunk.select_chunk(spec, cfg, dev),
+            chunk=chunk,
         )
     if logger is not None:
         # a resumed or preempted run has history only for the epochs it ran
@@ -507,9 +657,29 @@ def run(
     )
     if result.preempted:
         # a preemption's grace window is short: write what resumes the run
-        # and skip the rest
+        # and skip the rest, the holdout scoring included
         export(result.state, "final")
         return artifacts
+
+    if x_hold is not None and lead:
+        try:
+            artifacts.forecast = _fourier_forecast_record(
+                result.state.params, batch["pod_modes"], spec, cfg.m, batch["x"], recon, err, x_hold,
+            )
+        except Exception as exc:  # a failed forecast must not cost the run its final artifacts
+            artifacts.forecast = {
+                "m_train": int(cfg.m), "m_holdout": int(x_hold.shape[1]), "train_error": err,
+                "error": f"{type(exc).__name__}: {exc}",
+            }
+        with open(os.path.join(out_dir, "forecast.json"), "w") as fh:
+            json.dump(json_finite(artifacts.forecast), fh, indent=1)
+        if echo:
+            if "error" in artifacts.forecast:
+                print(f"forecast FAILED (final artifacts still saved): {artifacts.forecast['error']}")
+            else:
+                print(f"forecast (trained series at held-out times): trained on {cfg.m} snapshots, held out "
+                      f"{artifacts.forecast['m_holdout']}; train err {err:.6f}, HELD-OUT err "
+                      f"{artifacts.forecast['holdout_error']:.6f} (POD alone cannot forecast unseen times at all)")
 
     artifacts.sweep = sparsify.threshold_sweep(
         result.state.params, batch, spec, log=print if echo else None
@@ -519,3 +689,97 @@ def run(
         artifacts.greedy = sparsify.greedy_prune(result.state.params, batch, spec, log=print if echo else None)
     export(result.state, "final")
     return artifacts
+
+
+@torch.no_grad()
+def evaluate(
+    cfg: configs.RunConfig,
+    x: np.ndarray,
+    checkpoint_path: str,
+    echo: bool = True,
+    *,
+    device: str | torch.device = "cuda",
+    device_mesh=None,
+    figures_dir: Optional[str] = None,
+    forecast_after: Optional[int] = None,
+) -> dict:
+    """Inference from a ``.pt`` checkpoint (the port's, the JAX package's or
+    the reference's) on ``device``, no training: the relative error, the
+    POD baselines and the threshold sweep, as ``desmo_tpu/runner.py:1095``.
+
+    The model is sized from the checkpoint (``checkpoint.infer_spec_dims``,
+    or ``models.autoencoder.infer_spec_dims`` for the AE variant; a Fourier
+    checkpoint's series length gives nF), and the POD is rebuilt with
+    ``cfg.pod_method``, which must be the method the checkpoint was trained
+    under (:func:`compute_pod`). ``forecast_after`` (a Fourier checkpoint
+    trained on the first ``forecast_after`` snapshots of ``x``) scores the
+    series at the held-out times beyond them, both windows recentred on the
+    training mean, and adds a ``forecast`` record. Returns
+    ``{"relative_error", "pod_error_r", "pod_error_2r", "sweep"}``, the sweep
+    as (threshold, error, nonzero terms) tuples.
+
+    Not ported yet, each raising ``NotImplementedError``: ``device_mesh``
+    (ROADMAP queue 1, item 5), ``figures_dir`` and ``forecast_after`` on a
+    desmo or AE checkpoint (item 6)."""
+    if device_mesh is not None:
+        raise NotImplementedError(
+            "desmo_tpu_torch does not run evaluate over a device mesh (ROADMAP queue 1, item 5) yet")
+    if figures_dir is not None:
+        raise NotImplementedError("desmo_tpu_torch does not draw figures (ROADMAP queue 1, item 6) yet")
+    x_hold = None
+    if forecast_after:
+        m_tr = int(forecast_after)
+        if not 1 < m_tr < x.shape[1]:
+            raise ValueError(
+                f"forecast_after={m_tr} must split the series: data has {x.shape[1]} snapshots and the "
+                "held-out window needs >= 1"
+            )
+        if cfg.variant != "fourier":
+            raise NotImplementedError(
+                f"desmo_tpu_torch does not run the {cfg.variant} variant's forecast_after (the chained SR leg, "
+                "ROADMAP queue 1, item 6) yet"
+            )
+        x, x_hold = split_holdout(x, m_tr)
+    dev = device_mod.resolve(device)
+    cfg = dataclasses.replace(cfg, n=x.shape[0], m=x.shape[1])
+    sd = checkpoint.load_pt(checkpoint_path)
+    ae = cfg.variant == "ae"
+    r, poly_order = ae_model.infer_spec_dims(sd) if ae else checkpoint.infer_spec_dims(sd)
+    if (r, poly_order) != (cfg.r, cfg.poly_order):
+        if echo:
+            print(f"checkpoint is r={r}, P={poly_order} (preset {cfg.r}, {cfg.poly_order}) — using checkpoint dims")
+        cfg = dataclasses.replace(cfg, r=r, poly_order=poly_order)
+    if cfg.variant == "fourier" and "z_list.0" in sd:
+        # a channel's series has 2 nF + 1 coefficients
+        nf = (int(sd["z_list.0"].reshape(-1).shape[0]) - 1) // 2
+        if nf != cfg.n_fourier:
+            cfg = dataclasses.replace(cfg, n_fourier=nf)
+    spec = build_model(cfg, dev)[0]
+    params = checkpoint.params_from_state_dict(sd, dev, cfg.variant)
+    # frozen masks pair with the signs of the modes they were trained
+    # against: compute_pod rebuilds the checkpoint's convention
+    p, p2 = compute_pod(cfg, x, dev)
+    batch = prepare_batch(x, None if ae else p.modes, dev)
+    recon = reconstruct(params, batch, spec, cfg.variant)
+    err = float(losses.relative_frobenius_error(batch["x"], recon))
+    err_pod, err_pod2 = pod.pod_relative_error(batch["x"], p), pod.pod_relative_error(batch["x"], p2)
+    if echo:
+        print(f"DESMO error with {cfg.r} modes: {err}")
+        print(f"POD error with {cfg.r} modes: {err_pod}")
+        print(f"POD error with {2 * cfg.r} modes: {err_pod2}")
+    forecast = None
+    if x_hold is not None:
+        forecast = _fourier_forecast_record(params, batch["pod_modes"], spec, cfg.m, batch["x"], recon, err, x_hold)
+        if echo:
+            print(f"forecast: checkpoint trained on {cfg.m} snapshots, held out {forecast['m_holdout']}; train err "
+                  f"{err:.6f}, HELD-OUT err {forecast['holdout_error']:.6f}")
+    sweep = sparsify.threshold_sweep(params, batch, spec, log=print if echo else None)
+    out = {
+        "relative_error": err,
+        "pod_error_r": err_pod,
+        "pod_error_2r": err_pod2,
+        "sweep": [(e.threshold, e.error, e.nonzero_terms) for e in sweep],
+    }
+    if forecast is not None:
+        out["forecast"] = forecast
+    return out

@@ -283,7 +283,10 @@ def fit(
     stops the loop at the next chunk boundary with a final checkpoint and
     ``preempted=True``; one already raised when fit starts stops it before
     the first chunk, the incoming state checkpointed. The request is then
-    cleared. Over ``device_mesh`` the ranks agree on the request at each
+    cleared. A request taken at the last boundary reports ``preempted=True``
+    too, so that a caller with more work to do (the period multi-start's
+    next probe) sees it; ``desmo_tpu.train.fit`` reports it only when epochs
+    are left. Over ``device_mesh`` the ranks agree on the request at each
     boundary by one MAX all-reduce, so that all stop at the same one; every
     rank then passes a ``checkpoint_fn`` (a no-op where it writes nothing),
     so that each joins the gather."""
@@ -325,6 +328,7 @@ def fit(
     end_epoch = start_epoch + num_epochs
     t0 = None  # starts after the first chunk
     first_chunk = 0
+    preempted = False
     done = start_epoch
     while done < end_epoch:
         n = min(chunk_size, end_epoch - done)
@@ -366,6 +370,7 @@ def fit(
                 saved = "final state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
                 log(f"graceful preemption: stopped at epoch {done} (of {end_epoch}); {saved}")
             clear_preemption()  # one request stops one fit
+            preempted = True
             break
     if pending is not None:
         pending.result()
@@ -375,5 +380,5 @@ def fit(
     history = {k: np.concatenate([h[k] for h in histories]) for k in histories[0]}
     return TrainResult(
         state=state, history=history, steps_per_sec=sps, wall_seconds=wall,
-        max_abs_trig_arg=max_abs_trig_arg, preempted=done < end_epoch,
+        max_abs_trig_arg=max_abs_trig_arg, preempted=preempted,
     )

@@ -425,10 +425,12 @@ def test_runner_single_seed_sweeps():
 
 
 def test_period_multistart_needs_seeds(tmp_path):
+    """The period multi-start runs with packed seeds (the candidates as
+    per-seed inits) and, since it was ported, with one seed too (the
+    sequential probes, ``tests/test_torch_forecast.py``)."""
     cfg = dataclasses.replace(configs.get("fourier_cylinder"), n_fourier=3, period_init=20.0, period_multistart=4)
     runner.check_supported(dataclasses.replace(cfg, n_seeds=2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        runner.check_supported(cfg)
+    runner.check_supported(cfg)
 
 
 @pytest.mark.parametrize("argv, want", [

@@ -745,3 +745,79 @@ def test_runner_with_seeds_over_a_one_rank_mesh(cuda, tmp_path):
     assert np.isfinite(art.history["total"]).all() and art.state.params["phi"].shape == (cfg.r, 500)
     assert {"ensemble.json", "term_stability.json", "state_final.npz"} <= {
         p.name for p in (tmp_path / cfg.name).iterdir()}
+
+
+def _decaying(n, m, k=8, seed=0):
+    """Data whose leading singular values are well apart (each mode fixed to
+    rounding up to its sign)."""
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((n, k)))
+    v, _ = np.linalg.qr(rng.standard_normal((m, k)))
+    return ((u * (10.0 * 0.5 ** np.arange(k))) @ v.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("method", ["snapshots", "svd", "randomized"])
+def test_device_pod_on_the_card_matches_the_cpu(cuda, method):
+    """The device POD at cylinder's shape (n=3961, m=1001) with canonical
+    signs: modes within 1e-5 of their largest entry, singular values 1e-5,
+    the same sketch on both devices for 'randomized'; on the card two calls
+    give the same bits, what ``evaluate`` relies on."""
+    x = _decaying(3961, 1001)
+    got = pod.canonical_signs(pod.pod(x, 4, method=method, device=cuda))
+    want = pod.canonical_signs(pod.pod(x, 4, method=method, device="cpu"))
+    assert (got.modes.cpu() - want.modes).abs().max() <= 1e-5 * want.modes.abs().max()
+    assert ((got.singular_values.cpu() - want.singular_values).abs() <= 1e-5 * want.singular_values).all()
+    again = pod.canonical_signs(pod.pod(x, 4, method=method, device=cuda))
+    assert torch.equal(again.modes, got.modes) and torch.equal(again.temporal, got.temporal)
+
+
+def test_evaluate_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``runner.evaluate`` of a Fourier checkpoint with ``forecast_after``
+    at fourier_cylinder's width: the errors, the sweep and the forecast on
+    the card as on the CPU (1e-4 relative, the sweep's counts equal). The
+    errors are norms over 3.2M float32 terms: on the CPU the relative error
+    of these parameters lies 3.1e-5 from the float64 value, on an H100
+    1.5e-7."""
+    cfg = dataclasses.replace(configs.get("fourier_cylinder"), omega_init=1.0)
+    spec = fourier.FourierSpec(cfg.n, 801, cfg.r, cfg.poly_order, 1.0, cfg.n_fourier, 100.0)
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v * (1.0 + 0.1 * torch.randn(v.shape, generator=gen))
+              for k, v in fourier.Fourier(spec).params().items()}
+    pt = str(tmp_path / "f.pt")
+    from desmo_tpu_torch import checkpoint
+
+    checkpoint.save_pt(pt, checkpoint.state_dict_from_params({k: v.detach() for k, v in params.items()}, "fourier"))
+    x = synthetic.cylinder_wake(cfg.n, cfg.m, seed=cfg.seed)
+    got = runner.evaluate(cfg, x, pt, echo=False, device=cuda, forecast_after=801)
+    want = runner.evaluate(cfg, x, pt, echo=False, device="cpu", forecast_after=801)
+    for key in ("relative_error", "pod_error_r", "pod_error_2r"):
+        assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), key
+    for key in ("holdout_error", "train_error", "baseline_last_error"):
+        assert abs(got["forecast"][key] - want["forecast"][key]) <= 1e-4 * abs(want["forecast"][key]), key
+    assert [e[2] for e in got["sweep"]] == [e[2] for e in want["sweep"]]
+
+
+def test_multistart_through_the_kernel_at_m801(cuda):
+    """The period multi-start at fourier_cylinder's width cut by a 0.2
+    holdout (m=801), omega_init=1: the probes through the mega-kernel and
+    through its plain chunk give the same candidates, recs within 2e-4 and
+    the same pick; one launch a probe."""
+    cfg, spec, batch, state = _fourier_problem(cuda, "fourier_cylinder", m=801, omega_init=1.0, lr_omega=1.0,
+                                               period_multistart=4, period_probe_epochs=50)
+    loss_fn = fourier.build_loss(spec, cfg.beta, cfg.l1_lambda, method="fused")
+    groups = fourier.param_groups(state.params)
+    logs = {}
+    for name, chunk in (("kernel", train_chunk.make_chunk(spec, cfg)),
+                        ("plain", lambda s, b, n: train_chunk.train_chunk_plain(s, b, n, spec, cfg))):
+        launches = train_chunk.fused_train_chunk.launches
+        lines = []
+        runner.fourier_period_multistart(cfg, state.params, batch, loss_fn, groups, chunk=chunk, log=lines.append)
+        logs[name] = (lines, train_chunk.fused_train_chunk.launches - launches)
+    (kl, kn), (pl, pn) = logs["kernel"], logs["plain"]
+    assert kn == len(kl) - 1 and pn == 0
+    kc = [ln.split(" -> rec ") for ln in kl[:-1]]
+    pc = [ln.split(" -> rec ") for ln in pl[:-1]]
+    assert [c for c, _ in kc] == [c for c, _ in pc]
+    for (_, a), (_, b) in zip(kc, pc):
+        assert abs(float(a) - float(b)) <= 2e-4 * float(b)
+    assert kl[-1].split(" (rec")[0] == pl[-1].split(" (rec")[0]

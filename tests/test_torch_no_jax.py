@@ -163,3 +163,52 @@ def _cli_run(tmp_path, chunk_method, preset="cylinder", r=4, extra=()):
     files = os.listdir(out_dir / preset)
     assert f"{preset}_r{r}_final.pt" in files and "state_final.npz" in files
     return out_dir / preset
+
+
+def test_cli_evaluate_inspect_pt_and_pod_without_jax(tmp_path):
+    """A Fourier run with the period multi-start, a holdout and the device
+    POD, then ``evaluate --forecast-after`` of its final checkpoint with the
+    same POD method, ``inspect-pt`` and ``pod``, all on the CPU with jax and
+    ``desmo_tpu`` blocked, on a small ``--npz`` (300 rows, 120 snapshots:
+    the probes run ``period_probe_epochs``, 300 each, through the
+    mega-kernel's plain chunk): evaluate reproduces the run's errors and
+    held-out error."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    t = np.arange(120)
+    x = (np.outer(rng.standard_normal(300), np.sin(2 * np.pi * t / 30.0))
+         + np.outer(rng.standard_normal(300), np.cos(2 * np.pi * t / 15.0)))
+    npz = tmp_path / "small.npz"
+    np.savez(npz, X=x.astype(np.float32))
+    out_dir = tmp_path / "runs"
+    pt = out_dir / "fourier_cylinder" / "fourier_cylinder_r2_final.pt"
+    code = (
+        "import io, json, contextlib\n"
+        "from desmo_tpu_torch.__main__ import main\n"
+        "def last(argv):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        assert main(argv) == 0\n"
+        "    return buf.getvalue()\n"
+        f"common = ['--preset', 'fourier_cylinder', '--npz', {str(npz)!r}, '--device', 'cpu', "
+        "'--pod-method', 'snapshots']\n"
+        f"run = json.loads(last(['run', *common, '--epochs', '3', '--period-multistart', '2', '--holdout', '0.2', "
+        f"'--chunk-method', 'megakernel', '--out-dir', {str(out_dir)!r}]).splitlines()[-1])\n"
+        f"ev = json.loads(last(['evaluate', *common, '--checkpoint', {str(pt)!r}, '--forecast-after', '96'])"
+        ".splitlines()[-1])\n"
+        f"listing = last(['inspect-pt', {str(pt)!r}, '--device', 'cpu'])\n"
+        f"pod = json.loads(last(['pod', '--preset', 'cylinder', '--npz', {str(npz)!r}, '--device', 'cpu', "
+        f"'--method', 'randomized', '--save', {str(tmp_path / 'pod.npz')!r}]).splitlines()[-1])\n"
+        "print(json.dumps({'run': run, 'evaluate': ev, 'listing': listing, 'pod': pod}))\n"
+    )
+    proc = _run(code, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    run, ev = got["run"], got["evaluate"]
+    assert run["forecast"]["m_train"] == ev["forecast"]["m_train"] == 96
+    assert ev["relative_error"] == run["relative_error"] and ev["pod_error_r"] == run["pod_error_r"]
+    assert abs(ev["forecast"]["holdout_error"] - run["forecast"]["holdout_error"]) <= 1e-5 * run["forecast"][
+        "holdout_error"]
+    assert "period_list.0" in got["listing"] and "(21,)" in got["listing"]
+    assert got["pod"]["method"] == "randomized" and got["pod"]["rank"] == 4 and os.path.exists(tmp_path / "pod.npz")

@@ -22,7 +22,11 @@ and for 10 then resumed from ``state_epoch10.npz`` for 10 more) and
 ``preempt`` (``train.fit`` of the desmo problem's sharded chunk, 3 chunks of
 10 steps, with a preemption requested on rank 1 alone after the first
 chunk; then resumed from the checkpoint it wrote, against 30 steps
-straight).
+straight) and ``multistart`` (``runner.run`` of the Fourier problem
+``multistart/cfg`` on ``multistart/x`` with its holdout
+``multistart/holdout``: the period multi-start's probes and the holdout
+fit through the sharded chunk, with the multi-start's log lines; started by
+``tests/test_torch_forecast.py``).
 """
 
 import json
@@ -176,6 +180,29 @@ def main() -> int:
             keep("preempt/resumed", resumed.state, {k: torch.as_tensor(v) for k, v in resumed.history.items()})
             straight, _, _ = fit_desmo(inp, mesh, out_dir + "_straight", 30)
             keep("preempt/straight", straight.state, {k: torch.as_tensor(v) for k, v in straight.history.items()})
+        elif task == "multistart":
+            cfg = configs.RunConfig(**json.loads(str(inp["multistart/cfg"])))
+            lines = []
+            probe = runner.fourier_period_multistart
+
+            def logged(*args, **kw):
+                return probe(*args, **{**kw, "log": lines.append})
+
+            runner.fourier_period_multistart = logged
+            try:
+                art = runner.run(cfg, inp["multistart/x"], out_dir=os.path.join(out_dir, "runs_multistart"),
+                                 echo=False, device="cpu", device_mesh=mesh, holdout=float(inp["multistart/holdout"]))
+            finally:
+                runner.fourier_period_multistart = probe
+            out["multistart/log"] = np.array(lines)
+            for k, v in art.history.items():
+                out[f"multistart/history/{k}"] = v
+            for k, v in art.state.params.items():
+                out[f"multistart/params/{k}"] = v.numpy()
+            out["multistart/epoch"] = np.array(art.state.epoch)
+            out["multistart/relative_error"] = np.array(art.relative_error)
+            out["multistart/holdout_error"] = np.array(
+                np.nan if art.forecast is None else art.forecast["holdout_error"])
         else:
             raise SystemExit(f"unknown task {task!r}")
     if any(name.split(".")[0] in ("jax", "jaxlib", "desmo_tpu") for name in sys.modules):
