@@ -1,0 +1,221 @@
+"""The comparison that decides ``correct``: what the program produced,
+against the plain reference (``perfbench/reference/<name>.py``, named by the
+configuration's file).
+
+The program's outputs come in as plain data (``Observed``): X, its POD
+modes, and for each packed seed the states before and after each of the
+set-up's first epochs (dicts in the reference's state format, on the host)
+with the metrics the program reported for them; then what the window left:
+the first epochs of its first launch, checkpoints read back from disk, the
+state the fit returned, the metrics it recorded. Each number below is a gap
+between the program and the reference, held to the cell's limit
+(``perfbench/limits/<cell>.json``):
+
+- ``pod``: the largest gap of the program's POD modes from the reference's,
+  over the largest mode entry (each mode's sign is a convention: the
+  reference's mode takes the program's sign);
+- ``init``: the largest gap of the initial parameters (exact);
+- ``loss``: the largest relative gap of rec, l1 and total, for each of the
+  set-up's first three epochs, each computed by the reference from the
+  program's own state before it (at omega_init=1e4 two float32 orders part
+  after about five epochs, so a reference left to run on its own for long
+  measures that chaos, not the program);
+- ``ortho``: the largest absolute gap of ortho (a sum of |Gram entries| of
+  unit-scale latents that starts at rounding noise);
+- ``grad``: the worst leaf's gap between the norms of the first gradient as
+  the optimizer took it (the program's: its first moment after one step over
+  ``1 - b1``) and the reference's, over the larger of that leaf's reference
+  norm and the median leaf's;
+- ``update``: the worst leaf's gap, by the same measure, between the norms
+  of the parameters' change over the three epochs, the reference's summed
+  from its steps out of the program's states, over the leaves the latents
+  do not depend on; ``update_phi`` the same gap of phi, which they do:
+  phi's first gradient carries ``beta`` times the sign of latent Gram
+  entries that start at rounding noise, so its later Adamax steps differ
+  between two sound float32 orders by as much as TF32 moves the other
+  leaves, and its limit is set against the faults. Leaves whose reference
+  gradient is under a thousandth of the median leaf's are left out (they
+  move by round-off alone);
+- ``launch``: the largest relative gap of rec, l1 and total over the first
+  three epochs of the window's first launch (a launch of the checkpoint
+  cadence's epochs, as every launch of the window), of the seed the fit
+  reports, against the set-up's three one-epoch launches from the same
+  initial state, which ``loss`` holds to the reference step by step; and
+  ``launch_ortho`` the absolute gap of its ortho. The one-epoch launches
+  cannot see a fault in the later epochs of a launch; this can. (The
+  reference run on its own from the initial state cannot judge them: the
+  program parts from it by up to 5e-5 at the third epoch and 3e-3 at the
+  fifth, where this reads 0);
+- ``window_loss``: the relative gap of rec, l1 and total of a state the
+  window checkpointed, against the metrics the window's fit recorded for it
+  (one-seed cells), and ``window_ortho`` the absolute gap of its ortho;
+- ``checkpoint``: the last checkpoint the window wrote, read back, against
+  the state the fit returned, exact.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import statistics
+from typing import Optional
+
+import numpy as np
+import torch
+
+METRICS = ("rec", "ortho", "l1", "total")
+RELATIVE = ("rec", "l1", "total")
+# a leaf whose reference gradient is under this share of the median leaf's
+# moves by round-off alone under Adamax and is left out of ``update``
+STILL_LEAF = 1e-3
+
+
+@dataclasses.dataclass
+class Observed:
+    x: torch.Tensor  # (n, m) float32, the input both sides share
+    modes: torch.Tensor  # (n, r) the program's POD modes
+    states: list  # per seed, [s0, s1, s2, s3] reference-format states
+    metrics: list  # per seed, [m1, m2, m3] dicts of rec, ortho, l1, total
+    # (seed, [metrics of epoch 1, 2, 3]) of the window's first launch
+    launch: list = dataclasses.field(default_factory=list)
+    window: list = dataclasses.field(default_factory=list)  # (state params, metrics dict) pairs
+    checkpoint: Optional[tuple] = None  # (read-back leaves, returned leaves): dicts of arrays
+
+
+def reference_module(name: str):
+    return importlib.import_module(f"perfbench.reference.{name}")
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _loss_gaps(got: dict, want: dict) -> tuple[float, float]:
+    """The largest relative gap of rec, l1 and total, and the absolute gap
+    of ortho."""
+    return max(_rel(float(got[k]), want[k]) for k in RELATIVE), abs(float(got["ortho"]) - want["ortho"])
+
+
+def _norm_gaps(prog: dict, ref: dict, leaves) -> dict:
+    """Each leaf's gap between the norms, over the larger of the leaf's
+    reference norm and the median leaf's."""
+    p = {k: float(torch.linalg.vector_norm(prog[k].double())) for k in leaves}
+    r = {k: float(torch.linalg.vector_norm(ref[k].double())) for k in leaves}
+    med = statistics.median(r.values())
+    return {k: abs(p[k] - r[k]) / max(r[k], med, 1e-30) for k in leaves}
+
+
+def _max_gap(a: dict, b: dict) -> float:
+    gap = 0.0
+    for k in b:
+        va, vb = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        if va.shape != vb.shape:
+            return float("inf")
+        if va.size:
+            with np.errstate(invalid="ignore"):
+                same = (va == vb) | (np.isnan(va) & np.isnan(vb))
+                d = np.where(same, 0.0, np.abs(va - vb))
+            gap = max(gap, float(np.nan_to_num(d, nan=np.inf).max()))
+    return gap
+
+
+def signed_like(modes: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``modes`` with each column's sign that of ``like``'s."""
+    sign = torch.sign(torch.sum(modes * like, dim=0))
+    sign[sign == 0] = 1.0
+    return modes * sign[None, :]
+
+
+def pod_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap between two sets of modes of one sign, over the
+    largest entry of ``want``."""
+    return float(torch.max(torch.abs(got - want)) / torch.max(torch.abs(want)))
+
+
+def compare(obs: Observed, config: dict, hypers: list, reference: str, seed: int, leaves: dict = None) -> dict:
+    """The numbers compared, by name. ``config`` is the configuration's
+    ``run_config``; ``hypers`` each seed's (beta, lambda); ``seed`` the run's
+    seed, from which the reference draws the packed seeds' initial
+    parameters again."""
+    ref = reference_module(reference)
+    ref.full_fp32()
+    x = obs.x
+    n, m = x.shape
+    r = obs.modes.shape[1]
+    inits = ref.seed_params(n, m, r, config["poly_order"], config["omega_init"], len(obs.states), seed,
+                            config["seed_phi_sigma"], "cpu")
+    want = signed_like(ref.pod_modes(x, r), obs.modes)
+    out: dict = {"pod": pod_gap(obs.modes, want)}
+    cfg = {k: config[k] for k in ("poly_order", "patience", "sched_factor", "sched_min_lr", "sched_every")}
+    init_gap = loss_gap = ortho_gap = grad_gap = update_gap = phi_gap = 0.0
+    for s, (states, mets) in enumerate(zip(obs.states, obs.metrics)):
+        beta, lam = hypers[s]
+        init_gap = max(init_gap, _max_gap({k: v.cpu() for k, v in states[0]["params"].items()},
+                                          inits[s]))
+        steps = []
+        for k in range(3):
+            dev_state = _to(states[k], x.device)
+            m_ref, g_ref, nxt = ref.epoch(dev_state, x, want, cfg, beta, lam)
+            lg, og = _loss_gaps(mets[k], m_ref)
+            loss_gap, ortho_gap = max(loss_gap, lg), max(ortho_gap, og)
+            steps.append((dev_state, g_ref, nxt))
+        g0 = steps[0][1]
+        g_prog = {k: states[1]["mu"][k].to(x.device) / (1.0 - ref.B1) for k in ref.LEAVES}
+        grads = _norm_gaps(g_prog, g0, ref.LEAVES)
+        grad_gap = max(grad_gap, max(grads.values()))
+        norms = {k: float(torch.linalg.vector_norm(g0[k].double())) for k in ref.LEAVES}
+        med = statistics.median(norms.values())
+        moving = [k for k in ref.LEAVES if norms[k] >= STILL_LEAF * med]
+        d_prog = {k: states[3]["params"][k].to(x.device) - states[0]["params"][k].to(x.device) for k in moving}
+        d_ref = {k: sum(nxt["params"][k] - st["params"][k] for st, _, nxt in steps) for k in moving}
+        updates = _norm_gaps(d_prog, d_ref, moving)
+        update_gap = max([update_gap] + [v for k, v in updates.items() if k not in ref.LATENT_LEAVES])
+        phi_gap = max([phi_gap] + [v for k, v in updates.items() if k in ref.LATENT_LEAVES])
+        if leaves is not None:
+            for name, gaps in (("grad", grads), ("update", updates)):
+                for k, v in gaps.items():
+                    leaves.setdefault(name, {})[k] = max(leaves.get(name, {}).get(k, 0.0), v)
+    out.update(init=init_gap, loss=loss_gap, ortho=ortho_gap, grad=grad_gap, update=update_gap, update_phi=phi_gap)
+    if obs.launch:
+        lg = og = 0.0
+        for s, got in obs.launch:
+            for mets, setup in zip(got, obs.metrics[s]):
+                a, b = _loss_gaps(mets, {k: float(setup[k]) for k in METRICS})
+                lg, og = max(lg, a), max(og, b)
+        out.update(launch=lg, launch_ortho=og)
+    if obs.window:
+        wl = wo = 0.0
+        for params, mets in obs.window:
+            beta, lam = hypers[0]
+            with torch.no_grad():
+                _, m_ref = ref.loss({k: v.to(x.device) for k, v in params.items()}, x, want,
+                                    cfg["poly_order"], beta, lam)
+            lg, og = _loss_gaps(mets, {k: float(v) for k, v in m_ref.items()})
+            wl, wo = max(wl, lg), max(wo, og)
+        out.update(window_loss=wl, window_ortho=wo)
+    if obs.checkpoint is not None:
+        out["checkpoint"] = _max_gap(*obs.checkpoint)
+    return out
+
+
+def _to(state: dict, device) -> dict:
+    out = dict(state)
+    for tree in ("params", "mu", "nu"):
+        out[tree] = {k: v.to(device) for k, v in state[tree].items()}
+    return out
+
+
+def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:
+    """``correct`` and each number beside its limit. A number the cell has
+    no limit for raises ``KeyError``; a limit for a number not computed
+    fails the run; NaN fails."""
+    compared = {}
+    ok = True
+    for name, limit in limits.items():
+        value = numbers.get(name, float("nan"))
+        compared[name] = {"value": value, "limit": limit}
+        ok = ok and bool(value <= limit)
+    for name in numbers:
+        if name not in limits:
+            raise KeyError(f"no limit for the compared number {name!r}")
+    return ok, compared

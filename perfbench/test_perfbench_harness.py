@@ -1,0 +1,311 @@
+"""The harness on the CPU at a tiny size: cells found by name, a run that
+reads correct, each fault a run can have caught with the timed path broken
+underneath, the control caught, the timeline's readers, the refusals
+(no card, a bare directory, JAX loaded), and one short run on the card."""
+
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+from desmo_tpu_torch.kernels import train_chunk as tc
+from perfbench import control, harness
+from perfbench.timeline import HostSpans, Timeline
+
+ROOT = harness.ROOT
+BENCH = harness.load_benchmark()
+TINY = dict(n=400, m=80, chunk_method="megakernel")
+TINY_TRAFFIC = dict(job_epochs=60, log_every=5, checkpoint_every=10)
+
+
+def tiny_cell(name: str):
+    cell = harness.find_cell(BENCH, name)
+    cell.config["run_config"].update(TINY)
+    cell.traffic.update(TINY_TRAFFIC)
+    return cell
+
+
+def tiny_run(name: str, trace: bool = False, seed: int = 2**31 + 7):
+    return harness.run(tiny_cell(name), seed, 0.5, trace, "cpu", time.perf_counter())
+
+
+def test_every_cell_has_its_files_and_every_metric_a_reader():
+    for w in BENCH["workloads"]:
+        cell = harness.find_cell(BENCH, w["name"])
+        assert cell.chips == 1 and cell.end_to_end and cell.per_layer
+        for m in cell.end_to_end + cell.per_layer:
+            assert callable(harness.reader(m["name"]))
+        assert {"pod", "init", "loss", "ortho", "grad", "update", "update_phi", "launch", "launch_ortho",
+                "checkpoint"} <= set(cell.limits)
+
+
+def _digests(root):
+    out = {}
+    for base, _, files in os.walk(root):
+        for f in files:
+            if "__pycache__" not in base:
+                path = os.path.join(base, f)
+                out[os.path.relpath(path, root)] = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    return out
+
+
+def test_a_cell_added_as_files_is_found_without_editing_one(tmp_path):
+    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digests(tmp_path / "perfbench")
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    pb = tmp_path / "perfbench"
+    conf = json.loads((pb / "configs" / "cylinder.json").read_text())
+    conf["run_config"].update(name="channel", n=16384, m=1000, poly_order=2, beta=1e-6)
+    (pb / "configs" / "channel.json").write_text(json.dumps(conf))
+    (pb / "traffic" / "seeds3.json").write_text(json.dumps(dict(seeds=3, job_epochs=60000, log_every=10,
+                                                                checkpoint_every=2000)))
+    (pb / "limits" / "channel.seeds3.json").write_text((pb / "limits" / "aneurysm.seeds4.json").read_text())
+    (pb / "metrics" / "ensemble.live_seed_pct.py").write_text("def read(run):\n    return 100.0\n")
+    bench["configs"].append(dict(name="channel", source="s", file="perfbench/configs/channel.json", reduced=[],
+                                 why="w"))
+    bench["workloads"].append(dict(name="channel.seeds3", config="channel", traffic="seeds3", chips=1, why="w"))
+    bench["per_layer"].append(dict(name="ensemble.live_seed_pct", unit="%", better="higher", source="program_counter",
+                                   layer="ensemble", moves="train_steps_per_s", workloads=["channel.seeds3"]))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = harness.find_cell(bench, "channel.seeds3", tmp_path)
+    assert cell.traffic["seeds"] == 3 and cell.config["run_config"]["n"] == 16384
+    assert [m["name"] for m in cell.per_layer][-1] == "ensemble.live_seed_pct"
+    assert harness.reader("ensemble.live_seed_pct", tmp_path)(None) == 100.0
+    assert "ensemble.live_seed_pct" not in [m["name"] for m in harness.find_cell(bench, "cylinder.one_seed",
+                                                                                 tmp_path).per_layer]
+    after = _digests(pb)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+@pytest.mark.parametrize("name", ["cylinder.one_seed", "aneurysm.seeds4"])
+def test_a_run_on_the_cpu_reads_correct(name):
+    out = tiny_run(name)
+    assert out["correct"] is True, out["compared"]
+    assert set(out["metrics"]) == {"train_steps_per_s", "setup_s"}
+    assert out["attempted"] > 0 and out["failed"] == 0
+    assert list(out)[-1] == "compared"
+    assert all(v["value"] <= v["limit"] for v in out["compared"].values())
+
+
+def test_a_traced_run_reads_the_per_layer_metrics_it_finds():
+    out = tiny_run("cylinder.one_seed", trace=True)
+    assert out["correct"] is True
+    # no device on the CPU: only the host-clock readings are there
+    assert set(out["metrics"]) == {"step.mfu", "setup.pod_s"}
+    assert out["device"]["window_s"] > 0 and "breakdown" in out
+
+
+def _unchanged(real):
+    def chunk(state, batch, num_steps, spec, cfg, betas=None, lams=None):
+        _, mets = real(state, batch, num_steps, spec, cfg, betas, lams)
+        return state, mets
+
+    return chunk
+
+
+def _half_rows(real):
+    def chunk(state, batch, num_steps, spec, cfg, betas=None, lams=None):
+        h = batch["x"].shape[0] // 2
+        part = {"x": batch["x"][:h].contiguous(), "pod_modes": batch["pod_modes"][:h].contiguous()}
+        part["x_sq"] = torch.sum(part["x"] * part["x"])
+
+        def rows(tree):
+            return dict(tree, phi=tree["phi"][..., :h].contiguous())
+
+        half = dataclasses.replace(state, params=rows(state.params), mu=rows(state.mu), nu=rows(state.nu))
+        out, mets = real(half, part, num_steps, spec, cfg, betas, lams)
+
+        def back(new, old):
+            return dict(new, phi=torch.cat([new["phi"], old["phi"][..., h:]], dim=-1))
+
+        return dataclasses.replace(out, params=back(out.params, state.params), mu=back(out.mu, state.mu),
+                                   nu=back(out.nu, state.nu)), mets
+
+    return chunk
+
+
+def _later(real):
+    """Sound in a launch of one epoch; on half the rows from the second epoch
+    of a longer launch on."""
+    half = _half_rows(real)
+
+    def chunk(state, batch, num_steps, spec, cfg, betas=None, lams=None):
+        state, first = real(state, batch, 1, spec, cfg, betas, lams)
+        if num_steps == 1:
+            return state, first
+        state, rest = half(state, batch, num_steps - 1, spec, cfg, betas, lams)
+        return state, {k: torch.cat([first[k], rest[k]]) for k in first}
+
+    return chunk
+
+
+def _moments_dropped(real):
+    """Sound in a launch of one epoch; the optimizer's moments dropped after
+    the first epoch of a longer launch."""
+
+    def chunk(state, batch, num_steps, spec, cfg, betas=None, lams=None):
+        state, first = real(state, batch, 1, spec, cfg, betas, lams)
+        if num_steps == 1:
+            return state, first
+        zero = {k: torch.zeros_like(v) for k, v in state.mu.items()}
+        state = dataclasses.replace(state, mu=zero, nu=dict(zero))
+        state, rest = real(state, batch, num_steps - 1, spec, cfg, betas, lams)
+        return state, {k: torch.cat([first[k], rest[k]]) for k in first}
+
+    return chunk
+
+
+@pytest.mark.parametrize("name", ["cylinder.one_seed", "aneurysm.seeds4"])
+@pytest.mark.parametrize("fault", [_unchanged, _half_rows, _later, _moments_dropped])
+def test_a_fault_under_the_timed_path_reads_not_correct(monkeypatch, name, fault):
+    monkeypatch.setattr(tc, "train_chunk_plain_packed", fault(tc.train_chunk_plain_packed))
+    out = tiny_run(name)
+    assert out["correct"] is False
+    assert any(v["value"] > v["limit"] for v in out["compared"].values())
+
+
+@pytest.mark.parametrize("name", ["cylinder.one_seed", "aneurysm.seeds4"])
+def test_the_control_and_the_faults_in_the_programs_place_read_not_correct(name):
+    """The reference in TF32 (the control), trained on half the rows (from
+    the first epoch, or from a launch's second), with its moments dropped
+    after a launch's first epoch, or returning its state unchanged, in the
+    program's place, fails the cell's limits."""
+    cell = tiny_cell(name)
+    _, window, _ = control.program_numbers(cell, 5, "cpu")
+    for side in ("control", "half", "later", "moments", "unchanged"):
+        numbers = control.side_numbers(cell, 5, side, "cpu", window)
+        numbers.pop("leaves")
+        limits = {k: v for k, v in cell.limits.items() if k in numbers}
+        ok, _ = harness.check.judge(numbers, limits)
+        assert not ok, (side, numbers)
+
+
+def test_timeline_readers():
+    """A window of 1 s with two mega-kernel launches, a copy between them and
+    the host in ``log`` (two calls, one burst) and ``chunk``, its spans on
+    the host clock 100 s ahead of the trace's."""
+    us = 1e6
+
+    def ev(cat, name, t0, t1):
+        return {"ph": "X", "cat": cat, "name": name, "ts": t0 * us, "dur": (t1 - t0) * us}
+
+    events = [
+        ev("user_annotation", "perfbench.window", 0.0, 1.0),
+        ev("kernel", "void train_chunk_kernel<48, false>(Params)", 0.1, 0.4),
+        ev("gpu_memcpy", "Memcpy DtoH", 0.4, 0.41),
+        ev("kernel", "void train_chunk_kernel<48, false>(Params)", 0.45, 0.8),
+        ev("cpu_op", "aten::stack", 0.0, 0.01),
+    ]
+    host = HostSpans()
+    host.items += [("fit", 100.0, 101.0, 1), ("chunk", 100.05, 100.1, 1), ("log", 100.41, 100.42, 1),
+                   ("log", 100.42002, 100.44, 1), ("checkpoint_fn", 100.81, 100.9, 2)]
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"timeline_{os.getpid()}.json")
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": events}, fh)
+    try:
+        tl = Timeline.load(path, host, anchor=100.0)
+    finally:
+        os.unlink(path)
+    lo, hi = tl.window_span
+    assert (lo, hi) == (0.0, 1.0)
+    assert [s[2] for s in tl.spans].count("log") == 1
+    assert tl.busy(lo, hi) == pytest.approx(0.66)
+    run = harness.Run(setup_s=1.0, window_s=1.0, seed_epochs=4000, seeds=1, least_epoch_s=1e-6,
+                      setup_spans={"pod": 0.5}, timeline=tl, trace_window=(lo, hi))
+    assert harness.reader("fit.boundary_ms")(run) == pytest.approx(40.0)
+    assert harness.reader("device.idle_pct")(run) == pytest.approx(34.0)
+    assert harness.reader("megakernel_roofline")(run) == pytest.approx(100 * 4000e-6 / 0.65)
+    assert harness.reader("step.mfu")(run) == pytest.approx(100 * 4000e-6)
+    assert harness.reader("setup.pod_s")(run) == 0.5
+    assert harness.reader("train_steps_per_s")(run) == 4000.0
+    br = tl.breakdown(lo, hi)
+    assert br["device_ops"][0] == ["void train_chunk_kernel<48, false>(Params)", pytest.approx(0.65)]
+    assert br["idle_gaps"][0] == ["checkpoint_fn", pytest.approx(0.2)]
+    assert br["idle_gaps"][1] == ["chunk", pytest.approx(0.1)]
+    assert br["idle_gaps"][2] == ["log", pytest.approx(0.04)]
+    assert tl.idle_by_host(lo, hi) == pytest.approx({"checkpoint_fn": 0.2, "chunk": 0.1, "log": 0.04})
+
+
+def _run_py(cwd, *args):
+    return subprocess.run([sys.executable, "perfbench/run.py", *args], cwd=str(cwd), capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def test_no_card_exits_nonzero_without_a_result():
+    out = _run_py(ROOT, "--workload", "cylinder.one_seed", "--seed", "1", "--seconds", "1", "--trace", "0")
+    assert out.returncode != 0 and '"correct"' not in out.stdout
+    assert "needs 1 CUDA card" in out.stderr
+
+
+def test_a_bare_directory_exits_nonzero_without_a_result(tmp_path):
+    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    code = ("import sys, time; sys.path.insert(0, '.'); from perfbench import harness; "
+            "cell = harness.find_cell(harness.load_benchmark(), 'cylinder.one_seed'); "
+            "harness.run(cell, 1, 0.5, False, 'cpu', time.perf_counter())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode != 0 and "desmo_tpu_torch" in out.stderr and '"correct"' not in out.stdout
+
+
+_BLOCK = """
+import sys
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "desmo_tpu"):
+            raise ModuleNotFoundError(f"blocked in this process: {name}")
+        return None
+sys.meta_path.insert(0, _NoJax())
+"""
+
+
+def test_nothing_the_harness_runs_imports_jax(tmp_path):
+    """Every module of the harness, every metric's reader and a whole tiny
+    run, in a process whose import system refuses jax, jaxlib, flax and the
+    JAX package by whole top-level name (so that desmo_tpu_torch passes)."""
+    code = _BLOCK + f"""
+import importlib, time
+sys.path.insert(0, {str(ROOT)!r})
+for name in ("perfbench.run", "perfbench.harness", "perfbench.check", "perfbench.control", "perfbench.roofline",
+             "perfbench.timeline", "perfbench.synthetic", "perfbench.reference.desmo"):
+    importlib.import_module(name)
+from perfbench import harness
+bench = harness.load_benchmark()
+for m in bench["end_to_end"] + bench["per_layer"]:
+    harness.reader(m["name"])
+cell = harness.find_cell(bench, "cylinder.one_seed")
+cell.config["run_config"].update({TINY!r})
+cell.traffic.update({TINY_TRAFFIC!r})
+out = harness.run(cell, 3, 0.3, False, "cpu", time.perf_counter())
+assert out["correct"], out
+assert harness.forbidden_modules() == [], harness.forbidden_modules()
+sys.modules["jaxlib_extra"] = sys
+assert harness.forbidden_modules() == []
+sys.modules["jax.numpy"] = sys
+assert harness.forbidden_modules() == ["jax"]
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.gpu
+def test_a_short_run_on_the_card_reads_correct():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = subprocess.run([sys.executable, "perfbench/run.py", "--workload", "cylinder.one_seed", "--seed", "5",
+                          "--seconds", "3", "--trace", "1"], cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=1200)
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"] is True and result["device"]["platform"] == "gpu"
+    assert {"fit.boundary_ms", "device.idle_pct", "megakernel_roofline", "step.mfu"} <= set(result["metrics"])
