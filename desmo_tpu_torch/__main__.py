@@ -14,6 +14,7 @@
     python -m desmo_tpu_torch run --preset cylinder --synthetic --resume runs/cylinder/state_epoch2000.npz
     python -m desmo_tpu_torch run --preset fourier_cylinder --synthetic --period-multistart 4 --holdout 0.2
     python -m desmo_tpu_torch run --preset cylinder --synthetic --pod-method snapshots
+    python -m desmo_tpu_torch run --preset cylinder --synthetic --epochs 10000 --profile runs/profile
     python -m desmo_tpu_torch evaluate --preset fourier_cylinder --synthetic \
         --checkpoint runs/fourier_cylinder/fourier_cylinder_r2_final.pt --forecast-after 801
     python -m desmo_tpu_torch inspect-pt runs/cylinder/cylinder_r4_final.pt
@@ -44,6 +45,10 @@ rest (``forecast.json``, and ``forecast`` in the summary);
 signs) or on the device (``snapshots``, ``svd``, ``randomized``, under a
 canonical sign convention): evaluate a checkpoint with the method it was
 trained under.
+
+``--profile DIR`` runs the job under ``torch.profiler`` and writes its
+Chrome trace (``DIR/trace.json``, the program's spans as ranges) and the
+spans and counters of ``profiling`` (``DIR/spans.json``).
 
 ``evaluate`` runs inference from a ``.pt`` checkpoint (the errors, the POD
 baselines and the threshold sweep; ``--forecast-after M`` scores a Fourier
@@ -96,6 +101,35 @@ def _parse_mesh(spec_str, device):
             )
         axes[name] = int(val)
     return make_mesh(n_space=axes["space"], n_time=axes["time"], device=device)
+
+
+def _profiled(job, out: str, device: str, rank: int = 0):
+    """``job()`` under ``torch.profiler``; writes its Chrome trace, which
+    holds the program's spans (``profiling``), to ``out/trace.json`` and the
+    spans and counters to ``out/spans.json`` (``.rank<r>`` before the suffix
+    on ranks other than 0)."""
+    import os
+
+    import torch
+
+    from desmo_tpu_torch import profiling
+
+    os.makedirs(out, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if str(device).startswith("cuda"):
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    tag = "" if rank == 0 else f".rank{rank}"
+    try:  # the checkpoint worker's spans too, where this torch can record other threads
+        extra = {"experimental_config": torch._C._profiler._ExperimentalConfig(profile_all_threads=True)}
+    except (AttributeError, TypeError):
+        extra = {}
+    profiling.reset()
+    with torch.profiler.profile(activities=activities, **extra) as prof:
+        result = job()
+    prof.export_chrome_trace(os.path.join(out, f"trace{tag}.json"))
+    with open(os.path.join(out, f"spans{tag}.json"), "w") as fh:
+        json.dump(profiling.as_json(), fh)
+    return result
 
 
 def cmd_run(args) -> int:
@@ -155,8 +189,12 @@ def cmd_run(args) -> int:
         synthetic=args.synthetic,
         dim=args.dim,
     )
-    artifacts = runner.run(cfg, x, out_dir=args.out_dir, device=args.device, device_mesh=device_mesh,
-                           resume_from=args.resume, holdout=args.holdout or 0.0)
+    def job():
+        return runner.run(cfg, x, out_dir=args.out_dir, device=args.device, device_mesh=device_mesh,
+                          resume_from=args.resume, holdout=args.holdout or 0.0)
+
+    rank = 0 if device_mesh is None else device_mesh.rank
+    artifacts = _profiled(job, args.profile, args.device, rank) if args.profile else job()
     if device_mesh is not None and device_mesh.rank != 0:
         return 0
     summary = {
@@ -290,6 +328,11 @@ def main(argv=None) -> int:
     p_run.add_argument("--epochs", type=int, default=None, help="override preset epochs")
     p_run.add_argument("--out-dir", default="./runs")
     p_run.add_argument("--resume", default=None, help="state_*.npz checkpoint to resume")
+    p_run.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="run under torch.profiler: DIR/trace.json (Chrome trace, the program's spans included) and "
+        "DIR/spans.json (the spans and counters of desmo_tpu_torch.profiling)",
+    )
     p_run.add_argument(
         "--mesh", default=None, metavar="SPEC",
         help="space=d: shard the rows over d processes, one per device (torchrun --nproc-per-node d; "

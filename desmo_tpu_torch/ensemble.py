@@ -33,7 +33,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from desmo_tpu_torch import library, optim, parallel, sparsify, train
+from desmo_tpu_torch import library, optim, parallel, profiling, sparsify, train
 from desmo_tpu_torch.configs import GROUP_ORDER, RunConfig
 from desmo_tpu_torch.kernels import dual_gemm
 from desmo_tpu_torch.kernels import train_chunk as tc
@@ -383,6 +383,7 @@ def _fetch(mets: dict) -> dict:
     return out
 
 
+@profiling.traced("fit")
 def fit(
     cfg: RunConfig,
     spec,
@@ -432,6 +433,12 @@ def fit(
     group always runs, so that there is a best seed); the result then has
     ``preempted=True`` and the request is cleared. Over ``device_mesh`` the
     ranks agree on the request by one MAX all-reduce.
+
+    The call is span ``fit``, with ``train.fit``'s spans at each boundary
+    and ``fit.init`` (a group's init), ``fit.snapshot`` (the boundary's
+    copy for a rollback) and ``fit.rollback``; counters
+    ``ensemble.rollbacks``, ``ensemble.frozen_seeds`` and ``ckpt.writes``
+    (``profiling``).
 
     ``device_mesh`` (``parallel.make_mesh``) shards the rows over its ranks:
     ``batch`` is whole on every rank and each group's init is drawn whole and
@@ -503,87 +510,101 @@ def fit(
         sl = slice(start, start + S)
         betas, lams, scales = (None, None, None) if hypers is None else (
             hypers["betas"][sl], hypers["lams"][sl], hypers["lr_scales"][sl])
-        group_periods = [periods[(start + s) % len(periods)] for s in range(S)] if periods is not None else None
-        params = init_params(spec, S, seed=seed + gi, phi_sigma=phi_sigma, omega_spread=omega_spread,
-                             periods=group_periods)
-        if start > 0:
-            # only global seed 0 keeps the reference init: later groups jitter
-            # their member 0 too
-            g_phi, g_omega = _generators(seed + 1000 + gi)
-            params["phi"][0] *= 1.0 + phi_sigma * torch.randn((spec.r, spec.n), generator=g_phi)
-            if omega_spread > 0.0:
-                u = torch.rand((3, spec.r), generator=g_omega)
-                params["omega"][0] *= 10.0 ** ((2.0 * u - 1.0) * omega_spread)
-        params = {k: v.to(device) for k, v in params.items()}
-        if device_mesh is not None:
-            for t in params.values():  # rank 0's draws, so that the ranks cannot drift apart
-                device_mesh.broadcast(t)
-        key = (S, None if betas is None else tuple(map(float, betas)), None if lams is None else tuple(map(float, lams)))
-        if key not in chunk_cache:
-            chunk = tc.select_ensemble_chunk(spec, cfg, S, device, betas=betas, lams=lams, device_mesh=device_mesh)
-            if chunk is None and device_mesh is not None:
-                raise NotImplementedError(
-                    f"desmo_tpu_torch does not run the packed eager loop over a device mesh (chunk_method="
-                    f"{cfg.chunk_method!r}, loss_method={cfg.loss_method!r}, {S} seeds of preset {cfg.name!r}) yet "
-                    "(ROADMAP queue 1, item 5.2: the eager path over a mesh)"
-                )
-            chunk_cache[key] = chunk or make_ensemble_chunk(
-                build_loss(spec, cfg, S, method=method, betas=betas, lams=lams), groups, cfg, S)
-        chunk = chunk_cache[key]
-        state = init_state(params, cfg, S, lr_scales=scales)
-        if device_mesh is not None:
-            state = parallel.local_state(state, device_mesh)
+        with profiling.span("fit.init"):
+            group_periods = [periods[(start + s) % len(periods)] for s in range(S)] if periods is not None else None
+            params = init_params(spec, S, seed=seed + gi, phi_sigma=phi_sigma, omega_spread=omega_spread,
+                                 periods=group_periods)
+            if start > 0:
+                # only global seed 0 keeps the reference init: later groups jitter
+                # their member 0 too
+                g_phi, g_omega = _generators(seed + 1000 + gi)
+                params["phi"][0] *= 1.0 + phi_sigma * torch.randn((spec.r, spec.n), generator=g_phi)
+                if omega_spread > 0.0:
+                    u = torch.rand((3, spec.r), generator=g_omega)
+                    params["omega"][0] *= 10.0 ** ((2.0 * u - 1.0) * omega_spread)
+            params = {k: v.to(device) for k, v in params.items()}
+            if device_mesh is not None:
+                for t in params.values():  # rank 0's draws, so that the ranks cannot drift apart
+                    device_mesh.broadcast(t)
+            key = (S, None if betas is None else tuple(map(float, betas)), None if lams is None else tuple(map(float, lams)))
+            if key not in chunk_cache:
+                chunk = tc.select_ensemble_chunk(spec, cfg, S, device, betas=betas, lams=lams, device_mesh=device_mesh)
+                if chunk is None and device_mesh is not None:
+                    raise NotImplementedError(
+                        f"desmo_tpu_torch does not run the packed eager loop over a device mesh (chunk_method="
+                        f"{cfg.chunk_method!r}, loss_method={cfg.loss_method!r}, {S} seeds of preset {cfg.name!r}) yet "
+                        "(ROADMAP queue 1, item 5.2: the eager path over a mesh)"
+                    )
+                chunk_cache[key] = chunk or make_ensemble_chunk(
+                    build_loss(spec, cfg, S, method=method, betas=betas, lams=lams), groups, cfg, S)
+            chunk = chunk_cache[key]
+            state = init_state(params, cfg, S, lr_scales=scales)
+            if device_mesh is not None:
+                state = parallel.local_state(state, device_mesh)
         chunk_size = min(cfg.checkpoint_every, num_epochs)
         done = recoveries = 0
         histories = []
         frozen = np.zeros(S, bool)
-        snap = _snapshot(state)
+        with profiling.span("fit.snapshot"):
+            snap = _snapshot(state)
         while done < num_epochs:
             nsteps = min(chunk_size, num_epochs - done)
             t_chunk = time.perf_counter()
-            state, mets = chunk(state, local_batch, nsteps)
-            mets = _fetch(mets)
-            dt = time.perf_counter() - t_chunk
-            if id(chunk) in warmed:
-                wall += dt
-                steps_timed += nsteps * S  # seed-steps
-            else:
-                warmed.add(id(chunk))
-            mets.pop("max_arg", None)
-            tot_s = mets["total_s"]
-            if not np.isfinite(tot_s).all():
+            with profiling.span("fit.launch"):
+                state, mets = chunk(state, local_batch, nsteps)
+            with profiling.span("fit.fetch"):
+                mets = _fetch(mets)
+                dt = time.perf_counter() - t_chunk
+                if id(chunk) in warmed:
+                    wall += dt
+                    steps_timed += nsteps * S  # seed-steps
+                else:
+                    warmed.add(id(chunk))
+                mets.pop("max_arg", None)
+                tot_s = mets["total_s"]
+                finite = np.isfinite(tot_s).all()
+                if finite:
+                    histories.append(mets)
+            if not finite:
                 # a diverged seed is blamed at the first bad step; roll back,
                 # freeze the originators and re-run with the survivors
-                first_bad = int(np.argmin(np.isfinite(tot_s).all(axis=1)))
-                originators = ~np.isfinite(tot_s[first_bad])
-                recoveries += 1
-                if not (originators & ~frozen).any():
-                    originators = np.ones(S, bool)  # unattributable
-                if (frozen | originators).all() or recoveries > max_recoveries:
-                    why = " (recovery limit reached)" if recoveries > max_recoveries else " (every seed diverged)"
-                    raise FloatingPointError(f"non-finite ensemble loss at epoch {done + first_bad}{why}")
-                frozen |= originators
-                if log is not None:
-                    log(f"WARNING: seed(s) {(start + np.nonzero(originators)[0]).tolist()} diverged at epoch "
-                        f"{done + first_bad}; rolling back to epoch {done} and freezing them "
-                        f"({int((~frozen).sum())} live seeds continue)")
-                state = _restore_with_frozen(snap, frozen)
+                with profiling.span("fit.rollback"):
+                    first_bad = int(np.argmin(np.isfinite(tot_s).all(axis=1)))
+                    originators = ~np.isfinite(tot_s[first_bad])
+                    recoveries += 1
+                    if not (originators & ~frozen).any():
+                        originators = np.ones(S, bool)  # unattributable
+                    if (frozen | originators).all() or recoveries > max_recoveries:
+                        why = " (recovery limit reached)" if recoveries > max_recoveries else " (every seed diverged)"
+                        raise FloatingPointError(f"non-finite ensemble loss at epoch {done + first_bad}{why}")
+                    profiling.count("ensemble.rollbacks")
+                    profiling.count("ensemble.frozen_seeds", int((originators & ~frozen).sum()))
+                    frozen |= originators
+                    if log is not None:
+                        log(f"WARNING: seed(s) {(start + np.nonzero(originators)[0]).tolist()} diverged at epoch "
+                            f"{done + first_bad}; rolling back to epoch {done} and freezing them "
+                            f"({int((~frozen).sum())} live seeds continue)")
+                    state = _restore_with_frozen(snap, frozen)
                 continue
-            histories.append(mets)
             done += nsteps
-            snap = _snapshot(state)
+            with profiling.span("fit.snapshot"):
+                snap = _snapshot(state)
             if checkpoint_fn is not None:
-                # under a sweep the best live seed is the one of lowest rec
-                live = np.where(frozen, np.inf, (mets["rec"] if hypers is not None else tot_s)[-1])
-                checkpoint_fn(whole(seed_state(state, cfg, int(np.argmin(live)))), int(state.epoch))
+                with profiling.span("fit.checkpoint"):
+                    # under a sweep the best live seed is the one of lowest rec
+                    live = np.where(frozen, np.inf, (mets["rec"] if hypers is not None else tot_s)[-1])
+                    checkpoint_fn(whole(seed_state(state, cfg, int(np.argmin(live)))), int(state.epoch))
+                profiling.count("ckpt.writes")
             if log is not None and (done % max(cfg.log_every, nsteps) == 0 or done == num_epochs):
-                log(f"[ensemble group {gi}] epoch {done}/{num_epochs} per-seed total: "
-                    f"{np.array2string(mets['total_s'][-1], precision=6)}")
+                with profiling.span("fit.log"):
+                    log(f"[ensemble group {gi}] epoch {done}/{num_epochs} per-seed total: "
+                        f"{np.array2string(mets['total_s'][-1], precision=6)}")
             if train.preemption_agreed(device_mesh):
                 # the checkpoint above saved the group's best live seed
                 preempted = True
                 if log is not None:
-                    log(f"graceful preemption: group {gi} stopped at epoch {done} (of {num_epochs})")
+                    with profiling.span("fit.log"):
+                        log(f"graceful preemption: group {gi} stopped at epoch {done} (of {num_epochs})")
                 break
         finals = np.where(frozen, np.inf, histories[-1]["total_s"][-1])
         recs = np.where(frozen, np.inf, histories[-1]["rec"][-1])
@@ -607,12 +628,13 @@ def fit(
     final_totals = np.asarray([r[0] for r in sorted(results, key=lambda r: r[2])])
     best_total, best_sel, best_global, best_state, best_local, best_hist = min(results, key=lambda r: (r[1], r[0]))
     if log is not None:
-        by = f"rec {best_sel:.8f}, " if hypers is not None else ""
-        log(f"[ensemble] best seed = {best_global} ({by}total {best_total:.8f}; all: "
-            f"{np.array2string(final_totals, precision=6)})")
-        if hypers is not None:
-            log(f"[ensemble] winning hypers: beta={hypers['betas'][best_global]:g} "
-                f"l1_lambda={hypers['lams'][best_global]:g} lr_scale={hypers['lr_scales'][best_global]:g}")
+        with profiling.span("fit.log"):
+            by = f"rec {best_sel:.8f}, " if hypers is not None else ""
+            log(f"[ensemble] best seed = {best_global} ({by}total {best_total:.8f}; all: "
+                f"{np.array2string(final_totals, precision=6)})")
+            if hypers is not None:
+                log(f"[ensemble] winning hypers: beta={hypers['betas'][best_global]:g} "
+                    f"l1_lambda={hypers['lams'][best_global]:g} lr_scale={hypers['lr_scales'][best_global]:g}")
     history = {
         "rec": best_hist["rec"][:, best_local],
         "ortho": best_hist["ortho"][:, best_local],
@@ -621,7 +643,6 @@ def fit(
     }
     sps = steps_timed / wall if wall > 0 and steps_timed else float("nan")
     result = train.TrainResult(
-        state=seed_state(best_state, cfg, best_local), history=history, steps_per_sec=sps, wall_seconds=wall,
-        preempted=preempted,
+        state=seed_state(best_state, cfg, best_local), history=history, steps_per_sec=sps, preempted=preempted,
     )
     return result, best_global, final_totals

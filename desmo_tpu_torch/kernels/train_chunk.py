@@ -63,12 +63,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
 
 from desmo_tpu_torch import device as device_mod
-from desmo_tpu_torch import library, optim
+from desmo_tpu_torch import library, optim, profiling
 from desmo_tpu_torch.kernels import _build, ae_chunk
 from desmo_tpu_torch.kernels._chunk_optim import (
     _BEST, _BETA, _LAM, _LR0, _NUMBAD, _POW, B1, SVEC, _adamax_, sched_step_,
@@ -427,7 +428,8 @@ def train_chunk_plain_packed(state: TrainState, batch: dict, num_steps: int, spe
     :func:`fused_ensemble_chunk`."""
     device_mod.fp32_matmul()
     S = state.params["phi"].shape[0]
-    cs = pack_seeds(state, *seed_hypers(cfg, S, betas, lams))
+    with profiling.span("chunk.pack"):
+        cs = pack_seeds(state, *seed_hypers(cfg, S, betas, lams))
     x, pod, x_sq = batch["x"], batch["pod_modes"], batch["x_sq"]
     n, m = x.shape
     r, P = spec.r, spec.poly_order
@@ -450,68 +452,70 @@ def train_chunk_plain_packed(state: TrainState, batch: dict, num_steps: int, spe
     sv = cs.svec
     beta, lam = sv[:, _BETA], sv[:, _LAM]
     rows, maxargs = [], []
-    for _ in range(num_steps):
-        # forward of the generation-s parameters
-        if cs.series is not None:
-            flat, harmonics, th_b = series_forward(zc.reshape(S * K, nc), per.reshape(-1), tw)
-            bm = flat.view(S, K, m)
-        lat = pod[None] * phi.transpose(1, 2)  # (S, n, r)
-        gathered = torch.cat([ones, lat], dim=2)[:, :, F]  # (S, n, T, P)
-        theta = gathered[..., 0]
-        for p in range(1, P):
-            theta = theta * gathered[..., p]
-        lat3 = lat.repeat(1, 1, 3)  # column k*r + j holds lat_j
-        args = lat3 * om[:, None, :]
-        a_sin, a_cos, a_tanh = args[..., :r], args[..., r:2 * r], args[..., 2 * r:]
-        th = torch.tanh(a_tanh)
-        D = torch.cat([theta, torch.sin(a_sin), torch.cos(a_cos), th], dim=2)  # (S, n, K)
-        A = D * c[:, None, :]
-        # contractions, each over the seed's own block, as one 2-D product
-        # per seed (on the GPU cuBLAS's batched products of these shapes
-        # part from the 2-D ones by about 1e-5 of rec)
-        gb, xb, ax, ga, latg = (torch.stack(t) for t in zip(*(
-            (bm[s] @ bm[s].T, x @ bm[s].T, A[s].T @ x, A[s].T @ A[s], lat[s].T @ lat[s]) for s in range(S))))
-        # gradients
-        dA = (2.0 / nm) * (A @ gb - xb)
-        dD = dA * c[:, None, :]
-        g_coef = (dA * D).sum(1) + lam[:, None] * torch.sign(c)
-        darg = dD[..., T:] * torch.cat([torch.cos(a_sin), -torch.sin(a_cos), 1.0 - th * th], dim=2)
-        g_om = (darg * lat3).sum(1)
-        dl = (darg * om[:, None, :]).view(S, n, 3, r).sum(2)
-        dl_aug = torch.zeros((S, n, r + 1), dtype=torch.float32, device=x.device)
-        for p in range(P):  # product rule: d theta_t / d aug_F[t,p] = prod_{q != p} aug_F[t,q]
-            others = dD[..., :T]
-            for q in range(P):
-                if q != p:
-                    others = others * gathered[..., q]
-            dl_aug.index_add_(2, F[:, p], others)
-        dl = dl + dl_aug[..., 1:]
-        ortho_dir = lat @ (torch.sign(latg) * offdiag)
-        g_phi = ((dl + beta[:, None, None] * ortho_dir) * pod[None]).transpose(1, 2)
-        g_b = (2.0 / nm) * (ga @ bm - ax)
-        # metrics of the pre-update parameters, per seed
-        rec = (torch.sum(ga * gb, (1, 2)) - 2.0 * torch.sum(ax * bm, (1, 2)) + x_sq) / nm
-        ortho = 0.5 * torch.sum(torch.abs(latg * offdiag), (1, 2))
-        l1 = torch.sum(torch.abs(c), 1)
-        total = rec + beta * ortho + lam * l1
-        rows.append(torch.stack([rec, ortho, l1, total], dim=1))
-        maxargs.append(torch.max(torch.abs(args)))
-        # Adamax with each seed's LRs in force before this step's scheduler step
-        powb = sv[0, _POW] * B1
-        bias = 1.0 - powb
-        lrs = sv[:, _LR0:_LR0 + 5].clone()
-        _adamax_(c, c_mu, c_nu, g_coef, lrs[:, 0:1], bias)
-        _adamax_(phi, phi_mu, phi_nu, g_phi, lrs[:, 1, None, None], bias)
-        if cs.series is None:
-            _adamax_(bm, b_mu, b_nu, g_b, lrs[:, 2, None, None], bias)
-        else:
-            g_zc, g_per = series_backward(g_b.reshape(S * K, m), zc.reshape(S * K, nc), per.reshape(-1),
-                                          harmonics, th_b)
-            _adamax_(zc, zc_mu, zc_nu, g_zc.view(S, K, nc), lrs[:, 2, None, None], bias)
-            _adamax_(per, per_mu, per_nu, g_per.view(S, K), lrs[:, 4:5], bias)
-        _adamax_(om, om_mu, om_nu, g_om, lrs[:, 3:4], bias)
-        sched_step_(sv, total, cfg)  # the plateau schedulers, one per seed
-    return unpack_seeds(cs, state, num_steps), _seed_metrics(torch.stack(rows), torch.stack(maxargs))
+    with profiling.span("chunk.enqueue"):  # the plain epochs, in the launch's place
+        for _ in range(num_steps):
+            # forward of the generation-s parameters
+            if cs.series is not None:
+                flat, harmonics, th_b = series_forward(zc.reshape(S * K, nc), per.reshape(-1), tw)
+                bm = flat.view(S, K, m)
+            lat = pod[None] * phi.transpose(1, 2)  # (S, n, r)
+            gathered = torch.cat([ones, lat], dim=2)[:, :, F]  # (S, n, T, P)
+            theta = gathered[..., 0]
+            for p in range(1, P):
+                theta = theta * gathered[..., p]
+            lat3 = lat.repeat(1, 1, 3)  # column k*r + j holds lat_j
+            args = lat3 * om[:, None, :]
+            a_sin, a_cos, a_tanh = args[..., :r], args[..., r:2 * r], args[..., 2 * r:]
+            th = torch.tanh(a_tanh)
+            D = torch.cat([theta, torch.sin(a_sin), torch.cos(a_cos), th], dim=2)  # (S, n, K)
+            A = D * c[:, None, :]
+            # contractions, each over the seed's own block, as one 2-D product
+            # per seed (on the GPU cuBLAS's batched products of these shapes
+            # part from the 2-D ones by about 1e-5 of rec)
+            gb, xb, ax, ga, latg = (torch.stack(t) for t in zip(*(
+                (bm[s] @ bm[s].T, x @ bm[s].T, A[s].T @ x, A[s].T @ A[s], lat[s].T @ lat[s]) for s in range(S))))
+            # gradients
+            dA = (2.0 / nm) * (A @ gb - xb)
+            dD = dA * c[:, None, :]
+            g_coef = (dA * D).sum(1) + lam[:, None] * torch.sign(c)
+            darg = dD[..., T:] * torch.cat([torch.cos(a_sin), -torch.sin(a_cos), 1.0 - th * th], dim=2)
+            g_om = (darg * lat3).sum(1)
+            dl = (darg * om[:, None, :]).view(S, n, 3, r).sum(2)
+            dl_aug = torch.zeros((S, n, r + 1), dtype=torch.float32, device=x.device)
+            for p in range(P):  # product rule: d theta_t / d aug_F[t,p] = prod_{q != p} aug_F[t,q]
+                others = dD[..., :T]
+                for q in range(P):
+                    if q != p:
+                        others = others * gathered[..., q]
+                dl_aug.index_add_(2, F[:, p], others)
+            dl = dl + dl_aug[..., 1:]
+            ortho_dir = lat @ (torch.sign(latg) * offdiag)
+            g_phi = ((dl + beta[:, None, None] * ortho_dir) * pod[None]).transpose(1, 2)
+            g_b = (2.0 / nm) * (ga @ bm - ax)
+            # metrics of the pre-update parameters, per seed
+            rec = (torch.sum(ga * gb, (1, 2)) - 2.0 * torch.sum(ax * bm, (1, 2)) + x_sq) / nm
+            ortho = 0.5 * torch.sum(torch.abs(latg * offdiag), (1, 2))
+            l1 = torch.sum(torch.abs(c), 1)
+            total = rec + beta * ortho + lam * l1
+            rows.append(torch.stack([rec, ortho, l1, total], dim=1))
+            maxargs.append(torch.max(torch.abs(args)))
+            # Adamax with each seed's LRs in force before this step's scheduler step
+            powb = sv[0, _POW] * B1
+            bias = 1.0 - powb
+            lrs = sv[:, _LR0:_LR0 + 5].clone()
+            _adamax_(c, c_mu, c_nu, g_coef, lrs[:, 0:1], bias)
+            _adamax_(phi, phi_mu, phi_nu, g_phi, lrs[:, 1, None, None], bias)
+            if cs.series is None:
+                _adamax_(bm, b_mu, b_nu, g_b, lrs[:, 2, None, None], bias)
+            else:
+                g_zc, g_per = series_backward(g_b.reshape(S * K, m), zc.reshape(S * K, nc), per.reshape(-1),
+                                              harmonics, th_b)
+                _adamax_(zc, zc_mu, zc_nu, g_zc.view(S, K, nc), lrs[:, 2, None, None], bias)
+                _adamax_(per, per_mu, per_nu, g_per.view(S, K), lrs[:, 4:5], bias)
+            _adamax_(om, om_mu, om_nu, g_om, lrs[:, 3:4], bias)
+            sched_step_(sv, total, cfg)  # the plateau schedulers, one per seed
+    with profiling.span("chunk.unpack"):
+        return unpack_seeds(cs, state, num_steps), _seed_metrics(torch.stack(rows), torch.stack(maxargs))
 
 
 def _seed_metrics(per_seed: torch.Tensor, max_arg: torch.Tensor) -> dict:
@@ -615,9 +619,10 @@ def _checked_device(state: TrainState, batch: dict, num_steps: int, spec, cfg) -
 
 
 def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg, betas, lams):
-    """Allocate and launch one chunk of the stacked ``state`` on the card;
-    returns the packed state, the metrics rows (num_steps, S, 5) and the
-    scratch buffer."""
+    """Pack and launch one chunk of the stacked ``state`` on the card (spans
+    ``chunk.pack`` and ``chunk.enqueue``); returns the packed state, the
+    metrics rows (num_steps, S, 5) and the scratch buffer. While tracing is
+    on the launch's kernel clock is kept (``profiling.kernel_clock``)."""
     x = batch["x"]
     n, m = x.shape
     r, P, K = spec.r, spec.poly_order, spec.num_poly_terms + 3 * spec.r
@@ -625,11 +630,12 @@ def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg, betas, la
     nf = n_fourier(spec, cfg)
     lib = _lib()
     grid = _grid(x.device.index, r, P, K, S, nf)
-    cs = pack_seeds(state, *seed_hypers(cfg, S, betas, lams))
-    with torch.cuda.device(x.device):
-        f32 = dict(dtype=torch.float32, device=x.device)
+    with profiling.span("chunk.pack"), torch.cuda.device(x.device):
+        cs = pack_seeds(state, *seed_hypers(cfg, S, betas, lams))
         ctab = torch.as_tensor(column_table(spec, S), device=x.device).contiguous()
         tpts = torch.as_tensor(fourier.t_points(m), device=x.device) if nf else None
+    with profiling.span("chunk.enqueue"), torch.cuda.device(x.device):
+        f32 = dict(dtype=torch.float32, device=x.device)
         met = torch.empty((num_steps, S, len(METRICS)), **f32)
         work = torch.empty((lib.desmo_chunk_workspace(n, m, r, K, S, nf, grid),), **f32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -637,15 +643,21 @@ def _launch(state: TrainState, batch: dict, num_steps: int, spec, cfg, betas, la
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        rc = lib.desmo_train_chunk(
+        args = (
             batch["pod_modes"].data_ptr(), x.data_ptr(), batch["x_sq"].data_ptr(), ctab.data_ptr(),
             ptr(tpts), cs.phi.data_ptr(), ptr(cs.b), ptr(cs.series), ptr(cs.periods),
             cs.coef.data_ptr(), cs.omega.data_ptr(), cs.svec.data_ptr(), met.data_ptr(), work.data_ptr(),
             n, m, r, P, K, S, nf, num_steps, int(cfg.sched_every), grid,
             float(cfg.patience), float(cfg.sched_factor), float(cfg.sched_min_lr), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"fused_train_chunk: kernel launch failed with CUDA error {rc}")
+        launched = time.perf_counter() if profiling.tracing() else None
+        rc = lib.desmo_train_chunk(*args)
+        if rc != 0:
+            raise RuntimeError(f"fused_train_chunk: kernel launch failed with CUDA error {rc}")
+        if launched is not None:
+            names = FOURIER_PHASES if nf else PHASES
+            off = lib.desmo_chunk_timer_offset(n, m, r, K, S, nf, grid)
+            profiling.kernel_clock(work[off:off + 2 * len(names)], names, launched)
     return cs, met, work
 
 
@@ -663,7 +675,8 @@ def fused_train_chunk(state: TrainState, batch: dict, num_steps: int, spec, cfg)
         return train_chunk_plain(state, batch, num_steps, spec, cfg)
     cs, met, _ = _launch(stacked, batch, num_steps, spec, cfg, None, None)
     fused_train_chunk.launches += 1
-    return seed_view(unpack_seeds(cs, stacked, num_steps), 0), _one_seed_metrics(_kernel_metrics(met))
+    with profiling.span("chunk.unpack"):
+        return seed_view(unpack_seeds(cs, stacked, num_steps), 0), _one_seed_metrics(_kernel_metrics(met))
 
 
 def fused_ensemble_chunk(state: TrainState, batch: dict, num_steps: int, spec, cfg, betas=None, lams=None):
@@ -679,7 +692,8 @@ def fused_ensemble_chunk(state: TrainState, batch: dict, num_steps: int, spec, c
         return train_chunk_plain_packed(state, batch, num_steps, spec, cfg, betas, lams)
     cs, met, _ = _launch(state, batch, num_steps, spec, cfg, betas, lams)
     fused_ensemble_chunk.launches += 1
-    return unpack_seeds(cs, state, num_steps), _kernel_metrics(met)
+    with profiling.span("chunk.unpack"):
+        return unpack_seeds(cs, state, num_steps), _kernel_metrics(met)
 
 
 # the kernel clock's counters, in the order of ``enum Phase`` in the source;

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from desmo_tpu_torch import checkpoint, configs, ensemble, losses, parallel, pod, sparsify, train
+from desmo_tpu_torch import checkpoint, configs, ensemble, losses, parallel, pod, profiling, sparsify, train
 from desmo_tpu_torch import data as data_mod
 from desmo_tpu_torch import device as device_mod
 from desmo_tpu_torch.kernels import shard_step, train_chunk
@@ -162,7 +162,8 @@ def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log, devic
     """The ``n_seeds > 1`` branch of ``desmo_tpu/runner.py:509-684``:
     ``ensemble.fit`` (over ``device_mesh`` when given), then
     ``ensemble.json`` (the winner, every seed's final total and rec, the
-    diverged seeds, seed-steps/s, the jitter and the hyperparameter grid)
+    diverged seeds, the rollbacks and the seeds they froze, seed-steps/s,
+    the jitter and the hyperparameter grid)
     and, with two or more live seeds, ``term_stability.json``, both from
     rank 0 alone; the best seed's state, phi whole, is exported at the last
     epoch. The per-seed rec figure is not drawn (figures are not
@@ -173,6 +174,7 @@ def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log, devic
             log(f"[ensemble] loss_method={method!r} has no packed form; using the factored loss")
         method = "factored"
     report: dict = {}
+    before = profiling.counters()
     result, best_seed, finals = ensemble.fit(
         cfg, spec, batch, n_seeds=cfg.n_seeds, num_epochs=n_epochs, seed=cfg.seed,
         phi_sigma=cfg.seed_phi_sigma, omega_spread=cfg.seed_omega_spread, method=method, log=log,
@@ -185,6 +187,7 @@ def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log, devic
         rate = f"; {sps:.1f} seed-steps/s" if np.isfinite(sps) else ""
         log(f"[ensemble] kept seed {best_seed}/{cfg.n_seeds} (finals: {finals}){rate}")
     hyp = report.get("hypers")
+    after = profiling.counters()
     with open(os.path.join(out_dir, "ensemble.json"), "w") as fh:
         json.dump({
             "n_seeds": int(cfg.n_seeds),
@@ -193,6 +196,9 @@ def run_ensemble(cfg, spec, batch, n_epochs, device, out_dir, export, log, devic
             "final_totals": [_finite_or_none(v) for v in finals],
             "final_recs": [_finite_or_none(v) for v in report.get("final_recs", [])],
             "diverged_seeds": [int(i) for i in np.nonzero(~np.isfinite(finals))[0]],
+            # the fit's rollbacks and the seeds they froze
+            "rollbacks": after.get("ensemble.rollbacks", 0) - before.get("ensemble.rollbacks", 0),
+            "frozen_seeds": after.get("ensemble.frozen_seeds", 0) - before.get("ensemble.frozen_seeds", 0),
             "seed_steps_per_sec": _finite_or_none(sps),
             "seed_phi_sigma": float(cfg.seed_phi_sigma),
             "seed_omega_spread": float(cfg.seed_omega_spread),

@@ -38,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from desmo_tpu_torch import optim, parallel
+from desmo_tpu_torch import optim, parallel, profiling
 from desmo_tpu_torch.configs import GROUP_ORDER, RunConfig
 
 LossFn = Callable[[dict, dict], tuple[torch.Tensor, dict]]
@@ -226,10 +226,14 @@ def host_snapshot(state: TrainState) -> tuple[TrainState, Optional[torch.cuda.Ev
     return snap, event
 
 
-def _write_checkpoint(checkpoint_fn, snap: TrainState, event, epoch: int) -> None:
-    if event is not None:
-        event.synchronize()
-    checkpoint_fn(snap, epoch)
+def _write_checkpoint(checkpoint_fn, snap: TrainState, event, epoch: int, parent=None) -> None:
+    """Span ``ckpt.write``, in span ``parent`` (the ``fit.checkpoint`` that
+    handed it over)."""
+    with profiling.span("ckpt.write", parent=parent):
+        if event is not None:
+            event.synchronize()
+        checkpoint_fn(snap, epoch)
+    profiling.count("ckpt.writes")
 
 
 @dataclasses.dataclass
@@ -237,7 +241,6 @@ class TrainResult:
     state: TrainState
     history: dict[str, np.ndarray]  # per-epoch metrics
     steps_per_sec: float
-    wall_seconds: float
     # max |omega*latent| the chunk reported (the mega-kernel does); 0.0 when
     # the chunk reports none
     max_abs_trig_arg: float = 0.0
@@ -245,6 +248,7 @@ class TrainResult:
     preempted: bool = False
 
 
+@profiling.traced("fit")
 def fit(
     loss_fn: LossFn,
     group_of: dict[str, str],
@@ -279,6 +283,10 @@ def fit(
     it while the next chunk runs. Writes keep their order; a failed write
     raises at the next chunk boundary or at the end.
 
+    The call is span ``fit``; each boundary's parts are spans ``fit.launch``,
+    ``fit.fetch``, ``fit.log`` and ``fit.checkpoint``, and the wait on the
+    last write ``fit.drain`` (``profiling``).
+
     A preemption request (:func:`request_preemption`, the SIGTERM handler)
     stops the loop at the next chunk boundary with a final checkpoint and
     ``preempted=True``; one already raised when fit starts stops it before
@@ -294,7 +302,7 @@ def fit(
     if state is None:
         state = init_state(params, cfg)
     if num_epochs <= 0:
-        return TrainResult(state=state, history={}, steps_per_sec=float("nan"), wall_seconds=0.0)
+        return TrainResult(state=state, history={}, steps_per_sec=float("nan"))
     chunk_size = chunk_size or min(cfg.checkpoint_every, num_epochs)
     train_chunk = chunk or make_train_chunk(loss_fn, group_of, cfg)
 
@@ -305,22 +313,24 @@ def fit(
 
     def save(st: TrainState, epoch: int) -> None:
         nonlocal pending
-        snap, event = host_snapshot(whole(st))
-        if pending is not None:
-            pending.result()  # keeps the writes in order; raises a failed one
-        pending = _ckpt_pool().submit(_write_checkpoint, checkpoint_fn, snap, event, epoch)
+        with profiling.span("fit.checkpoint"):
+            snap, event = host_snapshot(whole(st))
+            if pending is not None:
+                pending.result()  # keeps the writes in order; raises a failed one
+            pending = _ckpt_pool().submit(_write_checkpoint, checkpoint_fn, snap, event, epoch, profiling.current())
 
     if preemption_agreed(device_mesh):
         # raised before this fit started (e.g. during an earlier warmup that
         # passed it on): stop before the first chunk, saving the incoming
         # state, which may hold that earlier phase's unsaved work
         if checkpoint_fn is not None:
-            _write_checkpoint(checkpoint_fn, *host_snapshot(whole(state)), state.epoch)
+            with profiling.span("fit.checkpoint"):
+                _write_checkpoint(checkpoint_fn, *host_snapshot(whole(state)), state.epoch, profiling.current())
         if log is not None:
             saved = "incoming state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
             log(f"graceful preemption: stopped before the first chunk; {saved}")
         clear_preemption()
-        return TrainResult(state=state, history={}, steps_per_sec=float("nan"), wall_seconds=0.0, preempted=True)
+        return TrainResult(state=state, history={}, steps_per_sec=float("nan"), preempted=True)
 
     histories: list[dict] = []
     max_abs_trig_arg = 0.0
@@ -332,32 +342,35 @@ def fit(
     done = start_epoch
     while done < end_epoch:
         n = min(chunk_size, end_epoch - done)
-        state, metrics = train_chunk(state, batch, n)
-        # the chunk's one host sync
-        fetched = torch.stack([metrics[k] for k in metrics]).cpu().numpy()
-        chunk_metrics = {k: fetched[i] for i, k in enumerate(metrics)}
-        max_arg = chunk_metrics.pop("max_arg", None)
-        if max_arg is not None:
-            max_abs_trig_arg = max(max_abs_trig_arg, float(np.max(max_arg)))
-        if not np.isfinite(chunk_metrics["total"][-1]):
-            bad = int(np.argmax(~np.isfinite(chunk_metrics["total"])))
-            raise FloatingPointError(
-                f"non-finite training loss at epoch {done + bad}; inspect LRs/omega_init"
-            )
-        if t0 is None:
-            t0 = time.perf_counter()
-            first_chunk = n
-        histories.append(chunk_metrics)
+        with profiling.span("fit.launch"):
+            state, metrics = train_chunk(state, batch, n)
+        with profiling.span("fit.fetch"):
+            # the chunk's one host sync
+            fetched = torch.stack([metrics[k] for k in metrics]).cpu().numpy()
+            chunk_metrics = {k: fetched[i] for i, k in enumerate(metrics)}
+            max_arg = chunk_metrics.pop("max_arg", None)
+            if max_arg is not None:
+                max_abs_trig_arg = max(max_abs_trig_arg, float(np.max(max_arg)))
+            if not np.isfinite(chunk_metrics["total"][-1]):
+                bad = int(np.argmax(~np.isfinite(chunk_metrics["total"])))
+                raise FloatingPointError(
+                    f"non-finite training loss at epoch {done + bad}; inspect LRs/omega_init"
+                )
+            if t0 is None:
+                t0 = time.perf_counter()
+                first_chunk = n
+            histories.append(chunk_metrics)
         if log is not None:
-            for i in range(done, done + n):
-                if i % cfg.log_every == 0 or i == end_epoch - 1:
-                    j = i - done
-                    log(
-                        f"Epoch [{i + 1}/{end_epoch}], "
-                        f"Rec Loss: {chunk_metrics['rec'][j]:.12f}, "
-                        f"Spatial ortho loss: {chunk_metrics['ortho'][j]:.8f}, "
-                        f"L1 loss: {chunk_metrics['l1'][j]:.4f} "
-                    )
+            with profiling.span("fit.log"):
+                for i in range(done, done + n):
+                    if i % cfg.log_every == 0 or i == end_epoch - 1:
+                        j = i - done
+                        log(
+                            f"Epoch [{i + 1}/{end_epoch}], "
+                            f"Rec Loss: {chunk_metrics['rec'][j]:.12f}, "
+                            f"Spatial ortho loss: {chunk_metrics['ortho'][j]:.8f}, "
+                            f"L1 loss: {chunk_metrics['l1'][j]:.4f} "
+                        )
         done += n
         preempt = preemption_agreed(device_mesh)
         if pending is not None and pending.done():
@@ -368,17 +381,18 @@ def fit(
         if preempt:
             if log is not None:
                 saved = "final state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
-                log(f"graceful preemption: stopped at epoch {done} (of {end_epoch}); {saved}")
+                with profiling.span("fit.log"):
+                    log(f"graceful preemption: stopped at epoch {done} (of {end_epoch}); {saved}")
             clear_preemption()  # one request stops one fit
             preempted = True
             break
     if pending is not None:
-        pending.result()
+        with profiling.span("fit.drain"):
+            pending.result()
     wall = time.perf_counter() - t0
     steps_timed = done - start_epoch - first_chunk
     sps = steps_timed / wall if wall > 0 and steps_timed > 0 else float("nan")
     history = {k: np.concatenate([h[k] for h in histories]) for k in histories[0]}
     return TrainResult(
-        state=state, history=history, steps_per_sec=sps, wall_seconds=wall,
-        max_abs_trig_arg=max_abs_trig_arg, preempted=preempted,
+        state=state, history=history, steps_per_sec=sps, max_abs_trig_arg=max_abs_trig_arg, preempted=preempted,
     )

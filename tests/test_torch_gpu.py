@@ -15,7 +15,7 @@ import dataclasses  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from desmo_tpu_torch import configs, ensemble, losses, parallel, pod, runner, train  # noqa: E402
+from desmo_tpu_torch import configs, ensemble, losses, parallel, pod, profiling, runner, train  # noqa: E402
 from desmo_tpu_torch import device as device_mod  # noqa: E402
 from desmo_tpu_torch.io import synthetic  # noqa: E402
 from desmo_tpu_torch.kernels import ae_chunk, dual_gemm, shard_step, train_chunk  # noqa: E402
@@ -190,6 +190,31 @@ def test_phase_split_and_runner_path(cuda, tmp_path):
     art = runner.run(small, x, out_dir=str(tmp_path), num_epochs=300, echo=False, device=cuda)
     assert train_chunk.fused_train_chunk.launches == 3 and dual_gemm.dual_contractions.launches == 0
     assert np.isfinite(art.history["total"]).all() and len(art.sweep) == 14
+
+
+def test_per_launch_kernel_clock_matches_phase_split(cuda):
+    """While tracing is on each launch keeps its kernel clock on its
+    ``chunk.enqueue`` record (``profiling.kernel_clock``): a 200-epoch
+    launch's phase shares are within 2 points of ``phase_split``'s over the
+    same epochs from the same state; off, no launch keeps one."""
+    cfg, spec, batch, state = _chunk_problem(cuda, 3961, 1001, 4, 3)
+    profiling.reset()
+    train_chunk.fused_train_chunk(state, batch, 200, spec, cfg)
+    torch.cuda.synchronize()
+    assert profiling.records() == []
+    with profiling.enable():
+        with profiling.span("fit.launch"):
+            train_chunk.fused_train_chunk(state, batch, 200, spec, cfg)
+        torch.cuda.synchronize()
+    recs = profiling.records()
+    assert [r.name for r in recs] == ["fit.launch", "chunk.pack", "chunk.enqueue", "chunk.unpack"]
+    clock = recs[2].clock
+    assert list(clock) == list(train_chunk.PHASES) and recs[2].launched is not None
+    split = train_chunk.phase_split(state, batch, 200, spec, cfg)
+    total, want = sum(clock.values()), sum(split.values())
+    for name in train_chunk.PHASES:
+        assert abs(100 * clock[name] / total - 100 * split[name] / want) <= 2.0, name
+    profiling.reset()
 
 
 def _fourier_problem(device, preset, **over):
