@@ -422,8 +422,15 @@ def fit(
     non-finite at the first bad step (LR 0, final total inf, out of the
     selection), and re-runs it; when every seed has diverged, or after
     ``max_recoveries`` rollbacks, fit raises ``FloatingPointError``.
-    ``checkpoint_fn(state, epoch)`` is called at every chunk boundary with
-    the group's best live seed. ``report`` (a dict) receives ``hypers``,
+    ``checkpoint_fn(state, epoch)`` receives at every chunk boundary the
+    group's best live seed: this thread takes its state (over
+    ``device_mesh`` gathered whole, a collective) and its host copy, queued
+    ahead of the next launch, and the checkpoint worker
+    (``train.CheckpointWriter``) calls ``checkpoint_fn`` on its own thread
+    while the next chunk runs, one write at a time and in order. A failed
+    write raises at the next chunk boundary or at the group's end. A group's
+    writes have all ended before its final state is used, so none runs after
+    fit returns or raises. ``report`` (a dict) receives ``hypers``,
     ``final_recs``, ``live_seeds`` and ``seed_params`` (the live members'
     single-seed params, for :func:`term_stability`).
 
@@ -435,9 +442,11 @@ def fit(
     ranks agree on the request by one MAX all-reduce.
 
     The call is span ``fit``, with ``train.fit``'s spans at each boundary
-    and ``fit.init`` (a group's init), ``fit.snapshot`` (the boundary's
-    copy for a rollback) and ``fit.rollback``; counters
-    ``ensemble.rollbacks``, ``ensemble.frozen_seeds`` and ``ckpt.writes``
+    and ``fit.drain`` at each group's end, ``fit.init`` (a group's init),
+    ``fit.snapshot`` (the boundary's copy for a rollback) and
+    ``fit.rollback``; the worker's ``ckpt.write`` in the ``fit.checkpoint``
+    that handed it over; counters ``ensemble.rollbacks``,
+    ``ensemble.frozen_seeds``, ``ckpt.writes`` and ``ckpt.waits``
     (``profiling``).
 
     ``device_mesh`` (``parallel.make_mesh``) shards the rows over its ranks:
@@ -547,65 +556,70 @@ def fit(
         frozen = np.zeros(S, bool)
         with profiling.span("fit.snapshot"):
             snap = _snapshot(state)
-        while done < num_epochs:
-            nsteps = min(chunk_size, num_epochs - done)
-            t_chunk = time.perf_counter()
-            with profiling.span("fit.launch"):
-                state, mets = chunk(state, local_batch, nsteps)
-            with profiling.span("fit.fetch"):
-                mets = _fetch(mets)
-                dt = time.perf_counter() - t_chunk
-                if id(chunk) in warmed:
-                    wall += dt
-                    steps_timed += nsteps * S  # seed-steps
-                else:
-                    warmed.add(id(chunk))
-                mets.pop("max_arg", None)
-                tot_s = mets["total_s"]
-                finite = np.isfinite(tot_s).all()
-                if finite:
-                    histories.append(mets)
-            if not finite:
-                # a diverged seed is blamed at the first bad step; roll back,
-                # freeze the originators and re-run with the survivors
-                with profiling.span("fit.rollback"):
-                    first_bad = int(np.argmin(np.isfinite(tot_s).all(axis=1)))
-                    originators = ~np.isfinite(tot_s[first_bad])
-                    recoveries += 1
-                    if not (originators & ~frozen).any():
-                        originators = np.ones(S, bool)  # unattributable
-                    if (frozen | originators).all() or recoveries > max_recoveries:
-                        why = " (recovery limit reached)" if recoveries > max_recoveries else " (every seed diverged)"
-                        raise FloatingPointError(f"non-finite ensemble loss at epoch {done + first_bad}{why}")
-                    profiling.count("ensemble.rollbacks")
-                    profiling.count("ensemble.frozen_seeds", int((originators & ~frozen).sum()))
-                    frozen |= originators
-                    if log is not None:
-                        log(f"WARNING: seed(s) {(start + np.nonzero(originators)[0]).tolist()} diverged at epoch "
-                            f"{done + first_bad}; rolling back to epoch {done} and freezing them "
-                            f"({int((~frozen).sum())} live seeds continue)")
-                    state = _restore_with_frozen(snap, frozen)
-                continue
-            done += nsteps
-            with profiling.span("fit.snapshot"):
-                snap = _snapshot(state)
-            if checkpoint_fn is not None:
-                with profiling.span("fit.checkpoint"):
-                    # under a sweep the best live seed is the one of lowest rec
-                    live = np.where(frozen, np.inf, (mets["rec"] if hypers is not None else tot_s)[-1])
-                    checkpoint_fn(whole(seed_state(state, cfg, int(np.argmin(live)))), int(state.epoch))
-                profiling.count("ckpt.writes")
-            if log is not None and (done % max(cfg.log_every, nsteps) == 0 or done == num_epochs):
-                with profiling.span("fit.log"):
-                    log(f"[ensemble group {gi}] epoch {done}/{num_epochs} per-seed total: "
-                        f"{np.array2string(mets['total_s'][-1], precision=6)}")
-            if train.preemption_agreed(device_mesh):
-                # the checkpoint above saved the group's best live seed
-                preempted = True
-                if log is not None:
+        with train.CheckpointWriter(checkpoint_fn) as writer:
+            while done < num_epochs:
+                nsteps = min(chunk_size, num_epochs - done)
+                t_chunk = time.perf_counter()
+                with profiling.span("fit.launch"):
+                    state, mets = chunk(state, local_batch, nsteps)
+                writer.launched()
+                with profiling.span("fit.fetch"):
+                    mets = _fetch(mets)
+                    dt = time.perf_counter() - t_chunk
+                    if id(chunk) in warmed:
+                        wall += dt
+                        steps_timed += nsteps * S  # seed-steps
+                    else:
+                        warmed.add(id(chunk))
+                    mets.pop("max_arg", None)
+                    tot_s = mets["total_s"]
+                    finite = np.isfinite(tot_s).all()
+                    if finite:
+                        histories.append(mets)
+                writer.poll()  # a failed write raises here, at the next boundary
+                if not finite:
+                    # a diverged seed is blamed at the first bad step; roll back,
+                    # freeze the originators and re-run with the survivors
+                    with profiling.span("fit.rollback"):
+                        first_bad = int(np.argmin(np.isfinite(tot_s).all(axis=1)))
+                        originators = ~np.isfinite(tot_s[first_bad])
+                        recoveries += 1
+                        if not (originators & ~frozen).any():
+                            originators = np.ones(S, bool)  # unattributable
+                        if (frozen | originators).all() or recoveries > max_recoveries:
+                            why = " (recovery limit reached)" if recoveries > max_recoveries else " (every seed diverged)"
+                            raise FloatingPointError(f"non-finite ensemble loss at epoch {done + first_bad}{why}")
+                        profiling.count("ensemble.rollbacks")
+                        profiling.count("ensemble.frozen_seeds", int((originators & ~frozen).sum()))
+                        frozen |= originators
+                        if log is not None:
+                            log(f"WARNING: seed(s) {(start + np.nonzero(originators)[0]).tolist()} diverged at epoch "
+                                f"{done + first_bad}; rolling back to epoch {done} and freezing them "
+                                f"({int((~frozen).sum())} live seeds continue)")
+                        state = _restore_with_frozen(snap, frozen)
+                    continue
+                done += nsteps
+                with profiling.span("fit.snapshot"):
+                    snap = _snapshot(state)
+                if checkpoint_fn is not None:
+                    with profiling.span("fit.checkpoint"):
+                        # under a sweep the best live seed is the one of lowest rec
+                        live = np.where(frozen, np.inf, (mets["rec"] if hypers is not None else tot_s)[-1])
+                        # the gather is a collective over a mesh: on this thread;
+                        # the host copy goes ahead of the next launch
+                        writer.hand_off(whole(seed_state(state, cfg, int(np.argmin(live)))), int(state.epoch))
+                if log is not None and (done % max(cfg.log_every, nsteps) == 0 or done == num_epochs):
                     with profiling.span("fit.log"):
-                        log(f"graceful preemption: group {gi} stopped at epoch {done} (of {num_epochs})")
-                break
+                        log(f"[ensemble group {gi}] epoch {done}/{num_epochs} per-seed total: "
+                            f"{np.array2string(mets['total_s'][-1], precision=6)}")
+                if train.preemption_agreed(device_mesh):
+                    # the checkpoint above saved the group's best live seed
+                    preempted = True
+                    if log is not None:
+                        with profiling.span("fit.log"):
+                            log(f"graceful preemption: group {gi} stopped at epoch {done} (of {num_epochs})")
+                    break
+            writer.drain()  # the group's last write, before its final state is used
         finals = np.where(frozen, np.inf, histories[-1]["total_s"][-1])
         recs = np.where(frozen, np.inf, histories[-1]["rec"][-1])
         sels = recs if hypers is not None else finals

@@ -8,7 +8,8 @@ mega-kernel's wrapper and the checkpoint worker. The role of
   so the span shows in any Chrome trace. While off it is one flag check and
   allocates nothing.
 * :func:`count` ``(name, n=1)``: adds to a counter, always (they count rare
-  events: rollbacks, frozen seeds, checkpoint writes).
+  events: rollbacks, frozen seeds, checkpoint writes, hand-offs that waited
+  on the previous write).
 * :func:`kernel_clock`: after a mega-kernel launch, while tracing is on, a
   non-blocking copy of the launch's kernel clock from its workspace into a
   pinned buffer allocated once; the values are read at the next launch or at
@@ -28,9 +29,9 @@ The spans (one tree on the fit's thread, parents by id):
 ``fit.launch`` (the chunk call; inside it ``chunk.pack``, ``chunk.enqueue``
 and ``chunk.unpack`` from ``kernels.train_chunk``), ``fit.fetch`` (metrics to
 the host, the finite check, the history), ``fit.log`` (a boundary's lines),
-``fit.checkpoint`` (``train.fit``: the gather, the host copy, the wait on the
-previous write and the hand-off; ``ensemble.fit``: the seed's state and the
-synchronous ``checkpoint_fn``), ``fit.init`` and ``fit.snapshot``
+``fit.checkpoint`` (the gather, the host copy, the wait on the previous
+write and the hand-off; in ``ensemble.fit`` the best live seed's state
+first), ``fit.init`` and ``fit.snapshot``
 (``ensemble.fit``'s group init and rollback snapshot), ``fit.rollback`` and
 ``fit.drain`` (the wait on the last write). On the checkpoint worker,
 ``ckpt.write``, whose parent is the ``fit.checkpoint`` that handed it over.

@@ -33,6 +33,7 @@ import signal
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from typing import Callable, Optional
 
 import numpy as np
@@ -226,14 +227,93 @@ def host_snapshot(state: TrainState) -> tuple[TrainState, Optional[torch.cuda.Ev
     return snap, event
 
 
-def _write_checkpoint(checkpoint_fn, snap: TrainState, event, epoch: int, parent=None) -> None:
-    """Span ``ckpt.write``, in span ``parent`` (the ``fit.checkpoint`` that
-    handed it over)."""
+def _write_checkpoint(checkpoint_fn, held: list, epoch: int, parent=None, go=None) -> None:
+    """Span ``ckpt.write`` of ``held``'s host copy (``[snap, event]`` of
+    :func:`host_snapshot`; the caller frees it), in span ``parent`` (the
+    ``fit.checkpoint`` that handed it over), once ``go`` (a
+    ``threading.Event``), when given, is set."""
+    snap, event = held
+    if go is not None:
+        go.wait()
     with profiling.span("ckpt.write", parent=parent):
         if event is not None:
             event.synchronize()
         checkpoint_fn(snap, epoch)
     profiling.count("ckpt.writes")
+
+
+class CheckpointWriter:
+    """A fit's checkpoints, written by the checkpoint worker
+    (:func:`_ckpt_pool`) while the fit goes on, one at a time and in the
+    order they were handed over.
+
+    :meth:`hand_off` takes a host copy of a whole state (:func:`host_snapshot`:
+    on the card, copies queued behind the chunk that wrote it and ahead of
+    the next launch), waits for the previous write (counter ``ckpt.waits``
+    when it was still running) and submits this one, which starts at
+    :meth:`launched`: once the fit has enqueued its next chunk and waits on
+    the card, so that the write, mostly Python, does not hold the
+    interpreter lock while the fit sets that launch up. The host copy and
+    its event are freed on the fit's thread once written: freeing them
+    makes CUDA calls, which on the worker stalled it behind the fit's wait
+    on the card for up to two chunks. :meth:`poll` raises a write that
+    failed; :meth:`drain` waits for the last write, span ``fit.drain``, and
+    raises it if it failed. As a context manager it also waits for the last
+    write when an exception leaves the block, so that no ``checkpoint_fn``
+    runs after the fit has ended."""
+
+    def __init__(self, checkpoint_fn: Callable[[TrainState, int], None]):
+        self._checkpoint_fn = checkpoint_fn
+        self._pending: Optional[Future] = None
+        self._go: Optional[threading.Event] = None  # the pending write's start
+        self._held: list = []  # the pending write's host copy and event
+
+    def __enter__(self) -> CheckpointWriter:
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        if exc_type is not None and self._pending is not None:
+            self.launched()
+            futures_wait([self._pending])  # the exception in flight wins over the write's own
+        self._held.clear()
+        return False
+
+    def hand_off(self, state: TrainState, epoch: int) -> None:
+        """Write ``state`` (whole: over a mesh, gathered by the caller) as
+        epoch ``epoch``'s checkpoint, in span ``fit.checkpoint`` when the
+        caller opened one."""
+        snap, event = host_snapshot(state)
+        if self._pending is not None:
+            self.launched()
+            if not self._pending.done():
+                profiling.count("ckpt.waits")
+            self._pending.result()  # keeps the writes in order; raises a failed one
+        self._held.clear()
+        self._held = [snap, event]
+        self._go = threading.Event()
+        self._pending = _ckpt_pool().submit(
+            _write_checkpoint, self._checkpoint_fn, self._held, epoch, profiling.current(), self._go)
+
+    def launched(self) -> None:
+        """Let the handed-off write start: call after each chunk call."""
+        if self._go is not None:
+            self._go.set()
+            self._go = None
+
+    def poll(self) -> None:
+        """Raise the last write's failure, if it has ended."""
+        if self._pending is not None and self._pending.done():
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def drain(self) -> None:
+        """Wait for the last write; raise its failure."""
+        if self._pending is not None:
+            self.launched()
+            pending, self._pending = self._pending, None
+            with profiling.span("fit.drain"):
+                pending.result()
+            self._held.clear()
 
 
 @dataclasses.dataclass
@@ -279,9 +359,12 @@ def fit(
     whole state (over ``device_mesh``, whose ranks hold phi's rows, it
     gathers them with ``parallel.gather_state`` on this thread, since that is
     a collective), takes a host copy of it
-    (:func:`host_snapshot`) and hands that to a worker thread, which writes
-    it while the next chunk runs. Writes keep their order; a failed write
-    raises at the next chunk boundary or at the end.
+    (:func:`host_snapshot`) and hands that to the checkpoint worker
+    (:class:`CheckpointWriter`), whose thread calls ``checkpoint_fn`` while
+    the next chunk runs. Writes keep their order; a failed write raises at
+    the next chunk boundary or at the end. Every write has ended when fit
+    returns or raises. A preemption request that stops fit before its first
+    chunk writes the incoming state on this thread.
 
     The call is span ``fit``; each boundary's parts are spans ``fit.launch``,
     ``fit.fetch``, ``fit.log`` and ``fit.checkpoint``, and the wait on the
@@ -309,23 +392,13 @@ def fit(
     def whole(st: TrainState) -> TrainState:
         return st if device_mesh is None else parallel.gather_state(st, device_mesh, cfg.n)
 
-    pending: Optional[Future] = None
-
-    def save(st: TrainState, epoch: int) -> None:
-        nonlocal pending
-        with profiling.span("fit.checkpoint"):
-            snap, event = host_snapshot(whole(st))
-            if pending is not None:
-                pending.result()  # keeps the writes in order; raises a failed one
-            pending = _ckpt_pool().submit(_write_checkpoint, checkpoint_fn, snap, event, epoch, profiling.current())
-
     if preemption_agreed(device_mesh):
         # raised before this fit started (e.g. during an earlier warmup that
         # passed it on): stop before the first chunk, saving the incoming
         # state, which may hold that earlier phase's unsaved work
         if checkpoint_fn is not None:
             with profiling.span("fit.checkpoint"):
-                _write_checkpoint(checkpoint_fn, *host_snapshot(whole(state)), state.epoch, profiling.current())
+                _write_checkpoint(checkpoint_fn, list(host_snapshot(whole(state))), state.epoch, profiling.current())
         if log is not None:
             saved = "incoming state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
             log(f"graceful preemption: stopped before the first chunk; {saved}")
@@ -340,55 +413,54 @@ def fit(
     first_chunk = 0
     preempted = False
     done = start_epoch
-    while done < end_epoch:
-        n = min(chunk_size, end_epoch - done)
-        with profiling.span("fit.launch"):
-            state, metrics = train_chunk(state, batch, n)
-        with profiling.span("fit.fetch"):
-            # the chunk's one host sync
-            fetched = torch.stack([metrics[k] for k in metrics]).cpu().numpy()
-            chunk_metrics = {k: fetched[i] for i, k in enumerate(metrics)}
-            max_arg = chunk_metrics.pop("max_arg", None)
-            if max_arg is not None:
-                max_abs_trig_arg = max(max_abs_trig_arg, float(np.max(max_arg)))
-            if not np.isfinite(chunk_metrics["total"][-1]):
-                bad = int(np.argmax(~np.isfinite(chunk_metrics["total"])))
-                raise FloatingPointError(
-                    f"non-finite training loss at epoch {done + bad}; inspect LRs/omega_init"
-                )
-            if t0 is None:
-                t0 = time.perf_counter()
-                first_chunk = n
-            histories.append(chunk_metrics)
-        if log is not None:
-            with profiling.span("fit.log"):
-                for i in range(done, done + n):
-                    if i % cfg.log_every == 0 or i == end_epoch - 1:
-                        j = i - done
-                        log(
-                            f"Epoch [{i + 1}/{end_epoch}], "
-                            f"Rec Loss: {chunk_metrics['rec'][j]:.12f}, "
-                            f"Spatial ortho loss: {chunk_metrics['ortho'][j]:.8f}, "
-                            f"L1 loss: {chunk_metrics['l1'][j]:.4f} "
-                        )
-        done += n
-        preempt = preemption_agreed(device_mesh)
-        if pending is not None and pending.done():
-            pending.result()  # a failed write raises here, at the next boundary
-            pending = None
-        if checkpoint_fn is not None and (done % cfg.checkpoint_every == 0 or done == end_epoch or preempt):
-            save(state, done)
-        if preempt:
+    with CheckpointWriter(checkpoint_fn) as writer:
+        while done < end_epoch:
+            n = min(chunk_size, end_epoch - done)
+            with profiling.span("fit.launch"):
+                state, metrics = train_chunk(state, batch, n)
+            writer.launched()
+            with profiling.span("fit.fetch"):
+                # the chunk's one host sync
+                fetched = torch.stack([metrics[k] for k in metrics]).cpu().numpy()
+                chunk_metrics = {k: fetched[i] for i, k in enumerate(metrics)}
+                max_arg = chunk_metrics.pop("max_arg", None)
+                if max_arg is not None:
+                    max_abs_trig_arg = max(max_abs_trig_arg, float(np.max(max_arg)))
+                if not np.isfinite(chunk_metrics["total"][-1]):
+                    bad = int(np.argmax(~np.isfinite(chunk_metrics["total"])))
+                    raise FloatingPointError(
+                        f"non-finite training loss at epoch {done + bad}; inspect LRs/omega_init"
+                    )
+                if t0 is None:
+                    t0 = time.perf_counter()
+                    first_chunk = n
+                histories.append(chunk_metrics)
             if log is not None:
-                saved = "final state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
                 with profiling.span("fit.log"):
-                    log(f"graceful preemption: stopped at epoch {done} (of {end_epoch}); {saved}")
-            clear_preemption()  # one request stops one fit
-            preempted = True
-            break
-    if pending is not None:
-        with profiling.span("fit.drain"):
-            pending.result()
+                    for i in range(done, done + n):
+                        if i % cfg.log_every == 0 or i == end_epoch - 1:
+                            j = i - done
+                            log(
+                                f"Epoch [{i + 1}/{end_epoch}], "
+                                f"Rec Loss: {chunk_metrics['rec'][j]:.12f}, "
+                                f"Spatial ortho loss: {chunk_metrics['ortho'][j]:.8f}, "
+                                f"L1 loss: {chunk_metrics['l1'][j]:.4f} "
+                            )
+            done += n
+            preempt = preemption_agreed(device_mesh)
+            writer.poll()  # a failed write raises here, at the next boundary
+            if checkpoint_fn is not None and (done % cfg.checkpoint_every == 0 or done == end_epoch or preempt):
+                with profiling.span("fit.checkpoint"):
+                    writer.hand_off(whole(state), done)
+            if preempt:
+                if log is not None:
+                    saved = "final state checkpointed" if checkpoint_fn is not None else "no checkpoint_fn: state NOT saved"
+                    with profiling.span("fit.log"):
+                        log(f"graceful preemption: stopped at epoch {done} (of {end_epoch}); {saved}")
+                clear_preemption()  # one request stops one fit
+                preempted = True
+                break
+        writer.drain()
     wall = time.perf_counter() - t0
     steps_timed = done - start_epoch - first_chunk
     sps = steps_timed / wall if wall > 0 and steps_timed > 0 else float("nan")

@@ -8,6 +8,8 @@ state carried over from the JAX package."""
 import dataclasses
 import json
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -334,6 +336,151 @@ def test_fit_runs_groups_beyond_the_cap():
                                         checkpoint_fn=lambda st, ep: saved.append(ep))
     assert finals.shape == (3,) and report["live_seeds"] == [0, 1, 2] and saved == [6, 6]
     assert not torch.equal(report["seed_params"][2]["phi"], torch.ones_like(report["seed_params"][2]["phi"]))
+
+
+def test_fit_writes_checkpoints_on_the_worker_in_order():
+    """``checkpoint_fn`` runs on the checkpoint worker, not the fit's thread,
+    one write at a time in the order of the boundaries, over two groups (K=47
+    packs two seeds, so three seeds run as two); every write has ended when
+    fit returns."""
+    cfg, _, spec, _, x, modes, _ = problem(r=4, P=3)
+    cfg = dataclasses.replace(cfg, checkpoint_every=2)
+    batch, _ = batches(x, modes)
+    events, threads = [], set()
+
+    def slow(st, ep):
+        threads.add(threading.get_ident())
+        events.append(("start", ep))
+        time.sleep(0.02)  # long against a boundary: a write left running would overlap the next
+        events.append(("end", ep))
+
+    ensemble.fit(cfg, spec, batch, n_seeds=3, num_epochs=6, log=None, checkpoint_fn=slow)
+    epochs = [2, 4, 6, 2, 4, 6]
+    assert events == [(what, ep) for ep in epochs for what in ("start", "end")]
+    assert threading.get_ident() not in threads
+
+
+def test_fit_hands_off_without_waiting_for_the_write():
+    """The first boundary's write blocks until that boundary's log line, which
+    comes after the hand-off: the line sees the write unfinished and lets it
+    go. A fit that wrote on its own thread would never reach the line."""
+    cfg, _, spec, _, x, modes, _ = problem()
+    cfg = dataclasses.replace(cfg, checkpoint_every=8, log_every=1)
+    batch, _ = batches(x, modes)
+    release, written, seen = threading.Event(), [], []
+
+    def blocked(st, ep):
+        if ep == 8:
+            assert release.wait(timeout=60)
+        written.append(ep)
+
+    def log(line):
+        if "epoch 8/16" in line:
+            seen.append(list(written))
+            release.set()
+
+    ensemble.fit(cfg, spec, batch, n_seeds=2, num_epochs=16, log=log, checkpoint_fn=blocked)
+    assert seen == [[]] and written == [8, 16]
+
+
+def test_fit_starts_a_write_after_the_next_launch(monkeypatch):
+    """A boundary's write waits for the next chunk's launch (the interpreter
+    lock stays with the loop while it sets that launch up); the group's last
+    one starts at the drain."""
+    events = []
+    make = ensemble.make_ensemble_chunk
+
+    def recording(*args, **kw):
+        chunk = make(*args, **kw)
+
+        def run(state, batch, n):
+            out = chunk(state, batch, n)
+            events.append(("chunk", out[0].epoch))
+            return out
+
+        return run
+
+    monkeypatch.setattr(ensemble, "make_ensemble_chunk", recording)
+    _fit(num_epochs=24, checkpoint_fn=lambda st, ep: events.append(("write", ep)))
+    assert events == [("chunk", 8), ("chunk", 16), ("write", 8), ("chunk", 24), ("write", 16), ("write", 24)]
+
+
+@pytest.mark.parametrize("fail_at", [8, 16])
+def test_fit_raises_a_failed_write(fail_at):
+    """A ``checkpoint_fn`` that raises makes fit raise it, at the next chunk
+    boundary (the write at 8) or at the end (the last write)."""
+    cfg, _, spec, _, x, modes, _ = problem()
+    cfg = dataclasses.replace(cfg, checkpoint_every=8)
+    batch, _ = batches(x, modes)
+
+    def failing(st, ep):
+        if ep == fail_at:
+            raise OSError(f"disk full at {ep}")
+
+    with pytest.raises(OSError, match=f"disk full at {fail_at}"):
+        ensemble.fit(cfg, spec, batch, n_seeds=2, num_epochs=16, log=None, checkpoint_fn=failing)
+
+
+def test_fit_preempted_returns_with_the_checkpoint_written():
+    """A request raised at the first boundary stops the group there; the
+    boundary's write, handed to the worker, has ended when fit returns."""
+    cfg, _, spec, _, x, modes, _ = problem()
+    cfg = dataclasses.replace(cfg, checkpoint_every=8, log_every=1)
+    batch, _ = batches(x, modes)
+    saved = []
+
+    def slow(st, ep):
+        time.sleep(0.05)
+        saved.append((ep, st.epoch))
+
+    def log(line):
+        if "epoch 8/16" in line:
+            train.request_preemption()
+
+    try:
+        result, _, _ = ensemble.fit(cfg, spec, batch, n_seeds=2, num_epochs=16, log=log, checkpoint_fn=slow)
+    finally:
+        train.clear_preemption()
+    assert result.preempted and result.state.epoch == 8
+    assert saved == [(8, 8)]
+
+
+@pytest.mark.parametrize("phi_sigma", [0.1, 1e200])
+def test_fit_checkpoints_the_boundarys_best_seed_bit_for_bit(monkeypatch, phi_sigma):
+    """What ``checkpoint_fn`` receives equals ``seed_state`` of the state the
+    boundary's chunk returned, for the best live seed, bit for bit; with
+    ``phi_sigma=1e200`` seeds 1 and 2 diverge, the chunk is rolled back and
+    re-run, and seed 0 is written."""
+    returned = []
+    make = ensemble.make_ensemble_chunk
+
+    def recording(*args, **kw):
+        chunk = make(*args, **kw)
+
+        def run(state, batch, n):
+            out, mets = chunk(state, batch, n)
+            snap = ensemble._snapshot(out)
+            returned.append((snap, mets["total_s"][-1].clone()))
+            return out, mets
+
+        return run
+
+    monkeypatch.setattr(ensemble, "make_ensemble_chunk", recording)
+    saved = []
+    (_, best, finals), *_ = _fit(phi_sigma=phi_sigma, checkpoint_fn=lambda st, ep: saved.append((st, ep)))
+    assert [ep for _, ep in saved] == [8, 16]
+    finite = [(st, tot) for st, tot in returned if torch.isfinite(tot).all()]
+    if phi_sigma > 1:
+        assert len(returned) == len(finite) + 1 and best == 0 and np.isinf(finals[1:]).all()
+    for (got, ep), (st, tot) in zip(saved, finite[-2:]):
+        s = 0 if phi_sigma > 1 else int(torch.argmin(tot))
+        want = ensemble.seed_state(st, None, s)
+        assert got.epoch == want.epoch == ep and got.count == want.count
+        for tree in ("params", "mu", "nu"):
+            for k, v in getattr(want, tree).items():
+                assert torch.equal(getattr(got, tree)[k], v), (ep, tree, k)
+        for k in ("lrs", "best", "num_bad"):
+            assert torch.equal(getattr(got.sched, k), getattr(want.sched, k)), (ep, k)
 
 
 def test_fit_fourier_period_multistart():

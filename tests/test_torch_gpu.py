@@ -375,6 +375,47 @@ def test_packed_phase_split_and_runner_path(cuda, tmp_path):
     assert {tmp_path / cfg.name / "ensemble.json", tmp_path / cfg.name / "term_stability.json"} <= files
 
 
+def test_packed_fit_checkpoints_the_boundary_state(cuda, monkeypatch):
+    """``ensemble.fit`` through the packed mega-kernel at cylinder S=2 over 3
+    chunk boundaries: each state the checkpoint worker writes equals, bit for
+    bit, the best seed's state as its boundary's launch left it (its pinned
+    copies are queued ahead of the next launch), and no hand-off waited on
+    the previous write (``ckpt.waits``)."""
+    cfg, spec, batch, _ = _packed_problem(cuda, "cylinder", 2, checkpoint_every=500)
+    returned = []
+    select = train_chunk.select_ensemble_chunk
+
+    def recording(*args, **kw):
+        chunk = select(*args, **kw)
+        assert chunk is not None  # the packed mega-kernel
+
+        def run(state, batch, n):
+            out, mets = chunk(state, batch, n)
+            returned.append((ensemble._snapshot(out), mets["total_s"][-1].clone()))
+            return out, mets
+
+        return run
+
+    monkeypatch.setattr(train_chunk, "select_ensemble_chunk", recording)
+    saved = []
+    before = profiling.counters()
+    ensemble.fit(cfg, spec, batch, n_seeds=2, num_epochs=1500, seed=cfg.seed, phi_sigma=cfg.seed_phi_sigma,
+                 log=None, checkpoint_fn=lambda st, ep: saved.append((st, ep)))
+    after = profiling.counters()
+    assert [ep for _, ep in saved] == [500, 1000, 1500] and len(returned) == 3
+    assert after["ckpt.writes"] - before.get("ckpt.writes", 0) == 3
+    assert after.get("ckpt.waits", 0) - before.get("ckpt.waits", 0) == 0
+    for (got, ep), (st, tot) in zip(saved, returned):
+        assert torch.isfinite(tot).all()
+        want = ensemble.seed_state(st, cfg, int(torch.argmin(tot)))
+        assert got.epoch == want.epoch == ep and got.params["phi"].device.type == "cpu"
+        for tree in ("params", "mu", "nu"):
+            for k, v in getattr(want, tree).items():
+                assert torch.equal(getattr(got, tree)[k], v.cpu()), (ep, tree, k)
+        for k in ("lrs", "best", "num_bad"):
+            assert torch.equal(getattr(got.sched, k), getattr(want.sched, k).cpu()), (ep, k)
+
+
 def _ae_problem(device, n=3961, m=1001, **over):
     """The AE preset at (n, m) on the cylinder's synthetic data from the live
     init (the reference init's decoder is dead, so it proves nothing about

@@ -17,6 +17,7 @@ import signal
 import subprocess
 import sys
 import threading
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -210,6 +211,39 @@ def test_checkpoints_are_written_in_order_and_a_failure_surfaces():
 
     with pytest.raises(OSError, match="disk full at 10"):
         train.fit(loss_fn, groups, cfg, params, batch, num_epochs=40, log=None, checkpoint_fn=failing)
+
+
+def test_a_write_starts_after_the_next_launch():
+    """A boundary's write waits for the next chunk's launch, so that it does
+    not hold the interpreter lock while the loop sets that launch up; the
+    last one starts at the drain."""
+    cfg, loss_fn, groups, params, batch, chunk = route("megakernel", checkpoint_every=10)
+    events = []
+
+    def launch(st, b, n):
+        out = chunk(st, b, n)
+        events.append(("chunk", out[0].epoch))
+        return out
+
+    train.fit(loss_fn, groups, cfg, params, batch, num_epochs=30, log=None, chunk=launch,
+              checkpoint_fn=lambda st, ep: events.append(("write", ep)))
+    assert events == [("chunk", 10), ("chunk", 20), ("write", 10), ("chunk", 30), ("write", 20), ("write", 30)]
+
+
+def test_host_copies_are_freed_on_the_fits_thread():
+    """Each host copy is freed on the fit's thread once written, never on the
+    worker: on the card, freeing pinned memory and an event are CUDA calls,
+    which on the worker can wait behind the fit's wait on the card."""
+    cfg, loss_fn, groups, params, batch, chunk = route("megakernel", checkpoint_every=10)
+    written, freed = [], []
+
+    def write(st, ep):
+        weakref.finalize(st.params["phi"], lambda: freed.append(threading.get_ident()))
+        written.append(threading.get_ident())
+
+    train.fit(loss_fn, groups, cfg, params, batch, num_epochs=40, log=None, chunk=chunk, checkpoint_fn=write)
+    assert len(written) == 4 and threading.get_ident() not in written
+    assert freed == [threading.get_ident()] * 4
 
 
 def test_host_snapshot_is_a_copy():

@@ -138,10 +138,13 @@ def test_traced_ensemble_fit_records_its_span_tree():
         fit_seeds(saved=saved, log=lambda line: None)
     recs = profiling.records()
     (top,) = [r for r in recs if r.parent is None]
-    assert top.name == "fit"
-    assert children(recs, top) == BOUNDARY | {"fit.init", "fit.snapshot"}
+    assert top.name == "fit" and top.thread == threading.get_ident()
+    assert children(recs, top) == BOUNDARY | {"fit.init", "fit.snapshot", "fit.drain"}
     assert all(children(recs, r) == CHUNK for r in recs if r.name == "fit.launch")
     assert len([r for r in recs if r.name == "fit.checkpoint"]) == len(saved) == 2
+    writes = [r for r in recs if r.name == "ckpt.write"]
+    assert len(writes) == 2
+    assert all(r.thread != top.thread and recs[r.parent].name == "fit.checkpoint" for r in writes)
     assert profiling.counters()["ckpt.writes"] == 2
 
 
