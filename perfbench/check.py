@@ -1,6 +1,13 @@
 """The comparison that decides ``correct``: what the program produced,
 against the plain reference (``perfbench/reference/<name>.py``, named by the
-configuration's file).
+configuration's file). A reference module provides ``LEAVES`` (the state's
+leaves), ``LATENT_LEAVES`` (those the latents depend on), ``PERIOD_LEAVES``
+(the Fourier variant's periods, or none), ``B1`` (Adamax's first decay),
+``full_fp32()``, ``pod_modes(x, r, low)``, ``seed_params(config, n_seeds,
+seed, device)``, ``initial_state(params, group_lrs)``, ``epoch(state, x,
+modes, config, beta, lam, low)`` and ``loss(params, x, modes, config, beta,
+lam, low)``, where ``config`` is the configuration's whole ``run_config``
+(``reference/desmo.py`` states what each returns).
 
 The program's outputs come in as plain data (``Observed``): X, its POD
 modes, and for each packed seed the states before and after each of the
@@ -25,7 +32,13 @@ between the program and the reference, held to the cell's limit
 - ``grad``: the worst leaf's gap between the norms of the first gradient as
   the optimizer took it (the program's: its first moment after one step over
   ``1 - b1``) and the reference's, over the larger of that leaf's reference
-  norm and the median leaf's;
+  norm and the median leaf's, over the leaves but the Fourier variant's
+  periods; ``grad_period`` the same over the periods (computed only where
+  the reference has them): their gradient sums over t terms that grow with
+  the series' angle, up to 1,050 rad, so it amplifies the float32 rounding
+  of that angle, which each side forms in its own order (each equals the
+  float64 gradient at its own float32 angles to 1e-5, and the two differ by
+  2e-3 of each entry), and its limit is set against the faults;
 - ``update``: the worst leaf's gap, by the same measure, between the norms
   of the parameters' change over the three epochs, the reference's summed
   from its steps out of the program's states, over the leaves the latents
@@ -33,9 +46,14 @@ between the program and the reference, held to the cell's limit
   phi's first gradient carries ``beta`` times the sign of latent Gram
   entries that start at rounding noise, so its later Adamax steps differ
   between two sound float32 orders by as much as TF32 moves the other
-  leaves, and its limit is set against the faults. Leaves whose reference
-  gradient is under a thousandth of the median leaf's are left out (they
-  move by round-off alone);
+  leaves, and its limit is set against the faults; ``update_period`` the
+  same gap of the Fourier variant's periods (``period``, ``trig_period``;
+  computed only where the reference has them): a period near 60 steps by
+  about 0.01, so the float32 spacing of the period itself, 3.8e-6, is 4e-4
+  of a step, and one rounding of the new period in another order moves the
+  norm of a six-entry leaf's change by up to 5e-5; its limit too is set
+  against the faults. Leaves whose reference gradient is under a thousandth
+  of the median leaf's are left out (they move by round-off alone);
 - ``launch``: the largest relative gap of rec, l1 and total over the first
   three epochs of the window's first launch (a launch of the checkpoint
   cadence's epochs, as every launch of the window), of the seed the fit
@@ -140,14 +158,12 @@ def compare(obs: Observed, config: dict, hypers: list, reference: str, seed: int
     ref = reference_module(reference)
     ref.full_fp32()
     x = obs.x
-    n, m = x.shape
     r = obs.modes.shape[1]
-    inits = ref.seed_params(n, m, r, config["poly_order"], config["omega_init"], len(obs.states), seed,
-                            config["seed_phi_sigma"], "cpu")
+    inits = ref.seed_params(config, len(obs.states), seed, "cpu")
     want = signed_like(ref.pod_modes(x, r), obs.modes)
     out: dict = {"pod": pod_gap(obs.modes, want)}
-    cfg = {k: config[k] for k in ("poly_order", "patience", "sched_factor", "sched_min_lr", "sched_every")}
-    init_gap = loss_gap = ortho_gap = grad_gap = update_gap = phi_gap = 0.0
+    init_gap = loss_gap = ortho_gap = grad_gap = grad_period_gap = update_gap = phi_gap = period_gap = 0.0
+    apart = ref.LATENT_LEAVES + ref.PERIOD_LEAVES
     for s, (states, mets) in enumerate(zip(obs.states, obs.metrics)):
         beta, lam = hypers[s]
         init_gap = max(init_gap, _max_gap({k: v.cpu() for k, v in states[0]["params"].items()},
@@ -155,27 +171,31 @@ def compare(obs: Observed, config: dict, hypers: list, reference: str, seed: int
         steps = []
         for k in range(3):
             dev_state = _to(states[k], x.device)
-            m_ref, g_ref, nxt = ref.epoch(dev_state, x, want, cfg, beta, lam)
+            m_ref, g_ref, nxt = ref.epoch(dev_state, x, want, config, beta, lam)
             lg, og = _loss_gaps(mets[k], m_ref)
             loss_gap, ortho_gap = max(loss_gap, lg), max(ortho_gap, og)
             steps.append((dev_state, g_ref, nxt))
         g0 = steps[0][1]
         g_prog = {k: states[1]["mu"][k].to(x.device) / (1.0 - ref.B1) for k in ref.LEAVES}
         grads = _norm_gaps(g_prog, g0, ref.LEAVES)
-        grad_gap = max(grad_gap, max(grads.values()))
+        grad_gap = max([grad_gap] + [v for k, v in grads.items() if k not in ref.PERIOD_LEAVES])
+        grad_period_gap = max([grad_period_gap] + [v for k, v in grads.items() if k in ref.PERIOD_LEAVES])
         norms = {k: float(torch.linalg.vector_norm(g0[k].double())) for k in ref.LEAVES}
         med = statistics.median(norms.values())
         moving = [k for k in ref.LEAVES if norms[k] >= STILL_LEAF * med]
         d_prog = {k: states[3]["params"][k].to(x.device) - states[0]["params"][k].to(x.device) for k in moving}
         d_ref = {k: sum(nxt["params"][k] - st["params"][k] for st, _, nxt in steps) for k in moving}
         updates = _norm_gaps(d_prog, d_ref, moving)
-        update_gap = max([update_gap] + [v for k, v in updates.items() if k not in ref.LATENT_LEAVES])
+        update_gap = max([update_gap] + [v for k, v in updates.items() if k not in apart])
         phi_gap = max([phi_gap] + [v for k, v in updates.items() if k in ref.LATENT_LEAVES])
+        period_gap = max([period_gap] + [v for k, v in updates.items() if k in ref.PERIOD_LEAVES])
         if leaves is not None:
             for name, gaps in (("grad", grads), ("update", updates)):
                 for k, v in gaps.items():
                     leaves.setdefault(name, {})[k] = max(leaves.get(name, {}).get(k, 0.0), v)
     out.update(init=init_gap, loss=loss_gap, ortho=ortho_gap, grad=grad_gap, update=update_gap, update_phi=phi_gap)
+    if ref.PERIOD_LEAVES:
+        out.update(grad_period=grad_period_gap, update_period=period_gap)
     if obs.launch:
         lg = og = 0.0
         for s, got in obs.launch:
@@ -188,8 +208,7 @@ def compare(obs: Observed, config: dict, hypers: list, reference: str, seed: int
         for params, mets in obs.window:
             beta, lam = hypers[0]
             with torch.no_grad():
-                _, m_ref = ref.loss({k: v.to(x.device) for k, v in params.items()}, x, want,
-                                    cfg["poly_order"], beta, lam)
+                _, m_ref = ref.loss({k: v.to(x.device) for k, v in params.items()}, x, want, config, beta, lam)
             lg, og = _loss_gaps(mets, {k: float(v) for k, v in m_ref.items()})
             wl, wo = max(wl, lg), max(wo, og)
         out.update(window_loss=wl, window_ortho=wo)

@@ -25,7 +25,15 @@ epoch of the next launch from there. For each of ``--control-seeds``:
 - ``moments``: the same, with the optimizer's moments dropped after the
   first epoch of a longer launch, in place of the half rows;
 - ``unchanged``: a step that returns its state unchanged (and reports the
-  loss of that state).
+  loss of that state);
+- for a configuration of the Fourier variant (``n_fourier`` > 0), two faults
+  of its series: ``periods``, the reference with the periods' step dropped
+  (``period`` and ``trig_period`` held at each epoch's start), and
+  ``harmonic``, the reference with the top harmonic left out of B (its
+  window number the loss so formed of the program's checkpointed state).
+
+Each side's reference is ``reference.<name>`` with the configuration's whole
+``run_config`` (the interface ``check.py`` states).
 
 Prints one JSON line per seed and side (with each leaf's ``grad`` and
 ``update`` gap, and for the program ``free``: at each of the launch's first
@@ -51,6 +59,20 @@ if str(ROOT) not in sys.path:
 from perfbench import check, harness, synthetic  # noqa: E402
 
 FREE_EPOCHS = 5  # the epochs of the launch held to the reference run on its own, for the record
+SIDES = ("control", "half", "later", "moments", "unchanged")
+FOURIER_SIDES = ("periods", "harmonic")
+
+
+def sides(rc: dict) -> tuple:
+    """The sides other than the program that a cell of ``run_config`` rc
+    reads."""
+    return SIDES + (FOURIER_SIDES if rc.get("n_fourier", 0) else ())
+
+
+def side_config(rc: dict, side: str) -> dict:
+    """The ``run_config`` the reference of ``side`` runs with: for
+    ``harmonic``, one harmonic fewer in B (the state keeps its shapes)."""
+    return dict(rc, n_fourier=rc["n_fourier"] - 1) if side == "harmonic" else rc
 
 
 def program_numbers(cell, seed: int, device: str) -> dict:
@@ -65,7 +87,7 @@ def program_numbers(cell, seed: int, device: str) -> dict:
     window_state = None
     if S == 1:
         _, m = su.chunk(at, su.batch, cfg.checkpoint_every)
-        window_state = harness.host_states(at, 1, False)[0]["params"]
+        window_state = harness.host_states(at, 1, False, su.leaves)[0]["params"]
         obs.window.append((window_state, harness.seed_metrics(m, 1)[0]))
     hypers = [(cfg.beta, cfg.l1_lambda)] * S
     leaves: dict = {}
@@ -83,22 +105,21 @@ def free_gaps(cell, seed: int, x, modes, rows) -> list:
     ref = check.reference_module(cell.config["reference"])
     ref.full_fp32()
     want = check.signed_like(ref.pod_modes(x, rc["r"]), modes)
-    inits = ref.seed_params(rc["n"], rc["m"], rc["r"], rc["poly_order"], rc["omega_init"], len(rows[0]), seed,
-                            rc["seed_phi_sigma"], x.device)
-    cfg = {k: rc[k] for k in ("poly_order", "patience", "sched_factor", "sched_min_lr", "sched_every")}
+    inits = ref.seed_params(rc, len(rows[0]), seed, x.device)
     gaps = [0.0] * len(rows)
     for s, init in enumerate(inits):
-        _, mets = _trajectory(ref, x, want, init, cfg, rc, False, rows=(None,) * len(rows))
+        _, mets = _trajectory(ref, x, want, init, rc, False, rows=(None,) * len(rows))
         for k, (row, m_ref) in enumerate(zip(rows, mets)):
             gaps[k] = max(gaps[k], check._loss_gaps(row[s], m_ref)[0])
     return gaps
 
 
-def _trajectory(ref, x, modes, init: dict, cfg: dict, rc: dict, low: bool, rows=(None,) * 3, drop=False):
-    """Reference epochs from ``init``, epoch k on the first ``rows[k]`` rows
-    of X alone where that is not None, and with ``drop`` the optimizer's
-    moments zeroed after the first: the states before and after each, full
-    width, and the metrics."""
+def _trajectory(ref, x, modes, init: dict, rc: dict, low: bool, rows=(None,) * 3, drop=False, held=()):
+    """Reference epochs of ``run_config`` rc from ``init``, epoch k on the
+    first ``rows[k]`` rows of X alone where that is not None, with ``drop``
+    the optimizer's moments zeroed after the first, and the parameters
+    ``held`` kept as each epoch found them: the states before and after
+    each, full width, and the metrics."""
     st = ref.initial_state(init, [rc["lr_coef"], rc["lr_phi"], rc["lr_z"], rc["lr_omega"], rc["lr_period"]])
     states, mets = [st], []
     for h in rows:
@@ -106,23 +127,25 @@ def _trajectory(ref, x, modes, init: dict, cfg: dict, rc: dict, low: bool, rows=
             st = dict(st, mu={k: torch.zeros_like(v) for k, v in st["mu"].items()},
                       nu={k: torch.zeros_like(v) for k, v in st["nu"].items()})
         if h is None:
-            m, _, st = ref.epoch(st, x, modes, cfg, rc["beta"], rc["l1_lambda"], low)
+            m, _, nxt = ref.epoch(st, x, modes, rc, rc["beta"], rc["l1_lambda"], low)
         else:
             part = dict(st, params={}, mu={}, nu={})
             for tree in ("params", "mu", "nu"):
                 part[tree] = dict(st[tree], phi=st[tree]["phi"][:, :h])
-            m, _, nxt = ref.epoch(part, x[:h], modes[:h], cfg, rc["beta"], rc["l1_lambda"], low)
+            m, _, nxt = ref.epoch(part, x[:h], modes[:h], rc, rc["beta"], rc["l1_lambda"], low)
             for tree in ("params", "mu", "nu"):
                 nxt[tree]["phi"] = torch.cat([nxt[tree]["phi"], st[tree]["phi"][:, h:]], dim=1)
-            st = nxt
+        for k in held:
+            nxt["params"][k] = st["params"][k].clone()
+        st = nxt
         states.append(st)
         mets.append(m)
     return states, mets
 
 
 def side_numbers(cell, seed: int, side: str, device: str, window_state=None) -> dict:
-    """The numbers of ``side`` (control, half, later, moments or unchanged)
-    in the program's place."""
+    """The numbers of ``side`` (one of :func:`sides`) in the program's
+    place."""
     rc = cell.config["run_config"]
     ref = check.reference_module(cell.config["reference"])
     ref.full_fp32()
@@ -130,38 +153,40 @@ def side_numbers(cell, seed: int, side: str, device: str, window_state=None) -> 
     dev = torch.device(device)
     x = synthetic.wake(rc["n"], rc["m"], seed, dev)
     modes = ref.pod_modes(x, rc["r"])
-    inits = ref.seed_params(rc["n"], rc["m"], rc["r"], rc["poly_order"], rc["omega_init"], S, seed,
-                            rc["seed_phi_sigma"], dev)
-    cfg = {k: rc[k] for k in ("poly_order", "patience", "sched_factor", "sched_min_lr", "sched_every")}
+    inits = ref.seed_params(rc, S, seed, dev)
     steps = harness.FIRST_STEPS
     h = rc["n"] // 2
     obs = check.Observed(x=x, modes=modes, states=[], metrics=[])
     for s in range(S):
         if side == "control":
-            states, mets = _trajectory(ref, x, modes, inits[s], cfg, rc, True)
+            states, mets = _trajectory(ref, x, modes, inits[s], rc, True)
             launch = mets
         elif side == "half":
-            states, mets = _trajectory(ref, x, modes, inits[s], cfg, rc, False, rows=(h,) * steps)
+            states, mets = _trajectory(ref, x, modes, inits[s], rc, False, rows=(h,) * steps)
+            launch = mets
+        elif side in ("periods", "harmonic"):
+            states, mets = _trajectory(ref, x, modes, inits[s], side_config(rc, side), False,
+                                       held=ref.PERIOD_LEAVES if side == "periods" else ())
             launch = mets
         elif side in ("later", "moments"):
-            states, mets = _trajectory(ref, x, modes, inits[s], cfg, rc, False)
+            states, mets = _trajectory(ref, x, modes, inits[s], rc, False)
             if side == "later":
-                _, launch = _trajectory(ref, x, modes, inits[s], cfg, rc, False, rows=(None,) + (h,) * (steps - 1))
+                _, launch = _trajectory(ref, x, modes, inits[s], rc, False, rows=(None,) + (h,) * (steps - 1))
             else:
-                _, launch = _trajectory(ref, x, modes, inits[s], cfg, rc, False, drop=True)
+                _, launch = _trajectory(ref, x, modes, inits[s], rc, False, drop=True)
         else:
-            states, mets = _trajectory(ref, x, modes, inits[s], cfg, rc, False)
+            states, mets = _trajectory(ref, x, modes, inits[s], rc, False)
             mets = launch = [mets[0]] * steps
             states = [states[0]] * (steps + 1)
         obs.states.append([{**st, **{t: {k: v.cpu() for k, v in st[t].items()} for t in ("params", "mu", "nu")}}
                            for st in states])
         obs.metrics.append(mets)
         obs.launch.append((s, launch))
-    if side in ("control", "half") and window_state is not None:
+    if side in ("control", "half", "harmonic") and window_state is not None:
         params = {k: v.to(dev) for k, v in window_state.items()}
-        rows = rc["n"] if side == "control" else h
+        rows = h if side == "half" else rc["n"]
         with torch.no_grad():
-            _, m = ref.loss(dict(params, phi=params["phi"][:, :rows]), x[:rows], modes[:rows], rc["poly_order"],
+            _, m = ref.loss(dict(params, phi=params["phi"][:, :rows]), x[:rows], modes[:rows], side_config(rc, side),
                             rc["beta"], rc["l1_lambda"], side == "control")
         obs.window.append((window_state, {k: float(v) for k, v in m.items()}))
     hypers = [(rc["beta"], rc["l1_lambda"])] * S
@@ -195,7 +220,7 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.control_seeds.split(",")):
         numbers, window_state, leaves = program_numbers(cell, seed, args.device)
         emit(seed, "program", numbers, leaves)
-        for side in ("control", "half", "later", "moments", "unchanged"):
+        for side in sides(cell.config["run_config"]):
             emit(seed, side, side_numbers(cell, seed, side, args.device, window_state))
     summary = {}
     for side, rows in readings.items():

@@ -4,7 +4,11 @@ comparison that decides ``correct``.
 Everything a cell is made of is found by name: the cell's entry in
 ``BENCHMARK.json``, its configuration's file (``configs/<name>.json``, the
 program's ``RunConfig`` as it is run, and the name of its plain reference
-under ``reference/``), its traffic mix (``traffic/<name>.json``: the packed
+under ``reference/``, a module with the interface ``reference/desmo.py``'s
+docstring states: the state's leaves ``LEAVES``, which the harness reads
+back from the program's states, checkpoints and exports, and the
+reference's functions, which take the configuration's whole
+``run_config``), its traffic mix (``traffic/<name>.json``: the packed
 seeds, a job's epochs, the log and checkpoint cadence), the limits of its
 compared numbers (``limits/<cell>.json``) and one reader per metric
 (``metrics/<metric>.py``, a function ``read(run)`` that returns the number,
@@ -61,7 +65,6 @@ from perfbench.timeline import WINDOW, HostSpans, Timeline
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "desmo_tpu")
-LEAVES = ("phi", "c", "z", "z_trig", "c_trig", "omega")
 FIRST_STEPS = 3
 PHASE_EPOCHS = 200
 
@@ -160,16 +163,16 @@ def run_config(cell: Cell, seed: int):
     )
 
 
-def host_states(state, seeds: int, stacked: bool) -> list:
+def host_states(state, seeds: int, stacked: bool, leaves) -> list:
     """The program's ``TrainState`` as reference-format states on the host,
-    one per seed."""
+    one per seed, of the reference's ``leaves``."""
     out = []
     for s in range(seeds):
         def pick(t):
             return t[s] if stacked else t
 
         def tree(d):
-            return {k: pick(d[k]).detach().to("cpu", copy=True) for k in LEAVES}
+            return {k: pick(d[k]).detach().to("cpu", copy=True) for k in leaves}
 
         sched = state.sched
         out.append({
@@ -189,25 +192,27 @@ def seed_metrics(mets: dict, seeds: int, row: int = 0) -> list:
     return [{k: v[k][row] for k in ("rec", "ortho", "l1", "total")}]
 
 
-def flat_state(state) -> dict:
-    """The leaves of a one-model ``TrainState`` by the keys ``save_state``
-    writes, as arrays."""
+def flat_state(state, leaves) -> dict:
+    """The ``leaves`` of a one-model ``TrainState`` by the keys
+    ``save_state`` writes, as arrays."""
     def arr(t):
         return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
-    out = {f"params/{k}": arr(state.params[k]) for k in LEAVES}
-    out.update({f"opt/mu/{k}": arr(state.mu[k]) for k in LEAVES})
-    out.update({f"opt/nu/{k}": arr(state.nu[k]) for k in LEAVES})
+    out = {f"params/{k}": arr(state.params[k]) for k in leaves}
+    out.update({f"opt/mu/{k}": arr(state.mu[k]) for k in leaves})
+    out.update({f"opt/nu/{k}": arr(state.nu[k]) for k in leaves})
     out.update({"sched/lrs": arr(state.sched.lrs), "sched/best": arr(state.sched.best),
                 "sched/num_bad": arr(state.sched.num_bad), "opt/count": np.asarray(state.count),
                 "epoch": np.asarray(state.epoch)})
     return out
 
 
-def pt_params(path: str) -> dict:
+def pt_params(path: str, leaves) -> dict:
     """The parameters of an exported ``.pt`` in the reference scripts' key
     scheme (``phi_list.i``, ``c_coef``, ``z_list.t``, ``z{kind}_list.i``,
-    ``{kind}_coef_list.i``, ``omega_list.{3i+k}``)."""
+    ``{kind}_coef_list.i``, ``omega_list.{3i+k}``; the Fourier variant's
+    ``period_list.t`` and ``trig_period_list.{3i+k}``), of the reference's
+    ``leaves``."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
 
     def stack(prefix):
@@ -219,13 +224,19 @@ def pt_params(path: str) -> dict:
     phi = stack("phi_list")
     r = phi.shape[0]
     kinds = ("sin", "cos", "tanh")
-    return {
-        "pt/params/phi": phi, "pt/params/c": sd["c_coef"].numpy(), "pt/params/z": stack("z_list"),
-        "pt/params/z_trig": np.stack([stack(f"z{k}_list") for k in kinds]),
-        "pt/params/c_trig": np.array([[float(sd[f"{k}_coef_list.{i}"]) for i in range(r)] for k in kinds], np.float32),
-        "pt/params/omega": np.array([[float(sd[f"omega_list.{3 * i + k}"]) for i in range(r)] for k in range(3)],
-                                    np.float32),
+
+    def per_channel(prefix):
+        return np.array([[float(sd[f"{prefix}.{3 * i + k}"]) for i in range(r)] for k in range(3)], np.float32)
+
+    out = {
+        "phi": phi, "c": sd["c_coef"].numpy(), "z": stack("z_list"),
+        "z_trig": np.stack([stack(f"z{k}_list") for k in kinds]),
+        "c_trig": np.array([[float(sd[f"{k}_coef_list.{i}"]) for i in range(r)] for k in kinds], np.float32),
+        "omega": per_channel("omega_list"),
     }
+    if "period" in leaves:
+        out.update(period=stack("period_list").reshape(-1), trig_period=per_channel("trig_period_list"))
+    return {f"pt/params/{k}": out[k] for k in leaves}
 
 
 def npz_state(path: str) -> dict:
@@ -252,6 +263,7 @@ class Setup:
     states: list  # [s0, s1, s2, s3], each a list of per-seed host states
     mets: list  # [m1, m2, m3], each a list of per-seed metrics
     spans: dict  # seconds of set-up steps by name
+    leaves: tuple  # the reference's LEAVES
 
 
 def set_up(cell: Cell, seed: int, device: str) -> Setup:
@@ -273,6 +285,7 @@ def set_up(cell: Cell, seed: int, device: str) -> Setup:
 
     dev = device_mod.resolve(device)
     cfg = run_config(cell, seed)
+    leaves = check.reference_module(cell.config["reference"]).LEAVES
     S = cfg.n_seeds
     torch.empty(1, device=dev)
     mark("device")
@@ -299,13 +312,14 @@ def set_up(cell: Cell, seed: int, device: str) -> Setup:
     if chunk is None:
         raise RuntimeError(f"no mega-kernel chunk for cell {cell.name} on {dev}: chunk_method={cfg.chunk_method!r}")
     init = state
-    states, mets = [host_states(state, S, S > 1)], []
+    states, mets = [host_states(state, S, S > 1, leaves)], []
     for _ in range(FIRST_STEPS):
         state, m = chunk(state, batch, 1)
         mets.append(seed_metrics(m, S))
-        states.append(host_states(state, S, S > 1))
+        states.append(host_states(state, S, S > 1, leaves))
     mark("first_epochs")
-    return Setup(cfg, dev, x, pod.modes, batch, spec, params, loss_fn, groups, chunk, init, states, mets, spans)
+    return Setup(cfg, dev, x, pod.modes, batch, spec, params, loss_fn, groups, chunk, init, states, mets, spans,
+                 leaves)
 
 
 def observed(su: Setup) -> check.Observed:
@@ -331,7 +345,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         cfg, dev, batch, spec, chunk = su.cfg, su.dev, su.batch, su.spec, su.chunk
         params, loss_fn, groups = su.params, su.loss_fn, su.groups
         S = cfg.n_seeds
-        start, spans = su.state, su.spans
+        start, spans, leaves = su.state, su.spans, su.leaves
         written: list = []
         # block-buffered, as the runner's output redirected to a file
         log_file = open(os.path.join(work_dir, "run.log"), "w")
@@ -422,8 +436,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         last = [j for j in jobs if len(j[2]) >= 1][-1]
         res, best, ckpts = last
         final = npz_state(os.path.join(work_dir, f"state_epoch{ckpts[-1]}.npz"))
-        final.update(pt_params(os.path.join(work_dir, f"{cfg.name}_r{cfg.r}_epoch{ckpts[-1]}.pt")))
-        returned = flat_state(res.state)
+        final.update(pt_params(os.path.join(work_dir, f"{cfg.name}_r{cfg.r}_epoch{ckpts[-1]}.pt"), leaves))
+        returned = flat_state(res.state, leaves)
         returned.update({f"pt/{k}": v for k, v in returned.items() if k.startswith("params/")})
         obs.checkpoint = (final, returned)
         # the window's first launch: its first epochs, of the seed the fit
@@ -438,7 +452,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
             # metrics the job recorded for the epoch that starts there
             saved = npz_state(os.path.join(work_dir, f"state_epoch{b}.npz"))
             obs.window.append((
-                {leaf: torch.as_tensor(saved[f"params/{leaf}"]) for leaf in LEAVES},
+                {leaf: torch.as_tensor(saved[f"params/{leaf}"]) for leaf in leaves},
                 {key: float(res0.history[key][b]) for key in check.METRICS},
             ))
         del jobs, res, start, batch, chunk, fit_chunk, params, su
@@ -452,7 +466,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
 
     r = cell.config["run_config"]
     k = roofline.num_terms(r["r"], r["poly_order"])
-    least = roofline.least_epoch_s(r["n"], r["m"], k, r["r"], seeds=S, epochs=cfg.checkpoint_every)
+    least = roofline.least_epoch_s(r["n"], r["m"], k, r["r"], seeds=S, nf=r["n_fourier"],
+                                   epochs=cfg.checkpoint_every)
     reading = Run(setup_s=setup_s, window_s=window_s, seed_epochs=seed_epochs, seeds=S, least_epoch_s=least,
                   setup_spans=spans, timeline=timeline, trace_window=trace_window)
     entries = cell.per_layer if trace else cell.end_to_end

@@ -45,6 +45,9 @@ PARTS = {
 CATEGORIES = ("launch", "fetch", "log", "checkpoint", "other", "outside")
 # the kernel clock's phases of X·Bᵀ and AᵀX
 CONTRACT = ("rows.xb", "columns.ax", "columns.ax_barrier")
+# the Fourier form's phases: the series and period Adamax with B rebuilt
+# from the new series and its B Bᵀ partials, then their reduction
+SERIES = ("series.update", "series.gram")
 
 
 def program_records():
@@ -177,16 +180,28 @@ def clock_records(run, records=None) -> list | None:
     return [r.clock for r in records if r.clock and lo <= r.start + off <= hi]
 
 
-def contract_pct(run, records=None) -> float | None:
-    """The window's launches' share of kernel-clock time in X·Bᵀ and AᵀX
-    (:data:`CONTRACT`), over all phases."""
+def phase_pct(run, phases, records=None) -> float | None:
+    """The window's launches' share of kernel-clock time in ``phases``,
+    over all phases; None where no launch's clock has them."""
     clocks = clock_records(run, records)
-    if not clocks:
+    if not clocks or not any(k in c for c in clocks for k in phases):
         return None
     total = sum(sum(c.values()) for c in clocks)
     if total <= 0:
         return None
-    return 100.0 * sum(c.get(k, 0) for c in clocks for k in CONTRACT) / total
+    return 100.0 * sum(c.get(k, 0) for c in clocks for k in phases) / total
+
+
+def contract_pct(run, records=None) -> float | None:
+    """The window's launches' share of kernel-clock time in X·Bᵀ and AᵀX
+    (:data:`CONTRACT`), over all phases."""
+    return phase_pct(run, CONTRACT, records)
+
+
+def series_pct(run, records=None) -> float | None:
+    """The window's launches' share of kernel-clock time in the Fourier
+    form's series phases (:data:`SERIES`), over all phases."""
+    return phase_pct(run, SERIES, records)
 
 
 def ranges(path: str) -> dict:

@@ -16,6 +16,16 @@ A state is a dict: ``params``, ``mu``, ``nu`` (dicts of leaves ``phi``
 (r, n), ``c`` (T,), ``z`` (T, m), ``z_trig`` (3, r, m), ``c_trig`` (3, r),
 ``omega`` (3, r)), ``count``, ``lrs`` (5,), ``best``, ``num_bad`` and
 ``epoch``; one model, no seed axis.
+
+The interface every reference module gives the harness (``check.py``,
+``control.py``), with ``config`` a configuration's whole ``run_config``:
+``LEAVES`` (the state's leaves, as the program's ``TrainState`` names them),
+``LATENT_LEAVES``, ``PERIOD_LEAVES``, ``B1``, ``full_fp32()``,
+``pod_modes(x, r, low)``, ``seed_params(config, n_seeds, seed, device)``,
+``initial_state(params, group_lrs)``, ``epoch(state, x, modes, config,
+beta, lam, low)`` and ``loss(params, x, modes, config, beta, lam, low)``.
+``epoch`` and ``loss`` take n and m from X (a fault may hand them part of
+its rows), ``seed_params`` from ``config``.
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ LEAVES = ("phi", "c", "z", "z_trig", "c_trig", "omega")
 GROUP = {"c": 0, "c_trig": 0, "phi": 1, "z": 2, "z_trig": 2, "omega": 3}
 # the leaves the latents, and so ortho's Gram, depend on
 LATENT_LEAVES = ("phi",)
+# the Fourier variant's learnable periods, none here
+PERIOD_LEAVES = ()
 B1, B2, EPS = 0.9, 0.999, 1e-8
 PLATEAU_THRESHOLD = 1e-4
 
@@ -91,10 +103,11 @@ def pod_modes(x: torch.Tensor, r: int, low: bool = False) -> torch.Tensor:
     return matmul(x, v, True) / s[None, :]
 
 
-def initial_params(n: int, m: int, r: int, poly_order: int, omega_init: float, device) -> dict:
+def initial_params(config: dict, device) -> dict:
     """The reference scripts' init: every mask, coefficient and temporal row
     one, omega at ``omega_init``."""
-    T = len(monomials(r, poly_order))
+    n, m, r = config["n"], config["m"], config["r"]
+    T = len(monomials(r, config["poly_order"]))
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "phi": torch.ones((r, n), **f32),
@@ -102,19 +115,19 @@ def initial_params(n: int, m: int, r: int, poly_order: int, omega_init: float, d
         "z": torch.ones((T, m), **f32),
         "z_trig": torch.ones((3, r, m), **f32),
         "c_trig": torch.ones((3, r), **f32),
-        "omega": torch.full((3, r), float(omega_init), **f32),
+        "omega": torch.full((3, r), float(config["omega_init"]), **f32),
     }
 
 
-def seed_params(n: int, m: int, r: int, poly_order: int, omega_init: float, n_seeds: int, seed: int,
-                phi_sigma: float, device) -> list[dict]:
-    """The initial parameters of ``n_seeds`` packed seeds of a multi-start
-    drawn from ``seed``: seed 0 the reference init, seed s >= 1 its masks
-    times (1 + sigma N(0, 1)), the normal draws from a CPU
-    ``torch.Generator`` seeded with the first of two words of
-    ``numpy.random.SeedSequence(seed)`` (the documented recipe of
+def jittered(base: dict, config: dict, n_seeds: int, seed: int, device) -> list[dict]:
+    """``n_seeds`` packed seeds of a multi-start drawn from ``seed``, from
+    the reference init ``base`` (on the CPU): seed 0 ``base``, seed s >= 1
+    its masks times (1 + sigma N(0, 1)), sigma ``seed_phi_sigma``, the
+    normal draws from a CPU ``torch.Generator`` seeded with the first of two
+    words of ``numpy.random.SeedSequence(seed)`` (the documented recipe of
     ``run --seeds``)."""
-    base = initial_params(n, m, r, poly_order, omega_init, "cpu")
+    r, n = base["phi"].shape
+    phi_sigma = config["seed_phi_sigma"]
     out = [{k: v.clone() for k, v in base.items()} for _ in range(n_seeds)]
     if n_seeds > 1 and phi_sigma > 0.0:
         word = np.random.SeedSequence(seed).generate_state(2, np.uint64)[0]
@@ -122,6 +135,12 @@ def seed_params(n: int, m: int, r: int, poly_order: int, omega_init: float, n_se
         for s in range(1, n_seeds):
             out[s]["phi"] = out[s]["phi"] * (1.0 + noise[s - 1])
     return [{k: v.to(device) for k, v in p.items()} for p in out]
+
+
+def seed_params(config: dict, n_seeds: int, seed: int, device) -> list[dict]:
+    """The initial parameters of ``n_seeds`` packed seeds drawn from
+    ``seed`` (:func:`jittered` of :func:`initial_params`)."""
+    return jittered(initial_params(config, "cpu"), config, n_seeds, seed, device)
 
 
 def initial_state(params: dict, group_lrs) -> dict:
@@ -155,15 +174,19 @@ def dictionary(params: dict, modes: torch.Tensor, poly_order: int) -> tuple[torc
     return torch.cat([theta, trig.reshape(3 * r, n).T], dim=1), lat
 
 
-def loss(params: dict, x: torch.Tensor, modes: torch.Tensor, poly_order: int, beta: float, lam: float,
-         low: bool = False) -> tuple[torch.Tensor, dict]:
-    """``total = mean((A B - X)^2) + beta ortho + lam l1`` and its terms:
-    ortho the sum of |latentᵢ · latentⱼ| over i < j, l1 the sum of |c| and
-    |c_trig|."""
+def temporal(params: dict) -> torch.Tensor:
+    """The temporal matrix B (K, m): the free rows ``z ‖ z_trig``."""
+    r = params["phi"].shape[0]
+    return torch.cat([params["z"], params["z_trig"].reshape(3 * r, -1)], dim=0)
+
+
+def objective(params: dict, b_of, x: torch.Tensor, modes: torch.Tensor, poly_order: int, beta: float, lam: float,
+              low: bool = False) -> tuple[torch.Tensor, dict]:
+    """``total = mean((A B - X)^2) + beta ortho + lam l1`` and its terms, with
+    B ``b_of(params)`` (K, m): ortho the sum of |latentᵢ · latentⱼ| over
+    i < j, l1 the sum of |c| and |c_trig|."""
     a, lat = dictionary(params, modes, poly_order)
-    r = lat.shape[1]
-    b = torch.cat([params["z"], params["z_trig"].reshape(3 * r, -1)], dim=0)
-    resid = matmul(a, b, low) - x
+    resid = matmul(a, b_of(params), low) - x
     rec = torch.mean(resid * resid)
     gram = matmul(lat.T, lat, low)
     ortho = torch.triu(torch.abs(gram), diagonal=1).sum()
@@ -172,40 +195,52 @@ def loss(params: dict, x: torch.Tensor, modes: torch.Tensor, poly_order: int, be
     return total, {"rec": rec, "ortho": ortho, "l1": l1, "total": total}
 
 
-def epoch(state: dict, x: torch.Tensor, modes: torch.Tensor, cfg: dict, beta: float, lam: float,
-          low: bool = False) -> tuple[dict, dict, dict]:
-    """One epoch from ``state``: returns ``(metrics, grads, new_state)`` with
-    the metrics of the parameters before the update (floats), the gradient
-    of the total as the optimizer takes it, and the state after Adamax
-    (torch's ``Adamax``: bias ``1 - b1^t``, ``nu = max(b2 nu, |g| + eps)``)
-    with the group LRs in force before this epoch's scheduler step, and the
-    plateau scheduler (torch's ``ReduceLROnPlateau``, mode min, relative
-    threshold 1e-4) stepped with the total when ``epoch % sched_every == 0``.
-    ``cfg`` holds ``poly_order``, ``patience``, ``sched_factor``,
-    ``sched_min_lr`` and ``sched_every``."""
-    params = {k: state["params"][k].detach().clone().requires_grad_(True) for k in LEAVES}
-    total, mets = loss(params, x, modes, cfg["poly_order"], beta, lam, low)
-    grads = dict(zip(LEAVES, torch.autograd.grad(total, [params[k] for k in LEAVES])))
+def loss(params: dict, x: torch.Tensor, modes: torch.Tensor, config: dict, beta: float, lam: float,
+         low: bool = False) -> tuple[torch.Tensor, dict]:
+    """:func:`objective` with B the free temporal rows (:func:`temporal`)."""
+    return objective(params, temporal, x, modes, config["poly_order"], beta, lam, low)
+
+
+def step(state: dict, loss_fn, config: dict, leaves=LEAVES, group=GROUP) -> tuple[dict, dict, dict]:
+    """One epoch from ``state`` with ``loss_fn(params) -> (total, metrics)``
+    over ``leaves``, each stepped with its ``group``'s LR: returns
+    ``(metrics, grads, new_state)`` with the metrics of the parameters
+    before the update (floats), the gradient of the total as the optimizer
+    takes it, and the state after Adamax (torch's ``Adamax``: bias
+    ``1 - b1^t``, ``nu = max(b2 nu, |g| + eps)``) with the group LRs in
+    force before this epoch's scheduler step, and the plateau scheduler
+    (torch's ``ReduceLROnPlateau``, mode min, relative threshold 1e-4)
+    stepped with the total when ``epoch % sched_every == 0`` (``config``'s
+    ``patience``, ``sched_factor``, ``sched_min_lr`` and ``sched_every``)."""
+    params = {k: state["params"][k].detach().clone().requires_grad_(True) for k in leaves}
+    total, mets = loss_fn(params)
+    grads = dict(zip(leaves, torch.autograd.grad(total, [params[k] for k in leaves])))
     count = state["count"] + 1
     bias = 1.0 - B1 ** count
     new = {"params": {}, "mu": {}, "nu": {}}
     with torch.no_grad():
-        for k in LEAVES:
+        for k in leaves:
             g = grads[k]
             mu = B1 * state["mu"][k] + (1.0 - B1) * g
             nu = torch.maximum(B2 * state["nu"][k], torch.abs(g) + EPS)
-            lr = float(state["lrs"][GROUP[k]])
+            lr = float(state["lrs"][group[k]])
             new["params"][k] = params[k].detach() - (lr / bias) * mu / nu
             new["mu"][k], new["nu"][k] = mu, nu
     value = float(total.detach())
     lrs, best, num_bad = state["lrs"].clone(), state["best"], state["num_bad"]
-    if state["epoch"] % cfg["sched_every"] == 0:
+    if state["epoch"] % config["sched_every"] == 0:
         if value < best * (1.0 - PLATEAU_THRESHOLD):
             best, num_bad = value, 0
         else:
             num_bad += 1
-        if num_bad > cfg["patience"]:
-            lrs = torch.clamp(lrs * cfg["sched_factor"], min=cfg["sched_min_lr"])
+        if num_bad > config["patience"]:
+            lrs = torch.clamp(lrs * config["sched_factor"], min=config["sched_min_lr"])
             num_bad = 0
     new.update(count=count, lrs=lrs, best=best, num_bad=num_bad, epoch=state["epoch"] + 1)
     return {k: float(v.detach()) for k, v in mets.items()}, {k: g.detach() for k, g in grads.items()}, new
+
+
+def epoch(state: dict, x: torch.Tensor, modes: torch.Tensor, config: dict, beta: float, lam: float,
+          low: bool = False) -> tuple[dict, dict, dict]:
+    """One epoch of :func:`loss` from ``state`` (:func:`step`)."""
+    return step(state, lambda p: loss(p, x, modes, config, beta, lam, low), config)

@@ -1,7 +1,9 @@
-"""The harness on the CPU at a tiny size: cells found by name, a run that
-reads correct, each fault a run can have caught with the timed path broken
-underneath, the control caught, the timeline's readers, the refusals
-(no card, a bare directory, JAX loaded), and one short run on the card."""
+"""The harness on the CPU at a tiny size: cells found by name (a packed
+Fourier cell added as files alone too), a run that reads correct, each
+fault a run can have caught with the timed path broken underneath (and the
+Fourier form's own: the periods held, the top harmonic left out of B), the
+control caught, the timeline's readers, the refusals (no card, a bare
+directory, JAX loaded), and one short run on the card."""
 
 import dataclasses
 import hashlib
@@ -23,6 +25,7 @@ ROOT = harness.ROOT
 BENCH = harness.load_benchmark()
 TINY = dict(n=400, m=80, chunk_method="megakernel")
 TINY_TRAFFIC = dict(job_epochs=60, log_every=5, checkpoint_every=10)
+CELLS = ["cylinder.one_seed", "aneurysm.seeds4", "fourier_cylinder.one_seed"]
 
 
 def tiny_cell(name: str):
@@ -84,7 +87,34 @@ def test_a_cell_added_as_files_is_found_without_editing_one(tmp_path):
     assert {k: v for k, v in after.items() if k in before} == before
 
 
-@pytest.mark.parametrize("name", ["cylinder.one_seed", "aneurysm.seeds4"])
+def test_a_packed_fourier_cell_added_as_files_runs_without_editing_one(tmp_path):
+    """A packed cell of the Fourier configuration (2 seeds, its own traffic
+    and limits files, as ``fourier_cylinder.seeds8`` would come) is found and
+    runs correct at the tiny size with no file of the harness edited."""
+    shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digests(tmp_path / "perfbench")
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    pb = tmp_path / "perfbench"
+    (pb / "traffic" / "twin2.json").write_text(json.dumps(dict(seeds=2, job_epochs=100000, log_every=10,
+                                                               checkpoint_every=2000)))
+    limits = json.loads((pb / "limits" / "fourier_cylinder.one_seed.json").read_text())
+    (pb / "limits" / "fourier_cylinder.twin2.json").write_text(json.dumps(
+        {k: v for k, v in limits.items() if not k.startswith("window_")}))  # packed cells check no window state
+    bench["workloads"].append(dict(name="fourier_cylinder.twin2", config="fourier_cylinder", traffic="twin2", chips=1,
+                                   why="w"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = harness.find_cell(bench, "fourier_cylinder.twin2", tmp_path)
+    assert cell.traffic["seeds"] == 2 and cell.config["reference"] == "fourier"
+    cell.config["run_config"].update(TINY)
+    cell.traffic.update(TINY_TRAFFIC)
+    out = harness.run(cell, 2**31 + 7, 0.5, False, "cpu", time.perf_counter())
+    assert out["correct"] is True, out["compared"]
+    assert "window_loss" not in out["compared"] and out["compared"]["init"]["value"] == 0.0
+    after = _digests(pb)
+    assert {k: v for k, v in after.items() if k in before} == before
+
+
+@pytest.mark.parametrize("name", CELLS)
 def test_a_run_on_the_cpu_reads_correct(name):
     out = tiny_run(name)
     assert out["correct"] is True, out["compared"]
@@ -162,7 +192,7 @@ def _moments_dropped(real):
     return chunk
 
 
-@pytest.mark.parametrize("name", ["cylinder.one_seed", "aneurysm.seeds4"])
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("fault", [_unchanged, _half_rows, _later, _moments_dropped])
 def test_a_fault_under_the_timed_path_reads_not_correct(monkeypatch, name, fault):
     monkeypatch.setattr(tc, "train_chunk_plain_packed", fault(tc.train_chunk_plain_packed))
@@ -171,15 +201,51 @@ def test_a_fault_under_the_timed_path_reads_not_correct(monkeypatch, name, fault
     assert any(v["value"] > v["limit"] for v in out["compared"].values())
 
 
-@pytest.mark.parametrize("name", ["cylinder.one_seed", "aneurysm.seeds4"])
+def _periods_held(real):
+    """The Fourier form's periods' step dropped: each epoch runs as one
+    launch, and ``period`` and ``trig_period`` leave it as they came."""
+
+    def chunk(state, batch, num_steps, spec, cfg, betas=None, lams=None):
+        rows = []
+        for _ in range(num_steps):
+            held = {k: state.params[k] for k in ("period", "trig_period")}
+            state, m = real(state, batch, 1, spec, cfg, betas, lams)
+            state = dataclasses.replace(state, params=dict(state.params, **held))
+            rows.append(m)
+        return state, {k: torch.cat([m[k] for m in rows]) for k in rows[0]}
+
+    return chunk
+
+
+def _top_harmonic_dropped(real):
+    """B built without the series' top harmonic (its coefficients read as
+    0); the series' gradients as before."""
+
+    def forward(zc, per, tw):
+        return real(torch.cat([zc[:, :-2], torch.zeros_like(zc[:, -2:])], dim=1), per, tw)
+
+    return forward
+
+
+@pytest.mark.parametrize("target,fault", [("train_chunk_plain_packed", _periods_held),
+                                          ("series_forward", _top_harmonic_dropped)])
+def test_a_fourier_fault_under_the_timed_path_reads_not_correct(monkeypatch, target, fault):
+    monkeypatch.setattr(tc, target, fault(getattr(tc, target)))
+    out = tiny_run("fourier_cylinder.one_seed")
+    assert out["correct"] is False
+    assert any(v["value"] > v["limit"] for v in out["compared"].values())
+
+
+@pytest.mark.parametrize("name", CELLS)
 def test_the_control_and_the_faults_in_the_programs_place_read_not_correct(name):
     """The reference in TF32 (the control), trained on half the rows (from
     the first epoch, or from a launch's second), with its moments dropped
     after a launch's first epoch, or returning its state unchanged, in the
-    program's place, fails the cell's limits."""
+    program's place, fails the cell's limits; at a Fourier cell also with
+    its periods held and with the top harmonic left out of B."""
     cell = tiny_cell(name)
     _, window, _ = control.program_numbers(cell, 5, "cpu")
-    for side in ("control", "half", "later", "moments", "unchanged"):
+    for side in control.sides(cell.config["run_config"]):
         numbers = control.side_numbers(cell, 5, side, "cpu", window)
         numbers.pop("leaves")
         limits = {k: v for k, v in cell.limits.items() if k in numbers}
@@ -268,23 +334,26 @@ sys.meta_path.insert(0, _NoJax())
 
 def test_nothing_the_harness_runs_imports_jax(tmp_path):
     """Every module of the harness, every metric's reader and a whole tiny
-    run, in a process whose import system refuses jax, jaxlib, flax and the
-    JAX package by whole top-level name (so that desmo_tpu_torch passes)."""
+    run of a desmo and of a Fourier cell, in a process whose import system
+    refuses jax, jaxlib, flax and the JAX package by whole top-level name (so
+    that desmo_tpu_torch passes)."""
     code = _BLOCK + f"""
 import importlib, time
 sys.path.insert(0, {str(ROOT)!r})
 for name in ("perfbench.run", "perfbench.harness", "perfbench.check", "perfbench.control", "perfbench.roofline",
-             "perfbench.timeline", "perfbench.synthetic", "perfbench.reference.desmo"):
+             "perfbench.timeline", "perfbench.synthetic", "perfbench.program_spans", "perfbench.reference.desmo",
+             "perfbench.reference.fourier"):
     importlib.import_module(name)
 from perfbench import harness
 bench = harness.load_benchmark()
 for m in bench["end_to_end"] + bench["per_layer"]:
     harness.reader(m["name"])
-cell = harness.find_cell(bench, "cylinder.one_seed")
-cell.config["run_config"].update({TINY!r})
-cell.traffic.update({TINY_TRAFFIC!r})
-out = harness.run(cell, 3, 0.3, False, "cpu", time.perf_counter())
-assert out["correct"], out
+for name in ("cylinder.one_seed", "fourier_cylinder.one_seed"):
+    cell = harness.find_cell(bench, name)
+    cell.config["run_config"].update({TINY!r})
+    cell.traffic.update({TINY_TRAFFIC!r})
+    out = harness.run(cell, 3, 0.3, False, "cpu", time.perf_counter())
+    assert out["correct"], out
 assert harness.forbidden_modules() == [], harness.forbidden_modules()
 sys.modules["jaxlib_extra"] = sys
 assert harness.forbidden_modules() == []

@@ -1,6 +1,7 @@
-"""The plain reference (``perfbench/reference/desmo.py``) against the port's
-CPU plain chunk at a tiny size, and the reference's own conventions against
-the port's (term order, the packed seeds' initial draws, the POD)."""
+"""The plain references (``perfbench/reference/desmo.py`` and
+``fourier.py``) against the port's CPU plain chunk at a tiny size, and the
+references' own conventions against the port's (term order, the packed
+seeds' initial draws, the POD, the series' time points)."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ from desmo_tpu_torch import configs, ensemble, library, pod, runner, train
 from desmo_tpu_torch.kernels import train_chunk as tc
 from perfbench import check, harness, synthetic
 from perfbench.reference import desmo as ref
+from perfbench.reference import fourier as fref
 
 N, M = 300, 60
 
@@ -22,12 +24,15 @@ def test_monomials_follow_the_library_order(r, p):
     assert ref.num_terms(r, p) == library.num_poly_terms(r, p) + 3 * r
 
 
-def test_seed_params_are_the_packed_seeds_initial_draws():
-    spec = runner.build_model(configs.get("aneurysm"), torch.device("cpu"))[0]
+@pytest.mark.parametrize("preset,module", [("aneurysm", ref), ("fourier_cylinder", fref)])
+def test_seed_params_are_the_packed_seeds_initial_draws(preset, module):
+    cfg = configs.get(preset)
+    spec = runner.build_model(cfg, torch.device("cpu"))[0]
     prog = ensemble.init_params(spec, 4, seed=2**33 + 5, phi_sigma=0.02)
-    want = ref.seed_params(spec.n, spec.m, 4, 2, 1e4, 4, 2**33 + 5, 0.02, "cpu")
+    want = module.seed_params(dict(cfg.__dict__, seed_phi_sigma=0.02), 4, 2**33 + 5, "cpu")
+    assert set(prog) == set(module.LEAVES)
     for s in range(4):
-        for k in ref.LEAVES:
+        for k in module.LEAVES:
             assert torch.equal(prog[k][s], want[s][k]), (s, k)
 
 
@@ -45,8 +50,8 @@ def test_tf32_rounds_to_ten_mantissa_bits():
     assert 0 < float(((ref.tf32(y) - y).abs() / y.abs()).max()) <= 2.0**-11
 
 
-def _problem(omega_init: float, lr_omega: float, seeds: int = 1):
-    cfg = dict(configs.get("cylinder").__dict__)
+def _problem(omega_init: float, lr_omega: float, seeds: int = 1, preset: str = "cylinder"):
+    cfg = dict(configs.get(preset).__dict__)
     cfg.update(n=N, m=M, omega_init=omega_init, lr_omega=lr_omega, chunk_method="megakernel", n_seeds=seeds)
     cfg = configs.RunConfig(**cfg)
     x = synthetic.wake(N, M, 7, "cpu")
@@ -56,19 +61,15 @@ def _problem(omega_init: float, lr_omega: float, seeds: int = 1):
     return cfg, spec, batch, params, x, p.modes
 
 
-def _ref_cfg(cfg):
-    return {k: getattr(cfg, k) for k in ("poly_order", "patience", "sched_factor", "sched_min_lr", "sched_every")}
-
-
 def test_three_reference_epochs_follow_the_plain_chunk():
     """At omega_init=1 two float32 orders stay together: the reference's own
     trajectory holds the plain chunk's state and metrics tightly."""
     cfg, spec, batch, params, x, modes = _problem(1.0, 1.0)
     state = train.init_state(params, cfg)
-    st = ref.initial_state(ref.initial_params(N, M, 4, 3, 1.0, "cpu"), cfg.group_lrs)
+    st = ref.initial_state(ref.initial_params(cfg.__dict__, "cpu"), cfg.group_lrs)
     for _ in range(3):
         state, mets = tc.fused_train_chunk(state, batch, 1, spec, cfg)
-        m_ref, _, st = ref.epoch(st, x, modes, _ref_cfg(cfg), cfg.beta, cfg.l1_lambda)
+        m_ref, _, st = ref.epoch(st, x, modes, cfg.__dict__, cfg.beta, cfg.l1_lambda)
         for key in ("rec", "l1", "total"):
             assert float(mets[key][0]) == pytest.approx(m_ref[key], rel=2e-6)
         assert float(mets["ortho"][0]) == pytest.approx(m_ref["ortho"], abs=1e-6)
@@ -77,12 +78,14 @@ def test_three_reference_epochs_follow_the_plain_chunk():
     assert state.epoch == st["epoch"] == 3 and state.count == st["count"] == 3
 
 
+@pytest.mark.parametrize("preset,reference", [("cylinder", "desmo"), ("fourier_cylinder", "fourier")])
 @pytest.mark.parametrize("seeds", [1, 2])
-def test_check_reads_the_plain_chunk_as_the_reference_at_the_preset_omega(seeds):
+def test_check_reads_the_plain_chunk_as_the_reference_at_the_preset_omega(seeds, preset, reference):
     """At omega_init=1e4 the check follows the program step by step: the
     plain chunk reads within float32 rounding on every number, one seed or
-    packed."""
-    cfg, spec, batch, params, x, modes = _problem(1e4, 1e3, seeds)
+    packed, desmo or Fourier."""
+    cfg, spec, batch, params, x, modes = _problem(1e4, 1e3, seeds, preset)
+    module = check.reference_module(reference)
     if seeds == 1:
         chunk = tc.select_chunk(spec, cfg, torch.device("cpu"))
         state = train.init_state(params, cfg)
@@ -90,15 +93,50 @@ def test_check_reads_the_plain_chunk_as_the_reference_at_the_preset_omega(seeds)
         chunk = tc.select_ensemble_chunk(spec, cfg, seeds, torch.device("cpu"))
         state = ensemble.init_state(ensemble.init_params(spec, seeds, seed=11, phi_sigma=cfg.seed_phi_sigma), cfg,
                                     seeds)
-    states, mets = [harness.host_states(state, seeds, seeds > 1)], []
+    states, mets = [harness.host_states(state, seeds, seeds > 1, module.LEAVES)], []
     for _ in range(3):
         state, m = chunk(state, batch, 1)
         mets.append(harness.seed_metrics(m, seeds))
-        states.append(harness.host_states(state, seeds, seeds > 1))
+        states.append(harness.host_states(state, seeds, seeds > 1, module.LEAVES))
     obs = check.Observed(x=x, modes=batch["pod_modes"], states=[[st[s] for st in states] for s in range(seeds)],
                          metrics=[[mm[s] for mm in mets] for s in range(seeds)])
     rc = dict(cfg.__dict__)
-    numbers = check.compare(obs, rc, [(cfg.beta, cfg.l1_lambda)] * seeds, "desmo", 11)
+    numbers = check.compare(obs, rc, [(cfg.beta, cfg.l1_lambda)] * seeds, reference, 11)
     assert numbers["pod"] == 0.0 and numbers["init"] == 0.0
     assert numbers["loss"] < 1e-5 and numbers["ortho"] < 1e-6
     assert numbers["grad"] < 1e-5 and numbers["update"] < 1e-5
+
+
+def test_three_fourier_reference_epochs_follow_the_plain_chunk():
+    """The Fourier reference's own trajectory against the plain chunk's
+    Fourier form at omega_init=1: B from the series formed directly on
+    ``torch.linspace`` against the chunk's recurrence on ``t_points``, the
+    periods stepped in their own group."""
+    cfg, spec, batch, params, x, modes = _problem(1.0, 1.0, preset="fourier_cylinder")
+    state = train.init_state(params, cfg)
+    st = fref.initial_state(fref.initial_params(cfg.__dict__, "cpu"), cfg.group_lrs)
+    for _ in range(3):
+        state, mets = tc.fused_train_chunk(state, batch, 1, spec, cfg)
+        m_ref, _, st = fref.epoch(st, x, modes, cfg.__dict__, cfg.beta, cfg.l1_lambda)
+        for key in ("rec", "l1", "total"):
+            assert float(mets[key][0]) == pytest.approx(m_ref[key], rel=2e-6)
+        assert float(mets["ortho"][0]) == pytest.approx(m_ref["ortho"], abs=1e-6)
+        for k in fref.LEAVES:
+            np.testing.assert_allclose(state.params[k].numpy(), st["params"][k].numpy(), rtol=1e-5, atol=1e-6)
+    assert state.epoch == st["epoch"] == 3 and state.count == st["count"] == 3
+    assert not torch.equal(st["params"]["period"], fref.initial_params(cfg.__dict__, "cpu")["period"])
+
+
+def test_the_series_time_points_are_linspace_rounded_once():
+    """The reference's t is the points j m / (m - 1) each rounded once to
+    float32, as NumPy's float32 linspace and the program's ``t_points`` have
+    them; the script's ``torch.linspace(0, m, m)`` in float32 lies within one
+    float32 step of them."""
+    from desmo_tpu_torch.models import fourier as prog_fourier
+
+    for m in (80, 1001):
+        t = fref.t_points(m, "cpu")
+        exact = np.arange(m, dtype=np.float64) * (m / (m - 1))
+        assert np.array_equal(t.numpy(), exact.astype(np.float32))
+        assert np.array_equal(t.numpy(), prog_fourier.t_points(m))
+        np.testing.assert_allclose(torch.linspace(0, m, m).numpy(), t.numpy(), rtol=2.0**-23, atol=0)
