@@ -30,7 +30,14 @@ epoch of the next launch from there. For each of ``--control-seeds``:
   of its series: ``periods``, the reference with the periods' step dropped
   (``period`` and ``trig_period`` held at each epoch's start), and
   ``harmonic``, the reference with the top harmonic left out of B (its
+  window number the loss so formed of the program's checkpointed state);
+- for a configuration with the AE variant's decoder term (``ae_beta`` > 0),
+  ``decoder``: the reference with that term left out of the total (its
   window number the loss so formed of the program's checkpointed state).
+
+"The first half of the rows" halves X, the POD modes and the leaves with an
+entry per row (the reference's ``ROW_LEAVES``: desmo's masks; none of the
+AE variant's, whose MLP every row shares).
 
 Each side's reference is ``reference.<name>`` with the configuration's whole
 ``run_config`` (the interface ``check.py`` states).
@@ -61,18 +68,30 @@ from perfbench import check, harness, synthetic  # noqa: E402
 FREE_EPOCHS = 5  # the epochs of the launch held to the reference run on its own, for the record
 SIDES = ("control", "half", "later", "moments", "unchanged")
 FOURIER_SIDES = ("periods", "harmonic")
+AE_SIDES = ("decoder",)
+# the sides whose window number is the program's checkpointed state's loss
+# as that side forms it
+WINDOW_SIDES = ("control", "half", "harmonic", "decoder")
 
 
 def sides(rc: dict) -> tuple:
     """The sides other than the program that a cell of ``run_config`` rc
     reads."""
-    return SIDES + (FOURIER_SIDES if rc.get("n_fourier", 0) else ())
+    return SIDES + (FOURIER_SIDES if rc.get("n_fourier", 0) else ()) + (AE_SIDES if rc.get("ae_beta", 0) else ())
 
 
 def side_config(rc: dict, side: str) -> dict:
     """The ``run_config`` the reference of ``side`` runs with: for
-    ``harmonic``, one harmonic fewer in B (the state keeps its shapes)."""
-    return dict(rc, n_fourier=rc["n_fourier"] - 1) if side == "harmonic" else rc
+    ``harmonic``, one harmonic fewer in B (the state keeps its shapes); for
+    ``decoder``, no decoder term."""
+    if side == "harmonic":
+        return dict(rc, n_fourier=rc["n_fourier"] - 1)
+    return dict(rc, ae_beta=0.0) if side == "decoder" else rc
+
+
+def rows_of(tree: dict, ref, h: int) -> dict:
+    """``tree`` with the reference's ``ROW_LEAVES`` cut to their first h rows."""
+    return dict(tree, **{k: tree[k][..., :h] for k in ref.ROW_LEAVES})
 
 
 def program_numbers(cell, seed: int, device: str) -> dict:
@@ -81,14 +100,14 @@ def program_numbers(cell, seed: int, device: str) -> dict:
     cfg = su.cfg
     S = cfg.n_seeds
     at, m = su.chunk(su.state, su.batch, cfg.checkpoint_every)
-    rows = [harness.seed_metrics(m, S, k) for k in range(FREE_EPOCHS)]
+    rows = [harness.seed_metrics(m, S, su.ref.METRICS, k) for k in range(FREE_EPOCHS)]
     for s in range(S):
         obs.launch.append((s, [row[s] for row in rows[:harness.FIRST_STEPS]]))
     window_state = None
     if S == 1:
         _, m = su.chunk(at, su.batch, cfg.checkpoint_every)
-        window_state = harness.host_states(at, 1, False, su.leaves)[0]["params"]
-        obs.window.append((window_state, harness.seed_metrics(m, 1)[0]))
+        window_state = harness.host_states(at, 1, False, su.ref.LEAVES)[0]["params"]
+        obs.window.append((window_state, harness.seed_metrics(m, 1, su.ref.METRICS)[0]))
     hypers = [(cfg.beta, cfg.l1_lambda)] * S
     leaves: dict = {}
     numbers = check.compare(obs, cell.config["run_config"], hypers, cell.config["reference"], seed, leaves)
@@ -129,12 +148,11 @@ def _trajectory(ref, x, modes, init: dict, rc: dict, low: bool, rows=(None,) * 3
         if h is None:
             m, _, nxt = ref.epoch(st, x, modes, rc, rc["beta"], rc["l1_lambda"], low)
         else:
-            part = dict(st, params={}, mu={}, nu={})
-            for tree in ("params", "mu", "nu"):
-                part[tree] = dict(st[tree], phi=st[tree]["phi"][:, :h])
+            part = dict(st, **{tree: rows_of(st[tree], ref, h) for tree in ("params", "mu", "nu")})
             m, _, nxt = ref.epoch(part, x[:h], modes[:h], rc, rc["beta"], rc["l1_lambda"], low)
             for tree in ("params", "mu", "nu"):
-                nxt[tree]["phi"] = torch.cat([nxt[tree]["phi"], st[tree]["phi"][:, h:]], dim=1)
+                for k in ref.ROW_LEAVES:
+                    nxt[tree][k] = torch.cat([nxt[tree][k], st[tree][k][..., h:]], dim=-1)
         for k in held:
             nxt["params"][k] = st["params"][k].clone()
         st = nxt
@@ -164,7 +182,7 @@ def side_numbers(cell, seed: int, side: str, device: str, window_state=None) -> 
         elif side == "half":
             states, mets = _trajectory(ref, x, modes, inits[s], rc, False, rows=(h,) * steps)
             launch = mets
-        elif side in ("periods", "harmonic"):
+        elif side in ("periods", "harmonic", "decoder"):
             states, mets = _trajectory(ref, x, modes, inits[s], side_config(rc, side), False,
                                        held=ref.PERIOD_LEAVES if side == "periods" else ())
             launch = mets
@@ -182,12 +200,12 @@ def side_numbers(cell, seed: int, side: str, device: str, window_state=None) -> 
                            for st in states])
         obs.metrics.append(mets)
         obs.launch.append((s, launch))
-    if side in ("control", "half", "harmonic") and window_state is not None:
+    if side in WINDOW_SIDES and window_state is not None:
         params = {k: v.to(dev) for k, v in window_state.items()}
         rows = h if side == "half" else rc["n"]
         with torch.no_grad():
-            _, m = ref.loss(dict(params, phi=params["phi"][:, :rows]), x[:rows], modes[:rows], side_config(rc, side),
-                            rc["beta"], rc["l1_lambda"], side == "control")
+            _, m = ref.loss(rows_of(params, ref, rows), x[:rows], modes[:rows], side_config(rc, side), rc["beta"],
+                            rc["l1_lambda"], side == "control")
         obs.window.append((window_state, {k: float(v) for k, v in m.items()}))
     hypers = [(rc["beta"], rc["l1_lambda"])] * S
     leaves: dict = {}

@@ -2,14 +2,17 @@
 comparison that decides ``correct``.
 
 Everything a cell is made of is found by name: the cell's entry in
-``BENCHMARK.json``, its configuration's file (``configs/<name>.json``, the
-program's ``RunConfig`` as it is run, and the name of its plain reference
-under ``reference/``, a module with the interface ``reference/desmo.py``'s
+``BENCHMARK.json``, its configuration's file (``configs/<name>.json``: the
+program's ``RunConfig`` as it is run; the name of its plain reference under
+``reference/``, a module with the interface ``reference/desmo.py``'s
 docstring states: the state's leaves ``LEAVES``, which the harness reads
-back from the program's states, checkpoints and exports, and the
-reference's functions, which take the configuration's whole
-``run_config``), its traffic mix (``traffic/<name>.json``: the packed
-seeds, a job's epochs, the log and checkpoint cadence), the limits of its
+back from the program's states, checkpoints and exports, the terms of the
+loss ``METRICS``, whether the batch carries the POD modes, the ``.pt`` keys,
+and the reference's functions, which take the configuration's whole
+``run_config``; and ``kernel``, the program's chunk kernel: its ``name`` in
+the device trace and the ``module`` whose ``phase_split`` reads its clock),
+its traffic mix (``traffic/<name>.json``: the packed seeds, a job's epochs,
+the log and checkpoint cadence), the limits of its
 compared numbers (``limits/<cell>.json``) and one reader per metric
 (``metrics/<metric>.py``, a function ``read(run)`` that returns the number,
 or None where it finds nothing to read).
@@ -18,9 +21,11 @@ A run, for a cell of S packed seeds:
 
 1. Set-up: X from the seed (``synthetic.wake``) at the configuration's
    (n, m); the POD (``runner.compute_pod``), the batch
-   (``runner.prepare_batch``) and the model (``runner.build_model``); the
-   chunk the window's fit launches (``kernels.train_chunk.select_chunk``,
-   or for S > 1 ``select_ensemble_chunk``, which ``ensemble.fit`` calls with
+   (``runner.prepare_batch``, with the POD modes or, where the reference's
+   latents do not come from them, X's column sums) and the model
+   (``runner.build_model``); the chunk the window's fit launches
+   (``kernels.train_chunk.select_chunk``, or for S > 1
+   ``select_ensemble_chunk``, which ``ensemble.fit`` calls with
    the same arguments) and the initial state; the first three epochs from
    that state, one launch each, kept for the comparison (the chunk returns
    new states, so the initial state is left as it was); one checkpoint
@@ -35,7 +40,8 @@ A run, for a cell of S packed seeds:
    its next chunk boundary with its final checkpoint, and the window ends
    when it returns. With ``trace`` the window runs under ``torch.profiler``
    with the benchmark's spans around each fit, chunk call, ``checkpoint_fn``
-   and ``log`` call.
+   and ``log`` call, and after the window one launch of ``PHASE_EPOCHS``
+   epochs reads the kernel's clock (``phase_split``).
 3. The comparison (``check.compare``), after the program's state is freed.
 """
 
@@ -90,8 +96,10 @@ class Run:
     seeds: int
     least_epoch_s: float  # roofline.least_epoch_s of one epoch of the packed seeds
     setup_spans: dict  # seconds of set-up steps by name
+    kernel: str  # the chunk kernel's name in the device trace
     timeline: Optional[Timeline] = None
     trace_window: Optional[tuple] = None
+    phases: Optional[dict] = None  # seconds by part of the traced run's phase_split launch
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -183,13 +191,14 @@ def host_states(state, seeds: int, stacked: bool, leaves) -> list:
     return out
 
 
-def seed_metrics(mets: dict, seeds: int, row: int = 0) -> list:
-    """One epoch's metrics per seed from a chunk's metrics."""
+def seed_metrics(mets: dict, seeds: int, keys, row: int = 0) -> list:
+    """One epoch's metrics per seed from a chunk's metrics, those named by
+    ``keys`` (the reference's ``METRICS``)."""
     v = {k: t.detach().to("cpu", torch.float64).numpy() for k, t in mets.items()}
     if "total_s" in v:
         return [{"rec": v["rec"][row, s], "ortho": v["ortho"][row, s], "l1": v["l1"][row, s],
                  "total": v["total_s"][row, s]} for s in range(seeds)]
-    return [{k: v[k][row] for k in ("rec", "ortho", "l1", "total")}]
+    return [{k: v[k][row] for k in keys}]
 
 
 def flat_state(state, leaves) -> dict:
@@ -207,36 +216,11 @@ def flat_state(state, leaves) -> dict:
     return out
 
 
-def pt_params(path: str, leaves) -> dict:
-    """The parameters of an exported ``.pt`` in the reference scripts' key
-    scheme (``phi_list.i``, ``c_coef``, ``z_list.t``, ``z{kind}_list.i``,
-    ``{kind}_coef_list.i``, ``omega_list.{3i+k}``; the Fourier variant's
-    ``period_list.t`` and ``trig_period_list.{3i+k}``), of the reference's
-    ``leaves``."""
+def pt_params(path: str, ref) -> dict:
+    """The parameters of an exported ``.pt``, read by the reference module
+    ``ref``'s key scheme (``ref.pt_params``)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-
-    def stack(prefix):
-        items = []
-        while f"{prefix}.{len(items)}" in sd:
-            items.append(sd[f"{prefix}.{len(items)}"].numpy())
-        return np.stack(items)
-
-    phi = stack("phi_list")
-    r = phi.shape[0]
-    kinds = ("sin", "cos", "tanh")
-
-    def per_channel(prefix):
-        return np.array([[float(sd[f"{prefix}.{3 * i + k}"]) for i in range(r)] for k in range(3)], np.float32)
-
-    out = {
-        "phi": phi, "c": sd["c_coef"].numpy(), "z": stack("z_list"),
-        "z_trig": np.stack([stack(f"z{k}_list") for k in kinds]),
-        "c_trig": np.array([[float(sd[f"{k}_coef_list.{i}"]) for i in range(r)] for k in kinds], np.float32),
-        "omega": per_channel("omega_list"),
-    }
-    if "period" in leaves:
-        out.update(period=stack("period_list").reshape(-1), trig_period=per_channel("trig_period_list"))
-    return {f"pt/params/{k}": out[k] for k in leaves}
+    return {f"pt/params/{k}": v for k, v in ref.pt_params(sd).items()}
 
 
 def npz_state(path: str) -> dict:
@@ -263,7 +247,7 @@ class Setup:
     states: list  # [s0, s1, s2, s3], each a list of per-seed host states
     mets: list  # [m1, m2, m3], each a list of per-seed metrics
     spans: dict  # seconds of set-up steps by name
-    leaves: tuple  # the reference's LEAVES
+    ref: object  # the reference module
 
 
 def set_up(cell: Cell, seed: int, device: str) -> Setup:
@@ -285,7 +269,8 @@ def set_up(cell: Cell, seed: int, device: str) -> Setup:
 
     dev = device_mod.resolve(device)
     cfg = run_config(cell, seed)
-    leaves = check.reference_module(cell.config["reference"]).LEAVES
+    ref = check.reference_module(cell.config["reference"])
+    leaves = ref.LEAVES
     S = cfg.n_seeds
     torch.empty(1, device=dev)
     mark("device")
@@ -298,7 +283,7 @@ def set_up(cell: Cell, seed: int, device: str) -> Setup:
     mark("x")
     pod, _ = runner.compute_pod(cfg, x_host, dev)
     mark("pod")
-    batch = runner.prepare_batch(x_host, pod.modes, dev)
+    batch = runner.prepare_batch(x_host, pod.modes if ref.LATENT_FROM_POD else None, dev)
     spec, params, loss_fn, groups = runner.build_model(cfg, dev)
     mark("model")
     if S == 1:
@@ -315,11 +300,10 @@ def set_up(cell: Cell, seed: int, device: str) -> Setup:
     states, mets = [host_states(state, S, S > 1, leaves)], []
     for _ in range(FIRST_STEPS):
         state, m = chunk(state, batch, 1)
-        mets.append(seed_metrics(m, S))
+        mets.append(seed_metrics(m, S, ref.METRICS))
         states.append(host_states(state, S, S > 1, leaves))
     mark("first_epochs")
-    return Setup(cfg, dev, x, pod.modes, batch, spec, params, loss_fn, groups, chunk, init, states, mets, spans,
-                 leaves)
+    return Setup(cfg, dev, x, pod.modes, batch, spec, params, loss_fn, groups, chunk, init, states, mets, spans, ref)
 
 
 def observed(su: Setup) -> check.Observed:
@@ -337,7 +321,6 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     ``attempted``, ``failed``, ``metrics``, ``device``, ``breakdown``,
     ``compared``)."""
     from desmo_tpu_torch import checkpoint, ensemble, runner, train
-    from desmo_tpu_torch.kernels import train_chunk as tc
 
     work_dir = tempfile.mkdtemp(prefix="perfbench-")
     try:
@@ -345,7 +328,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         cfg, dev, batch, spec, chunk = su.cfg, su.dev, su.batch, su.spec, su.chunk
         params, loss_fn, groups = su.params, su.loss_fn, su.groups
         S = cfg.n_seeds
-        start, spans, leaves = su.state, su.spans, su.leaves
+        start, spans, ref = su.state, su.spans, su.ref
+        leaves = ref.LEAVES
         written: list = []
         # block-buffered, as the runner's output redirected to a file
         log_file = open(os.path.join(work_dir, "run.log"), "w")
@@ -416,7 +400,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         window_s = t1 - t0
         peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" else 0
 
-        timeline = trace_window = None
+        timeline = trace_window = phases = None
         if trace:
             path = os.path.join(work_dir, "trace.json")
             profiler.export_chrome_trace(path)
@@ -426,7 +410,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
             print("device idle, s, by what the host was doing: "
                   + json.dumps(timeline.idle_by_host(*trace_window)), file=err)
             if dev.type == "cuda":
-                phases = tc.phase_split(start, batch, PHASE_EPOCHS, spec, cfg)
+                kernel = importlib.import_module(cell.config["kernel"]["module"])
+                phases = kernel.phase_split(start, batch, PHASE_EPOCHS, spec, cfg)
                 print("kernel clock, us an epoch over a launch of "
                       f"{PHASE_EPOCHS} epochs: " + json.dumps({k: v * 1e6 / PHASE_EPOCHS for k, v in phases.items()}),
                       file=err)
@@ -436,14 +421,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
         last = [j for j in jobs if len(j[2]) >= 1][-1]
         res, best, ckpts = last
         final = npz_state(os.path.join(work_dir, f"state_epoch{ckpts[-1]}.npz"))
-        final.update(pt_params(os.path.join(work_dir, f"{cfg.name}_r{cfg.r}_epoch{ckpts[-1]}.pt"), leaves))
+        final.update(pt_params(os.path.join(work_dir, f"{cfg.name}_r{cfg.r}_epoch{ckpts[-1]}.pt"), ref))
         returned = flat_state(res.state, leaves)
         returned.update({f"pt/{k}": v for k, v in returned.items() if k.startswith("params/")})
         obs.checkpoint = (final, returned)
         # the window's first launch: its first epochs, of the seed the fit
         # reports, from the initial state
         res0, best0, ck0 = jobs[0]
-        launch = [{key: float(res0.history[key][k]) for key in check.METRICS} for k in range(FIRST_STEPS)]
+        launch = [{key: float(res0.history[key][k]) for key in ref.METRICS} for k in range(FIRST_STEPS)]
         obs.launch.append((best0, launch))
         b = cfg.checkpoint_every
         if S == 1 and b in ck0 and len(res0.history["rec"]) > b:
@@ -453,7 +438,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
             saved = npz_state(os.path.join(work_dir, f"state_epoch{b}.npz"))
             obs.window.append((
                 {leaf: torch.as_tensor(saved[f"params/{leaf}"]) for leaf in leaves},
-                {key: float(res0.history[key][b]) for key in check.METRICS},
+                {key: float(res0.history[key][b]) for key in ref.METRICS},
             ))
         del jobs, res, start, batch, chunk, fit_chunk, params, su
         if dev.type == "cuda":
@@ -464,12 +449,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t_start
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
 
-    r = cell.config["run_config"]
-    k = roofline.num_terms(r["r"], r["poly_order"])
-    least = roofline.least_epoch_s(r["n"], r["m"], k, r["r"], seeds=S, nf=r["n_fourier"],
-                                   epochs=cfg.checkpoint_every)
+    least = roofline.config_least_epoch_s(cell.config["run_config"], S, cfg.checkpoint_every)
     reading = Run(setup_s=setup_s, window_s=window_s, seed_epochs=seed_epochs, seeds=S, least_epoch_s=least,
-                  setup_spans=spans, timeline=timeline, trace_window=trace_window)
+                  setup_spans=spans, kernel=cell.config["kernel"]["name"], timeline=timeline,
+                  trace_window=trace_window, phases=phases)
     entries = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for entry in entries:

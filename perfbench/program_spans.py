@@ -18,7 +18,7 @@ boundary is placed by the launch that ends it, where the window's launches
 carry their calls (:func:`launch_calls`): the call is put at its kernel's
 start, which it precedes by 15-30 us on an idle card.
 
-The device-idle time between two consecutive mega-kernel launches of the
+The device-idle time between two consecutive chunk-kernel launches of the
 window is put down, instant by instant, to the innermost program span open on
 the fit's thread (spans on other threads, the checkpoint worker's, take none):
 a gap is split by overlap. Each span counts under the boundary part whose
@@ -36,6 +36,9 @@ import bisect
 import json
 
 FIT = "fit"
+# the mega-kernel's name in the device trace: the boundary parts read its
+# cells alone, since the AE kernel's wrapper keeps no ``chunk.*`` spans and no
+# launch calls; the rest here takes the cell's own kernel (``Run.kernel``)
 MEGAKERNEL = "train_chunk_kernel"
 # the boundary part each span's subtree counts under
 PARTS = {
@@ -71,11 +74,11 @@ def offset(run, records) -> float | None:
 
 
 def launch_calls(run, records, off: float) -> list | None:
-    """The program times of the calls that launched the window's mega-kernel
+    """The program times of the calls that launched the window's chunk-kernel
     launches (``Record.launched``, placed in the window by ``off``), one per
     kernel in order, or None where they do not pair one to one."""
     lo, hi = run.trace_window
-    kernels = run.timeline.kernels(MEGAKERNEL, lo, hi)
+    kernels = run.timeline.kernels(run.kernel, lo, hi)
     calls = sorted(r.launched for r in records if r.launched is not None and lo <= r.launched + off <= hi)
     return calls if calls and len(calls) == len(kernels) else None
 
@@ -126,7 +129,7 @@ def attribute(run, records=None) -> dict | None:
     if off is None:
         return None
     lo, hi = run.trace_window
-    launches = run.timeline.kernels(MEGAKERNEL, lo, hi)
+    launches = run.timeline.kernels(run.kernel, lo, hi)
     if len(launches) < 2:
         return None
     calls = launch_calls(run, records, off)
@@ -158,7 +161,10 @@ def attribute(run, records=None) -> dict | None:
 
 
 def boundary_ms(run, part: str, records=None) -> float | None:
-    """Mean idle ms a chunk boundary put down to ``part``."""
+    """Mean idle ms a chunk boundary put down to ``part``; None where the
+    cell's chunk kernel is not the mega-kernel (:data:`MEGAKERNEL`)."""
+    if run.kernel != MEGAKERNEL:
+        return None
     att = attribute(run, records)
     if att is None:
         return None

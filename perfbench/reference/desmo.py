@@ -17,15 +17,20 @@ A state is a dict: ``params``, ``mu``, ``nu`` (dicts of leaves ``phi``
 ``omega`` (3, r)), ``count``, ``lrs`` (5,), ``best``, ``num_bad`` and
 ``epoch``; one model, no seed axis.
 
-The interface every reference module gives the harness (``check.py``,
-``control.py``), with ``config`` a configuration's whole ``run_config``:
-``LEAVES`` (the state's leaves, as the program's ``TrainState`` names them),
-``LATENT_LEAVES``, ``PERIOD_LEAVES``, ``B1``, ``full_fp32()``,
-``pod_modes(x, r, low)``, ``seed_params(config, n_seeds, seed, device)``,
-``initial_state(params, group_lrs)``, ``epoch(state, x, modes, config,
-beta, lam, low)`` and ``loss(params, x, modes, config, beta, lam, low)``.
-``epoch`` and ``loss`` take n and m from X (a fault may hand them part of
-its rows), ``seed_params`` from ``config``.
+The interface every reference module gives the harness (``harness.py``,
+``check.py``, ``control.py``), with ``config`` a configuration's whole
+``run_config``: ``LEAVES`` (the state's leaves, as the program's
+``TrainState`` names them), ``LATENT_LEAVES``, ``PERIOD_LEAVES``,
+``ROW_LEAVES`` (those with an entry per row of X, last axis),
+``GRAD_GROUPS``, ``ORTHO_RELATIVE`` (``check.py`` says what they do), ``METRICS``
+(the terms ``loss`` returns, ``total`` among them, as the program's chunk
+names them), ``LATENT_FROM_POD`` (whether the program's batch carries the
+POD modes), ``B1``, ``full_fp32()``, ``pod_modes(x, r, low)``,
+``seed_params(config, n_seeds, seed, device)``, ``initial_state(params,
+group_lrs)``, ``epoch(state, x, modes, config, beta, lam, low)``, ``loss(params,
+x, modes, config, beta, lam, low)`` and ``pt_params(state_dict)`` (the
+leaves of an exported ``.pt``). ``epoch`` and ``loss`` take n and m from X
+(a fault may hand them part of its rows), ``seed_params`` from ``config``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,17 @@ GROUP = {"c": 0, "c_trig": 0, "phi": 1, "z": 2, "z_trig": 2, "omega": 3}
 LATENT_LEAVES = ("phi",)
 # the Fourier variant's learnable periods, none here
 PERIOD_LEAVES = ()
+ROW_LEAVES = ("phi",)
+# the latents are the POD modes times the masks
+LATENT_FROM_POD = True
+# groups of leaves whose first gradients ``check.compare`` measures apart,
+# each against its own median leaf: none here
+GRAD_GROUPS: dict = {}
+# ortho, a sum of |Gram entries| that starts at rounding noise, by its
+# absolute gap
+ORTHO_RELATIVE = False
+METRICS = ("rec", "ortho", "l1", "total")
+KINDS = ("sin", "cos", "tanh")
 B1, B2, EPS = 0.9, 0.999, 1e-8
 PLATEAU_THRESHOLD = 1e-4
 
@@ -244,3 +260,30 @@ def epoch(state: dict, x: torch.Tensor, modes: torch.Tensor, config: dict, beta:
           low: bool = False) -> tuple[dict, dict, dict]:
     """One epoch of :func:`loss` from ``state`` (:func:`step`)."""
     return step(state, lambda p: loss(p, x, modes, config, beta, lam, low), config)
+
+
+def stacked(sd: dict, prefix: str) -> np.ndarray:
+    """The tensors ``{prefix}.0``, ``{prefix}.1``, ... of a state dict, stacked."""
+    items = []
+    while f"{prefix}.{len(items)}" in sd:
+        items.append(sd[f"{prefix}.{len(items)}"].numpy())
+    return np.stack(items)
+
+
+def per_channel(sd: dict, prefix: str, r: int) -> np.ndarray:
+    """The scalars ``{prefix}.{3i+k}`` as (3, r): kind k of mode i."""
+    return np.array([[float(sd[f"{prefix}.{3 * i + k}"]) for i in range(r)] for k in range(3)], np.float32)
+
+
+def pt_params(sd: dict) -> dict:
+    """The leaves of an exported ``.pt`` in the reference scripts' key scheme
+    (``phi_list.i``, ``c_coef``, ``z_list.t``, ``z{kind}_list.i``,
+    ``{kind}_coef_list.i``, ``omega_list.{3i+k}``), as arrays."""
+    phi = stacked(sd, "phi_list")
+    r = phi.shape[0]
+    return {
+        "phi": phi, "c": sd["c_coef"].numpy(), "z": stacked(sd, "z_list"),
+        "z_trig": np.stack([stacked(sd, f"z{k}_list") for k in KINDS]),
+        "c_trig": np.array([[float(sd[f"{k}_coef_list.{i}"]) for i in range(r)] for k in KINDS], np.float32),
+        "omega": per_channel(sd, "omega_list", r),
+    }

@@ -54,7 +54,10 @@ import math
 import torch
 
 from perfbench.reference import desmo
-from perfbench.reference.desmo import B1, LATENT_LEAVES, full_fp32, initial_state, pod_modes  # noqa: F401
+from perfbench.reference.desmo import (  # noqa: F401
+    B1, GRAD_GROUPS, LATENT_FROM_POD, LATENT_LEAVES, METRICS, ORTHO_RELATIVE, ROW_LEAVES, full_fp32, initial_state,
+    pod_modes,
+)
 
 LEAVES = ("phi", "c", "z", "period", "z_trig", "trig_period", "c_trig", "omega")
 # each leaf's optimizer group, as index into the config's (lr_coef, lr_phi,
@@ -124,3 +127,11 @@ def epoch(state: dict, x: torch.Tensor, modes: torch.Tensor, config: dict, beta:
     """One epoch of :func:`loss` from ``state`` (``desmo.step`` over
     :data:`LEAVES`, the periods in the ``lr_period`` group)."""
     return desmo.step(state, lambda p: loss(p, x, modes, config, beta, lam, low), config, LEAVES, GROUP)
+
+
+def pt_params(sd: dict) -> dict:
+    """``desmo.pt_params`` with the periods' keys ``period_list.t`` and
+    ``trig_period_list.{3i+k}``."""
+    out = desmo.pt_params(sd)
+    return dict(out, period=desmo.stacked(sd, "period_list").reshape(-1),
+                trig_period=desmo.per_channel(sd, "trig_period_list", out["phi"].shape[0]))

@@ -58,7 +58,7 @@ def run(device_extra=(), window=(0.0, 1.1)):
                      *device_extra])
     tl = Timeline(device=device, spans=[(0.0, 1.05, "fit", 1)], window_span=window)
     return harness.Run(setup_s=1.0, window_s=1.0, seed_epochs=6000, seeds=1, least_epoch_s=1e-6,
-                       setup_spans={}, timeline=tl, trace_window=window)
+                       setup_spans={}, kernel="train_chunk_kernel", timeline=tl, trace_window=window)
 
 
 @pytest.fixture
